@@ -15,7 +15,13 @@ Phases (any failure exits non-zero):
   4. serve three more batches and time each;
   5. trace one more batch with torch.profiler: the device's busy share of
      the window, host and device time per stage span, the top kernels,
-     and the device time of the port's own kernels.
+     and the device time of the port's own kernels;
+  6. whole-scene inference, `FusedSceneInference` at the parity settings:
+     (a) `predict_scene` on the golden scene against the JAX golden
+     `tests/data/torch_golden_scene_synth48.npz` (depth, chosen grid, drop
+     counters, launch counts); (b) `predict_scenes` over three scenes of 52
+     views (48 refs, three chunks of 16), timed per scene; (c) one more
+     scene traced as in phase 5.
 
 The line before the last is the `kernels` JSON; the last line is the device
 JSON. Imports nothing of JAX; the port runs on the card only.
@@ -34,6 +40,11 @@ SERVE_SEEDS = (2, 3, 4)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "weights", "3dvnet_synth48.npz")
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_synth48.npz")
+SCENE_GOLDEN = os.path.join(ROOT, "tests", "data",
+                            "torch_golden_scene_synth48.npz")
+# the streamed scenes: 48 refs + 2 x 2 source-only views, three of them
+STREAM_VIEWS = 52
+STREAM_SEEDS = (7, 8, 9)
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
@@ -43,19 +54,62 @@ FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 INIT_MAX_REL = 1e-3
 FINAL_MEDIAN_ABS = 1e-3
 ABS_REL_DELTA = 2e-3
-EXPECTED_LAUNCHES = {"source_variance": 9, "trilinear_sample": 18,
-                     "propagation_blend": 3, "softargmax_depth": 1}
+STREAM_ABS_REL_SLACK = 5e-3
 
+# kernel -> (source, the TPU op it replaces, its wrappers in
+# tdvnet_torch.kernels.WRAPPERS)
 KERNEL_META = {
     "source_variance": ("tdvnet_torch/csrc/source_variance.cu",
-                        "tdvnet/ops/costvolume.py:36"),
+                        "tdvnet/ops/costvolume.py:36", ("source_variance",)),
     "trilinear_sample": ("tdvnet_torch/csrc/trilinear_sample.cu",
-                         "tdvnet/ops/sampling.py:199"),
+                         "tdvnet/ops/sampling.py:199", ("trilinear_sample",)),
     "propagation_blend": ("tdvnet_torch/csrc/propagation_blend.cu",
-                          "tdvnet/kernels/depthops_pallas.py:83 (2df7997^)"),
+                          "tdvnet/kernels/depthops_pallas.py:83 (2df7997^)",
+                          ("propagation_blend",)),
     "softargmax_depth": ("tdvnet_torch/csrc/softargmax_depth.cu",
-                         "tdvnet/kernels/depthops_pallas.py:44 (2df7997^)"),
+                         "tdvnet/kernels/depthops_pallas.py:44 (2df7997^)",
+                         ("softargmax_depth",)),
+    "voxelize": ("tdvnet_torch/csrc/voxelize.cu", "tdvnet/ops/voxelize.py:60",
+                 ("voxelize", "scatter_anchors_to_dense")),
+    "segment_max": ("tdvnet_torch/csrc/segment_max.cu",
+                    "tdvnet/models/pointnet.py:19",
+                    ("segment_max", "gather_concat")),
+    "masked_group_norm": ("tdvnet_torch/csrc/masked_group_norm.cu",
+                          "tdvnet/models/layers.py:106",
+                          ("masked_group_norm",)),
 }
+
+
+def group_norm_calls(unet_res):
+    """(relu tails, skip tails) of the masked GroupNorm per U-Net level in
+    one forward: a residual block has one of each; a level below the finest
+    adds the down conv's; a level above the coarsest adds the up conv's and
+    the merge conv's and runs its blocks a second time in the decoder."""
+    L = len(unet_res)
+    out = []
+    for lvl, res in enumerate(unet_res):
+        blocks = res * (2 if lvl < L - 1 else 1)
+        out.append((blocks + (lvl > 0) + 2 * (lvl < L - 1), blocks))
+    return out
+
+
+def expected_launches(offsets_list, n_chunks, unet_res):
+    """Launches per wrapper in one inference over `n_chunks` ref chunks
+    (`infer_depth` is the one-chunk case), counted from the code: the cost
+    volume per chunk; per refinement iteration one scene model (point
+    cloud variance, voxelize, PointNet with 4 pools and 3 concat-backs,
+    scatter, U-Net) and per chunk and offset pass one variance and three
+    scale samplings; three propagation blends per chunk."""
+    n_iters = len(offsets_list)
+    passes = sum(len(o) for o in offsets_list)
+    gn = sum(a + b for a, b in group_norm_calls(unet_res))
+    return {"source_variance": n_chunks + n_iters + n_chunks * passes,
+            "trilinear_sample": 3 * n_chunks * passes,
+            "propagation_blend": 3 * n_chunks,
+            "softargmax_depth": n_chunks,
+            "voxelize": n_iters, "scatter_anchors_to_dense": n_iters,
+            "segment_max": 4 * n_iters, "gather_concat": 3 * n_iters,
+            "masked_group_norm": gn * n_iters}
 
 
 def log(*args):
@@ -83,15 +137,19 @@ def bound_by(nbytes, flops):
 
 class Case:
     """One main-path call of a kernel: its wrapper and twin as closures over
-    inputs on the card, how often one infer_depth makes this call, the
-    bytes it must move and the flops it does, its tolerance, and where one
-    exists a single PyTorch call computing the same function."""
+    inputs on the card, which path makes the call ("infer_depth", or
+    "scene" for whole-scene inference of a 48-ref scene)
+    and how often per inference, the bytes it must move and the flops it
+    does, its tolerance (0: every output tensor equal), and where one
+    exists a single PyTorch call computing the same function. `run` and
+    `ref` return a tensor or a tuple of tensors."""
 
     def __init__(self, kernel, label, per_infer, run, ref, tol, nbytes,
-                 flops, library=None):
+                 flops, library=None, path="infer_depth"):
         self.kernel, self.label, self.per_infer = kernel, label, per_infer
         self.run, self.ref, self.tol = run, ref, tol
         self.nbytes, self.flops, self.library = nbytes, flops, library
+        self.path = path
 
     @property
     def bound_ms(self):
@@ -99,9 +157,109 @@ class Case:
                          self.flops / FP32_FLOPS)
 
 
+def scene_golden_record():
+    import numpy as np
+
+    with np.load(SCENE_GOLDEN) as z:
+        return json.loads(str(z["record"]))
+
+
+def scene_model_cases(device, gen, label, path, P, B, grid, A, unet):
+    """The calls one scene modelling makes to the voxelize, segment-max and
+    masked-GroupNorm kernels: P points of B scenes into `grid` with A
+    anchors, on seeded random points in a box a little larger than the
+    grid (some fall outside; a tenth are invalid)."""
+    import torch
+
+    from tdvnet_torch.kernels import groupnorm, segmax, voxelize as vox
+
+    n_iters = len(OFFSETS)
+    edge = 0.08
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(device)
+    span = torch.tensor([g * edge * 1.02 for g in grid])
+    pts = (torch.rand(P, 3, generator=gen) * span).to(device).contiguous()
+    scene = torch.arange(P, device=device) * B // P
+    valid = (torch.rand(P, generator=gen) > 0.1).to(device)
+    vargs = (pts, scene, valid, edge, grid, A, B)
+    # every field but the twin's sorted view, which the kernel leaves out
+    fields = lambda vg: tuple(vg[:7]) + tuple(vg[9:])
+    n_cells = B * grid[0] * grid[1] * grid[2]
+    cases = [Case(
+        "voxelize", f"voxelize {label} P={P} grid={grid} A={A}", n_iters,
+        lambda a=vargs: fields(vox.voxelize(*a)),
+        lambda a=vargs: fields(vox.voxelize_ref(*a)),
+        0.0, P * (12 + 8 + 1) + P * (8 + 1) + A * (24 + 8 + 12 + 1),
+        P * 12, path=path)]
+
+    vg = vox.voxelize(*vargs)
+    C = 64
+    feats = rnd(A, C)
+    flat = (vg.anchor_idx3[:, 0] * grid[1] + vg.anchor_idx3[:, 1]) \
+        * grid[2] + vg.anchor_idx3[:, 2]
+    seg_a = (vg.anchor_scene * (n_cells // B) + flat)[vg.anchor_valid]
+    feats_a = feats[vg.anchor_valid]
+    dense0 = torch.zeros(n_cells, C, device=device)
+    cases.append(Case(
+        "voxelize", f"scatter {label} [{A},{C}] -> {B}x{grid}", n_iters,
+        lambda a=(feats, vg, grid, B): vox.scatter_anchors_to_dense(*a),
+        lambda a=(feats, vg, grid, B): vox.scatter_anchors_to_dense_ref(*a),
+        0.0, A * (4 * C + 24 + 8 + 1) + n_cells * 4 * (C + 1), 0,
+        library=lambda: dense0.index_put_((seg_a,), feats_a), path=path))
+
+    C = 128
+    y = rnd(P, C)
+    n_seg = A + 1
+    p2a, pv = vg.point2anchor, vg.point_valid
+    idx = p2a[:, None].expand(P, C).contiguous()
+    pool0 = torch.full((n_seg, C), -1e30, device=device)
+    cases.append(Case(
+        "segment_max", f"pool {label} [{P},{C}] -> [{n_seg},{C}]",
+        4 * n_iters,
+        lambda a=(y, p2a, pv, n_seg): segmax.segment_max(*a),
+        lambda a=(y, p2a, pv, n_seg): segmax.segment_max_ref(*a),
+        0.0, P * (4 * C + 8 + 1) + n_seg * 4 * C, P * C,
+        library=lambda: pool0.scatter_reduce(0, idx, y, "amax"), path=path))
+    pooled = segmax.segment_max(y, p2a, pv, n_seg)
+    cases.append(Case(
+        "segment_max", f"concat-back {label} [{P},{C}] -> [{P},{2 * C}]",
+        3 * n_iters,
+        lambda a=(y, pooled, p2a): segmax.gather_concat(*a, relu=True),
+        lambda a=(y, pooled, p2a): segmax.gather_concat_ref(*a, relu=True),
+        0.0, P * (4 * C + 8) + min(P, n_seg) * 4 * C + P * 8 * C, P * 2 * C,
+        path=path))
+
+    dims_c, groups, res = unet
+    for lvl, ((n_relu, n_skip), C, G) in enumerate(
+            zip(group_norm_calls(res), dims_c, groups)):
+        dims = tuple(d >> lvl for d in grid)
+        V = dims[0] * dims[1] * dims[2]
+        mask = (torch.rand(B, 1, *dims, generator=gen) > 0.85).float()
+        if B > 1:
+            mask[-1, :, dims[0] // 2:] = 0      # scenes differ in their count
+        mask = mask.to(device)
+        x = (rnd(B, C, *dims) * 2 + 1) * mask
+        skip = rnd(B, C, *dims) * mask
+        w, b = rnd(C), rnd(C)
+        for tail, count, kw in (("relu", n_relu, {"relu": True}),
+                                ("skip", n_skip, {"skip": skip})):
+            a = (x, mask, G, w, b)
+            n_in = 2 if tail == "skip" else 1
+            cases.append(Case(
+                "masked_group_norm",
+                f"{tail} {label} [{B},{C},{dims[0]}x{dims[1]}x{dims[2]}] "
+                f"G={G}", count * n_iters,
+                lambda a=a, kw=kw: groupnorm.masked_group_norm(*a, **kw),
+                lambda a=a, kw=kw: groupnorm.masked_group_norm_ref(*a, **kw),
+                1e-4, 4 * (B * C * V * (n_in + 1) + B * V + 2 * C),
+                B * C * V * 8, path=path))
+    return cases
+
+
 def kernel_cases(device, seed=0):
     """The calls the full-width main path makes, on the golden batch's
-    cameras, with seeded random features, grids, logits and costs."""
+    cameras, with seeded random features, grids, logits and costs; and the
+    calls whole-scene inference makes to the scene-modelling kernels at the
+    golden scene's size."""
     import torch
     import torch.nn.functional as F
 
@@ -213,20 +371,45 @@ def kernel_cases(device, seed=0):
         lambda a=(cost, dvals): softargmax_depth_ref(*a),
         1e-5, 4 * (cost.numel() + D + R * dc.size[0] * dc.size[1]),
         cost.numel() * 5))
+
+    # scene modelling at infer_depth's size and at the whole scene's: the
+    # streamed scenes' refs, bucketed up to whole chunks, into the grid the
+    # golden scene gets
+    from tdvnet_torch.config import EvalConfig
+
+    unet = (cfg.unet_dims, cfg.unet_groups, cfg.unet_res)
+    P_ref = dc.size[0] * dc.size[1]
+    cases += scene_model_cases(device, gen, "infer_depth", "infer_depth",
+                               R * P_ref, B, g.grid_size, g.max_anchors, unet)
+    ev, rec = EvalConfig(), scene_golden_record()
+    n_refs = STREAM_VIEWS - 2 * ev.n_src_on_either_side
+    n_slots = -(-n_refs // ev.fused_chunk) * ev.fused_chunk
+    cases += scene_model_cases(device, gen, "scene", "scene",
+                               n_slots * P_ref, 1, tuple(rec["grid_size"]),
+                               ev.eval_max_anchors, unet)
     return cases
 
 
 def check_case(case):
-    """Max |kernel - twin| and whether it is within the tolerance, which is
-    relative to the twin's largest magnitude (at least 1)."""
+    """Max |kernel - twin| over the outputs and whether it is within the
+    tolerance, which is relative to the twin's largest magnitude (at least
+    1); a tolerance of 0 asks for equal tensors."""
     import torch
 
-    got = case.run()
-    want = case.ref()
+    got, want = case.run(), case.ref()
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = max(1.0, float(want.abs().max()))
-    return err, err <= case.tol * scale
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err, ok = 0.0, len(got) == len(want)
+    for a, b in zip(got, want):
+        ok &= a.shape == b.shape and a.dtype == b.dtype
+        d = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+        err = max(err, d)
+        if case.tol == 0.0:
+            ok &= torch.equal(a, b)
+        else:
+            ok &= d <= case.tol * max(1.0, float(b.abs().max()))
+    return err, bool(ok)
 
 
 def time_ms(fn, iters=10, warmup=2):
@@ -259,20 +442,27 @@ def kernel_phase(device):
             f"library={'%.4f ms' % lib if lib is not None else '-'} "
             f"bound={case.bound_ms:.4f} ms "
             f"({bound_by(case.nbytes, case.flops)}) "
-            f"x{case.per_infer} per infer_depth")
+            f"x{case.per_infer} per {case.path}")
         ok &= good
+        zero = lambda: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                        "library_ms": None, "nbytes": 0.0, "flops": 0.0}
         k = per_kernel.setdefault(case.kernel, {
-            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-            "library_ms": None, "nbytes": 0.0, "flops": 0.0, "calls": []})
+            "max_abs_err": 0.0, "calls": [], "infer_depth": zero(),
+            "scene": None})
         k["max_abs_err"] = max(k["max_abs_err"], err)
-        k["ms"] += case.per_infer * ms
-        k["plain_ms"] += case.per_infer * plain
-        k["bound_ms"] += case.per_infer * case.bound_ms
-        k["nbytes"] += case.per_infer * case.nbytes
-        k["flops"] += case.per_infer * case.flops
+        if k[case.path] is None:
+            k[case.path] = zero()
+        tot = k[case.path]            # sums over one inference of that path
+        tot["ms"] += case.per_infer * ms
+        tot["plain_ms"] += case.per_infer * plain
+        tot["bound_ms"] += case.per_infer * case.bound_ms
+        tot["nbytes"] += case.per_infer * case.nbytes
+        tot["flops"] += case.per_infer * case.flops
         if lib is not None:
-            k["library_ms"] = (k["library_ms"] or 0.0) + case.per_infer * lib
-        k["calls"].append({"shape": case.label, "per_infer": case.per_infer,
+            tot["library_ms"] = (tot["library_ms"] or 0.0) \
+                + case.per_infer * lib
+        k["calls"].append({"shape": case.label, "path": case.path,
+                           "per_infer": case.per_infer,
                            "ms": ms, "plain_ms": plain, "library_ms": lib,
                            "bound_ms": case.bound_ms, "max_abs_err": err})
     return ok, per_kernel
@@ -300,6 +490,7 @@ def full_path_phase(model, device):
     torch.cuda.synchronize()
     first_ms = 1e3 * (time.perf_counter() - t0)
     counts = launch_counts()
+    expected = expected_launches(OFFSETS, 1, model.cfg.unet_res)
 
     init = out["initial"].cpu().numpy()
     final = out["final"].float()
@@ -322,11 +513,12 @@ def full_path_phase(model, device):
         f"{stats['n_out_of_grid']} n_points={stats['n_points']} (golden "
         f"n_overflow={rec['n_overflow']} n_out_of_grid={rec['n_out_of_grid']})")
     log(f"  launches in that infer_depth: {json.dumps(counts)} "
-        f"(expected {json.dumps(EXPECTED_LAUNCHES)})")
+        f"(expected {json.dumps(expected)})")
     ok = (finite and init_rel <= INIT_MAX_REL and med <= FINAL_MEDIAN_ABS
           and abs(abs_rel - rec["abs_rel"]) <= ABS_REL_DELTA
-          and counts == EXPECTED_LAUNCHES
-          and all(v > 0 for v in counts.values()))
+          and stats["n_overflow"] == rec["n_overflow"]
+          and stats["n_out_of_grid"] == rec["n_out_of_grid"]
+          and counts == expected and all(v > 0 for v in counts.values()))
     return ok, counts, first_ms
 
 
@@ -353,6 +545,131 @@ def serve_phase(model, card):
     return times, peak, n_refs
 
 
+# ---------------------------------------------------------------- whole scene
+def scene_views(n_views, seed):
+    from tdvnet_torch.config import ModelConfig
+    from tdvnet_torch.data import synthetic
+
+    return synthetic.make_scene(n_views=n_views,
+                                img_size=ModelConfig().img_size, seed=seed)
+
+
+def scene_abs_rel(depth, views, k, device):
+    import torch
+
+    from tdvnet_torch.eval.metrics2d import calc_2d_depth_metrics
+
+    gt = views["depth"][k:views["depth"].shape[0] - k]
+    return float(calc_2d_depth_metrics(
+        torch.from_numpy(depth).to(device),
+        torch.from_numpy(gt).to(device))["abs_rel"])
+
+
+def scene_golden_phase(inf, device):
+    """`predict_scene` on the golden scene against the JAX golden."""
+    import numpy as np
+    import torch
+
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+
+    rec = scene_golden_record()
+    with np.load(SCENE_GOLDEN) as z:
+        g_mm = z["depth_mm"].astype(np.float32) * 1e-3
+    if [tuple(o) for o in rec["offsets"]] != [tuple(o) for o in OFFSETS]:
+        raise RuntimeError(f"golden offsets {rec['offsets']} != {OFFSETS}")
+    ev = inf.cfg.eval
+    views = scene_views(rec["n_views"], rec["seed"])
+    n_chunks = -(-rec["n_refs"] // ev.fused_chunk)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    depth = inf.predict_scene(views, timings)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    counts = launch_counts()
+    expected = expected_launches(OFFSETS, n_chunks, inf.model.cfg.unet_res)
+
+    finite = bool(np.isfinite(depth).all())
+    d = np.abs(depth - g_mm)
+    med, p99 = float(np.median(d)), float(np.percentile(d, 99))
+    abs_rel = scene_abs_rel(depth, views, ev.n_src_on_either_side, device)
+    stats, grid = inf.last_scene_stats, tuple(inf.last_grid_size)
+    log(f"  first predict_scene {first_ms:.1f} ms ({rec['n_views']} views, "
+        f"{rec['n_refs']} refs, {n_chunks} chunks; prep "
+        f"{1e3 * timings['prep']:.1f} ms, refine "
+        f"{1e3 * timings['refine']:.1f} ms); depth {depth.shape} "
+        f"finite={finite}")
+    log(f"  depth |d| vs golden: median {med:.3e} m (limit "
+        f"{FINAL_MEDIAN_ABS:.0e}), p99 {p99:.3e} m")
+    log(f"  abs_rel vs synthetic depth {abs_rel:.6f}, golden "
+        f"{rec['abs_rel']:.6f} (limit +-{ABS_REL_DELTA})")
+    log(f"  grid {grid} (golden {tuple(rec['grid_size'])}); stats "
+        f"{json.dumps(stats)} (golden {json.dumps(rec['stats'])})")
+    log(f"  launches in that predict_scene: {json.dumps(counts)} "
+        f"(expected {json.dumps(expected)})")
+    ok = (finite and depth.shape == g_mm.shape and med <= FINAL_MEDIAN_ABS
+          and abs(abs_rel - rec["abs_rel"]) <= ABS_REL_DELTA
+          and grid == tuple(rec["grid_size"]) and stats == rec["stats"]
+          and counts == expected and all(v > 0 for v in counts.values()))
+    return ok, counts
+
+
+def scene_stream_phase(inf, device, card):
+    """`predict_scenes` over a stream of full-length scenes, timed from one
+    result to the next. The golden records the JAX package's `abs_rel` on
+    the first scene (the later views of these long synthetic scenes are
+    harder than the golden scene's): the first scene is held to it and the
+    others stay under it plus a slack."""
+    import numpy as np
+    import torch
+
+    jax_first = scene_golden_record()["stream"]
+    if (jax_first["n_views"], jax_first["seed"]) != (STREAM_VIEWS,
+                                                     STREAM_SEEDS[0]):
+        raise RuntimeError(f"golden stream scene {jax_first} is not the "
+                           f"stream's first")
+    abs_rel_limit = jax_first["abs_rel"] + STREAM_ABS_REL_SLACK
+    k = inf.cfg.eval.n_src_on_either_side
+    scenes = [scene_views(STREAM_VIEWS, s) for s in STREAM_SEEDS]
+    n_refs = STREAM_VIEWS - 2 * k
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, results = [], []
+    t0 = time.perf_counter()
+    for depth in inf.predict_scenes(iter(scenes)):
+        now = time.perf_counter()
+        secs.append(now - t0)
+        results.append((depth, tuple(inf.last_grid_size),
+                        dict(inf.last_scene_stats)))
+        t0 = now
+    torch.cuda.synchronize()
+    total = sum(secs)
+    peak = torch.cuda.max_memory_allocated()
+    ok = len(results) == len(scenes)
+    for seed, views, sec, (depth, grid, stats) in zip(STREAM_SEEDS, scenes,
+                                                      secs, results):
+        finite = bool(np.isfinite(depth).all())
+        abs_rel = scene_abs_rel(depth, views, k, device)
+        good = (finite and depth.shape[0] == n_refs
+                and abs_rel <= abs_rel_limit)
+        if seed == jax_first["seed"]:
+            good &= (abs(abs_rel - jax_first["abs_rel"]) <= ABS_REL_DELTA
+                     and stats == jax_first["stats"])
+        ok &= good
+        log(f"  scene seed {seed}: {sec:.3f} s after the result before it, "
+            f"grid {grid}, stats {json.dumps(stats)}, abs_rel "
+            f"{abs_rel:.6f} (limit {abs_rel_limit:.6f}), finite={finite} "
+            f"{'ok' if good else 'FAIL'} [{card}]")
+    log(f"  {len(secs)} scenes of {STREAM_VIEWS} views ({n_refs} refs) in "
+        f"{total:.3f} s: {total / len(secs):.3f} s/scene, "
+        f"{len(secs) * n_refs / total:.2f} ref-frames/s; peak memory "
+        f"allocated {peak / 2**30:.2f} GiB [{card}]")
+    return ok, {
+        "scene_seconds": secs, "ref_frames_per_s": len(secs) * n_refs / total,
+        "peak_bytes": peak, "n_refs": n_refs}
+
+
 def _union_us(intervals):
     """Total length of the union of (start, end) intervals."""
     total, reach = 0.0, float("-inf")
@@ -363,20 +680,19 @@ def _union_us(intervals):
     return total
 
 
-def profile_phase(model, card):
-    """One traced infer_depth: the device's busy share of the host's window
-    (the union of the intervals in which a kernel, copy or set ran on the
-    card), device time under each stage span, and the top kernels."""
+def profile_phase(run, what, card):
+    """One traced call of `run`: the device's busy share of the host's
+    window (the union of the intervals in which a kernel, copy or set ran
+    on the card), device time under each stage span, and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batch = golden_batch((2 * SERVE_SEEDS[0], 2 * SERVE_SEEDS[0] + 1))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.infer_depth(batch, OFFSETS)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
@@ -399,7 +715,7 @@ def profile_phase(model, card):
     for e in work:
         ms, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
-    log(f"  traced infer_depth {wall_ms:.1f} ms wall; device busy "
+    log(f"  traced {what} {wall_ms:.1f} ms wall; device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of the window) "
         f"[{card}]")
     for k in sorted(stages):
@@ -412,11 +728,12 @@ def profile_phase(model, card):
     # event timings of the small calls include the wrapper's host time)
     ported = {}
     for k in KERNEL_META:
-        hits = [v for name, v in by_name.items() if f"{k}_kernel" in name]
+        # a source file's kernels are all named <file>_..._kernel
+        hits = [v for name, v in by_name.items() if f"{k}_" in name]
         ported[k] = {"ms": sum(ms for ms, _ in hits),
                      "launches": sum(cnt for _, cnt in hits)}
         log(f"  port kernel {k:18s} {ported[k]['ms']:8.3f} ms device in "
-            f"{ported[k]['launches']} launches")
+            f"{ported[k]['launches']} device kernels")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "stages_ms": stages, "ported_kernels": ported}
 
@@ -458,23 +775,55 @@ def main():
     times, peak, n_refs = serve_phase(model, card)
 
     log("phase 5: trace")
-    trace = profile_phase(model, card)
+    batch = golden_batch((2 * SERVE_SEEDS[0], 2 * SERVE_SEEDS[0] + 1))
+    trace = profile_phase(lambda: model.infer_depth(batch, OFFSETS),
+                          "infer_depth", card)
 
+    log("phase 6a: whole-scene predict_scene against the JAX golden")
+    from tdvnet_torch.config import Config
+    from tdvnet_torch.eval.fused_scene import FusedSceneInference
+
+    inf = FusedSceneInference(model, Config(), offsets_list=OFFSETS,
+                              fetch_mm=True)
+    g_ok, scene_counts = scene_golden_phase(inf, device)
+    log("phase 6b: predict_scenes over a stream of scenes")
+    s_ok, stream = scene_stream_phase(inf, device, card)
+    log("phase 6c: trace of one scene")
+    views = scene_views(STREAM_VIEWS, STREAM_SEEDS[0])
+    scene_trace = profile_phase(lambda: inf.predict_scene(views),
+                                f"predict_scene ({STREAM_VIEWS} views)", card)
+
+    # per kernel: sums over one infer_depth (the keys of the contract) and,
+    # for the scene-modelling kernels, over one whole-scene inference
     kernels = []
     for name, k in per_kernel.items():
-        src, replaces = KERNEL_META[name]
+        src, replaces, wrappers = KERNEL_META[name]
+        tot = k["infer_depth"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": bound_by(k["nbytes"], k["flops"]),
-            "library_ms": k["library_ms"], "calls": k["calls"]})
+            "replaces": replaces,
+            "launches": sum(counts[w] for w in wrappers),
+            "max_abs_err": k["max_abs_err"], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": bound_by(tot["nbytes"], tot["flops"]),
+            "library_ms": tot["library_ms"],
+            "trace_ms": trace["ported_kernels"][name]["ms"],
+            "scene_launches": sum(scene_counts[w] for w in wrappers),
+            "scene": k["scene"] and {x: k["scene"][x] for x in (
+                "ms", "plain_ms", "bound_ms", "library_ms")},
+            "scene_trace_ms": scene_trace["ported_kernels"][name]["ms"],
+            "calls": k["calls"]})
     log(json.dumps({"serve_ms": times, "first_infer_ms": first_ms,
                     "ref_frames_per_s": [1e3 * n_refs / t for t in times],
-                    "peak_bytes": peak, "card": card, "trace": trace}))
-    if not (k_ok and f_ok):
-        log(f"FAILED: kernels ok={k_ok}, full path ok={f_ok}")
+                    "peak_bytes": peak, "card": card, "trace": trace,
+                    "scene_stream": stream, "scene_trace": scene_trace}))
+    if not (k_ok and f_ok and g_ok and s_ok):
+        log(f"FAILED: kernels ok={k_ok}, full path ok={f_ok}, scene golden "
+            f"ok={g_ok}, scene stream ok={s_ok}")
+        return 1
+    if set(per_kernel) != set(KERNEL_META):
+        log(f"FAILED: kernels without a case: "
+            f"{sorted(set(KERNEL_META) - set(per_kernel))}")
         return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,11 @@ Two deviations from the JAX package's `ModelConfig`:
 - `warp_mode` is only ``"gather"`` (the default here). The two-pass
   homography matmul warp is a TPU matrix-unit artifact and is not ported.
 - `conv3d_impl` is gone: cuDNN runs the 3D convolutions.
+
+`EvalConfig` holds the fields whole-scene inference reads and the fusion
+constants as plain data. The fast-path switches (`fast_path`, `fast_rank`,
+`fast_patch`) arrive with the fast path; until then they are unknown keys
+and `load_config` raises on them.
 """
 from __future__ import annotations
 
@@ -99,9 +104,41 @@ class BatchConfig:
 
 
 @dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation constants (the JAX package's `EvalConfig`, parity path)."""
+
+    dataset_type: str = "scannet"
+    save_dir: str = "eval_results"
+    pdist: float = 0.1               # keyframe pose-distance threshold
+    n_src_on_either_side: int = 2
+    z_thresh: float = 0.01           # point-cloud fusion consistency threshold
+    n_consistent_thresh: int = 3     # views that must agree
+    voxel_downsample: float = 0.02
+    fscore_thresh: float = 0.05
+    run_tsdf_fusion: bool = False
+    run_pc_fusion: bool = True
+    tsdf_img_batch: int = 100
+    tsdf_voxel_size: float = 0.04
+    tsdf_margin: float = 1.5
+    tsdf_bounds_quantile: float = 0.995
+    tsdf_trunc_ratio: float = 3.0
+    depth_img_size: Tuple[int, int] = (480, 640)
+    # whole-scene inference: one ref-chunk size for every stage; ref totals
+    # bucket to multiples of it
+    fused_chunk: int = 16
+    eval_grid_size: Tuple[int, int, int] = (160, 160, 64)
+    eval_max_anchors: int = 262144
+    # size the scene grid to the scene bbox (rounded up to grid_bucket
+    # multiples, capped at eval_grid_size with a warning when the cap clips)
+    auto_grid: bool = True
+    grid_bucket: int = 16
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     batch: BatchConfig = field(default_factory=BatchConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
 
 
 def _overlay(dc, updates: Dict[str, Any]):

@@ -1,0 +1,386 @@
+// voxelize: quantize a batched point cloud into per-scene voxel grids,
+// number the occupied cells as compact anchors, and scatter anchor rows
+// into the dense grid.
+//
+// Replaces: tdvnet/ops/voxelize.py `scene_origins` (:51-57), `voxelize`
+// (:60-121) and `scatter_anchors_to_dense` (:124-151). The TPU op sorts the
+// point keys because XLA needs static shapes and sorted segments. Anchors
+// are numbered in ascending key order, and the key space is the dense grid
+// itself (at most B*gx*gy*gz cells), so here the rank of a cell among the
+// occupied cells IS its anchor id: mark, prefix-sum, look up. No sort, and
+// points stay in their input order.
+//
+// Bound on an H100: bytes. The points (12 B each) and the per-point outputs
+// (9 B) are small; the traffic is the cell array (4 B per cell, zeroed,
+// marked, scanned in two passes) and the anchor table (61 B per anchor).
+// The scatter moves the anchor rows once and writes them into a grid that
+// the caller zero-fills.
+//
+// Design:
+//   origins   atomic min on the order-preserving integer image of each
+//             coordinate, one atomic per warp and axis when the warp's
+//             points share a scene (they do: a ref's points are contiguous);
+//   cells     one thread per point: IEEE subtraction and division, floor,
+//             bounds tested on the float before any float-to-int conversion
+//             (a NaN coordinate fails them and is invalid), key stored per
+//             point, cell marked; out-of-grid points counted per warp;
+//   scan      exclusive prefix sum over the marks, written by hand: tile
+//             sums, one block scanning the tile sums, tiles rescanned with
+//             their offset. The rescan writes each occupied cell's rank in
+//             place and, for ranks below the capacity, the anchor's cell
+//             coordinates, scene, centre and validity;
+//   tail      anchors past the number of occupied cells get the reference's
+//             defaults (cell 0 of scene 0, invalid);
+//   assign    one thread per point: anchor id = rank of its cell, or the
+//             dump slot when the point is invalid or the rank reaches the
+//             capacity; overflowing points counted per warp;
+//   scatter   one thread per (anchor, 4 channels): keys are unique, so a
+//             16-byte store, not an accumulation.
+// Every float result uses explicit round-to-nearest intrinsics so that no
+// multiply-add is contracted: origins, centres and the anchor set equal the
+// plain PyTorch twin bit for bit.
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kScanItems = 4;                       // cells per thread
+constexpr int kScanTile = kThreads * kScanItems;    // cells per block
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kBig = 1e9f;
+
+__device__ __forceinline__ int float_to_ordered(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float ordered_to_float(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// ------------------------------------------------------------------ origins
+__global__ void voxelize_origin_init_kernel(int* __restrict__ keys, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) keys[i] = float_to_ordered(kBig);
+}
+
+__global__ void voxelize_origin_min_kernel(
+    const float* __restrict__ pts, const long long* __restrict__ pt_scene,
+    const uint8_t* __restrict__ pt_valid, int* __restrict__ keys,
+    long long P, int B) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long sc = -1;
+  bool v = false;
+  if (p < P) {
+    sc = pt_scene[p];
+    v = pt_valid[p] != 0 && sc >= 0 && sc < B;
+  }
+  int k[3] = {INT_MAX, INT_MAX, INT_MAX};
+  if (v) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float x = pts[p * 3 + a];
+      // a NaN coordinate makes the minimum NaN in the reference, which then
+      // falls back to 0: INT_MIN decodes to a NaN
+      k[a] = isnan(x) ? INT_MIN : float_to_ordered(x);
+    }
+  }
+  const unsigned has = __ballot_sync(kFull, v);
+  if (has == 0) return;
+  const long long sc0 = __shfl_sync(kFull, sc, __ffs(has) - 1);
+  const bool uniform = __all_sync(kFull, !v || sc == sc0);
+  if (uniform) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int m = __reduce_min_sync(kFull, k[a]);
+      if ((threadIdx.x & 31) == 0) atomicMin(&keys[sc0 * 3 + a], m);
+    }
+  } else if (v) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) atomicMin(&keys[sc * 3 + a], k[a]);
+  }
+}
+
+__global__ void voxelize_origin_final_kernel(const int* __restrict__ keys,
+                                             float* __restrict__ origins,
+                                             int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float m = ordered_to_float(keys[i]);
+  origins[i] = (isfinite(m) && m < kBig) ? m : 0.f;
+}
+
+// -------------------------------------------------------------------- cells
+__global__ void voxelize_cell_kernel(
+    const float* __restrict__ pts, const long long* __restrict__ pt_scene,
+    const uint8_t* __restrict__ pt_valid, const float* __restrict__ origins,
+    int* __restrict__ cell, int* __restrict__ pkey,
+    uint8_t* __restrict__ point_valid, unsigned long long* __restrict__ counters,
+    long long P, int B, int gx, int gy, int gz, float edge) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  bool out_of_grid = false;
+  if (p < P) {
+    const long long sc = pt_scene[p];
+    const bool v_in = pt_valid[p] != 0;
+    bool in_grid = false;
+    int key = -1;
+    if (sc >= 0 && sc < B) {
+      const float fx = floorf(__fdiv_rn(
+          __fsub_rn(pts[p * 3 + 0], origins[sc * 3 + 0]), edge));
+      const float fy = floorf(__fdiv_rn(
+          __fsub_rn(pts[p * 3 + 1], origins[sc * 3 + 1]), edge));
+      const float fz = floorf(__fdiv_rn(
+          __fsub_rn(pts[p * 3 + 2], origins[sc * 3 + 2]), edge));
+      in_grid = fx >= 0.f && fx < (float)gx && fy >= 0.f && fy < (float)gy &&
+                fz >= 0.f && fz < (float)gz;
+      if (in_grid && v_in)
+        key = (int)sc * (gx * gy * gz) + ((int)fx * gy + (int)fy) * gz +
+              (int)fz;
+    }
+    pkey[p] = key;
+    point_valid[p] = key >= 0;
+    if (key >= 0) cell[key] = 1;      // every writer stores the same value
+    out_of_grid = v_in && !in_grid;
+  }
+  const unsigned n = __popc(__ballot_sync(kFull, out_of_grid));
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(&counters[0], n);
+}
+
+// --------------------------------------------------------------------- scan
+// Exclusive scan of one int per thread over the block; `total` gets the sum.
+// `smem` holds 33 ints.
+template <int NT>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* smem,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int n = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += n;
+  }
+  if (lane == 31) smem[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < NT / 32 ? smem[lane] : 0;
+    int winc = w;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int n = __shfl_up_sync(kFull, winc, d);
+      if (lane >= d) winc += n;
+    }
+    if (lane < NT / 32) smem[lane] = winc - w;
+    if (lane == 31) smem[32] = winc;
+  }
+  __syncthreads();
+  const int out = inc - v + smem[warp];
+  *total = smem[32];
+  __syncthreads();                    // smem is free for the next call
+  return out;
+}
+
+__global__ void voxelize_scan_reduce_kernel(const int* __restrict__ cell,
+                                            int* __restrict__ tile_sums,
+                                            int n_cells_all) {
+  __shared__ int smem[33];
+  const int base = blockIdx.x * kScanTile + threadIdx.x * kScanItems;
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i)
+    if (base + i < n_cells_all) s += cell[base + i];
+  int total;
+  block_exclusive_scan<kThreads>(s, smem, &total);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
+}
+
+// one block: tile_sums[0..n_tiles) -> exclusive offsets in place, the
+// number of occupied cells in tile_sums[n_tiles]
+__global__ void voxelize_scan_sums_kernel(int* __restrict__ tile_sums,
+                                          int n_tiles) {
+  __shared__ int smem[33];
+  int carry = 0;
+  for (int base = 0; base < n_tiles; base += 1024) {
+    const int i = base + threadIdx.x;
+    const int v = i < n_tiles ? tile_sums[i] : 0;
+    int total;
+    const int ex = block_exclusive_scan<1024>(v, smem, &total);
+    if (i < n_tiles) tile_sums[i] = carry + ex;
+    carry += total;
+  }
+  if (threadIdx.x == 0) tile_sums[n_tiles] = carry;
+}
+
+__global__ void voxelize_scan_apply_kernel(
+    int* __restrict__ cell, const int* __restrict__ tile_sums,
+    const float* __restrict__ origins, long long* __restrict__ anchor_idx3,
+    long long* __restrict__ anchor_scene, float* __restrict__ anchor_center,
+    uint8_t* __restrict__ anchor_valid, int n_cells_all, int gx, int gy,
+    int gz, float edge, int max_anchors) {
+  __shared__ int smem[33];
+  const int base = blockIdx.x * kScanTile + threadIdx.x * kScanItems;
+  int f[kScanItems];
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    f[i] = base + i < n_cells_all ? cell[base + i] : 0;
+    s += f[i];
+  }
+  int total;
+  int rank = block_exclusive_scan<kThreads>(s, smem, &total) +
+             tile_sums[blockIdx.x];
+  const int n_cells = gx * gy * gz;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    if (!f[i]) continue;
+    const int key = base + i;
+    cell[key] = rank;
+    if (rank < max_anchors) {
+      const int sc = key / n_cells, flat = key % n_cells;
+      const int idx[3] = {flat / (gy * gz), (flat / gz) % gy, flat % gz};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        anchor_idx3[(long long)rank * 3 + a] = idx[a];
+        anchor_center[(long long)rank * 3 + a] = __fadd_rn(
+            origins[sc * 3 + a],
+            __fmul_rn(__fadd_rn((float)idx[a], 0.5f), edge));
+      }
+      anchor_scene[rank] = sc;
+      anchor_valid[rank] = 1;
+    }
+    ++rank;
+  }
+}
+
+__global__ void voxelize_anchor_tail_kernel(
+    const int* __restrict__ n_occupied, const float* __restrict__ origins,
+    long long* __restrict__ anchor_idx3, long long* __restrict__ anchor_scene,
+    float* __restrict__ anchor_center, uint8_t* __restrict__ anchor_valid,
+    float edge, int max_anchors) {
+  const int a = blockIdx.x * blockDim.x + threadIdx.x;
+  if (a >= max_anchors || a < *n_occupied) return;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    anchor_idx3[(long long)a * 3 + i] = 0;
+    anchor_center[(long long)a * 3 + i] =
+        __fadd_rn(origins[i], __fmul_rn(0.5f, edge));
+  }
+  anchor_scene[a] = 0;
+  anchor_valid[a] = 0;
+}
+
+// ------------------------------------------------------------------- assign
+__global__ void voxelize_assign_kernel(
+    const int* __restrict__ pkey, const int* __restrict__ cell,
+    long long* __restrict__ point2anchor,
+    unsigned long long* __restrict__ counters, long long P,
+    int max_anchors) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  bool overflow = false;
+  if (p < P) {
+    const int key = pkey[p];
+    int a = max_anchors;
+    if (key >= 0) {
+      const int r = cell[key];
+      if (r < max_anchors) a = r;
+      else overflow = true;
+    }
+    point2anchor[p] = a;
+  }
+  const unsigned n = __popc(__ballot_sync(kFull, overflow));
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(&counters[1], n);
+}
+
+// ------------------------------------------------------------------ scatter
+__global__ void voxelize_scatter_kernel(
+    const float* __restrict__ feats, const long long* __restrict__ anchor_idx3,
+    const long long* __restrict__ anchor_scene,
+    const uint8_t* __restrict__ anchor_valid, float* __restrict__ dense,
+    float* __restrict__ occ, int A, int C, int gx, int gy, int gz) {
+  const int cq = C >> 2;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)A * cq) return;
+  const int a = (int)(t / cq), q = (int)(t % cq);
+  if (!anchor_valid[a]) return;
+  const long long seg =
+      anchor_scene[a] * ((long long)gx * gy * gz) +
+      (anchor_idx3[a * 3LL] * gy + anchor_idx3[a * 3LL + 1]) * gz +
+      anchor_idx3[a * 3LL + 2];
+  reinterpret_cast<float4*>(dense + seg * C)[q] =
+      reinterpret_cast<const float4*>(feats + (long long)a * C)[q];
+  if (q == 0) occ[seg] = 1.f;
+}
+
+inline unsigned blocks_for(long long n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+extern "C" int tdv_scene_origins(const float* pts, const long long* pt_scene,
+                                 const uint8_t* pt_valid, int* keys,
+                                 float* origins, long long P, int B,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = 3 * B;
+  if (n == 0) return 0;
+  voxelize_origin_init_kernel<<<blocks_for(n), kThreads, 0, s>>>(keys, n);
+  if (P > 0)
+    voxelize_origin_min_kernel<<<blocks_for(P), kThreads, 0, s>>>(
+        pts, pt_scene, pt_valid, keys, P, B);
+  voxelize_origin_final_kernel<<<blocks_for(n), kThreads, 0, s>>>(keys,
+                                                                 origins, n);
+  return (int)cudaGetLastError();
+}
+
+// `cell` [B*gx*gy*gz] and `counters` [2] arrive zeroed; `tile_sums` holds
+// ceil(B*gx*gy*gz / 1024) + 1 ints.
+extern "C" int tdv_voxelize(
+    const float* pts, const long long* pt_scene, const uint8_t* pt_valid,
+    const float* origins, int* cell, int* tile_sums, int* pkey,
+    long long* point2anchor, uint8_t* point_valid, long long* anchor_idx3,
+    long long* anchor_scene, float* anchor_center, uint8_t* anchor_valid,
+    unsigned long long* counters, long long P, int B, int gx, int gy, int gz,
+    float edge, int max_anchors, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n_cells_all = B * gx * gy * gz;
+  const int n_tiles = (n_cells_all + kScanTile - 1) / kScanTile;
+  if (P > 0)
+    voxelize_cell_kernel<<<blocks_for(P), kThreads, 0, s>>>(
+        pts, pt_scene, pt_valid, origins, cell, pkey, point_valid, counters,
+        P, B, gx, gy, gz, edge);
+  if (n_tiles > 0)
+    voxelize_scan_reduce_kernel<<<n_tiles, kThreads, 0, s>>>(cell, tile_sums,
+                                                             n_cells_all);
+  voxelize_scan_sums_kernel<<<1, 1024, 0, s>>>(tile_sums, n_tiles);
+  if (n_tiles > 0)
+    voxelize_scan_apply_kernel<<<n_tiles, kThreads, 0, s>>>(
+        cell, tile_sums, origins, anchor_idx3, anchor_scene, anchor_center,
+        anchor_valid, n_cells_all, gx, gy, gz, edge, max_anchors);
+  if (max_anchors > 0)
+    voxelize_anchor_tail_kernel<<<blocks_for(max_anchors), kThreads, 0, s>>>(
+        tile_sums + n_tiles, origins, anchor_idx3, anchor_scene,
+        anchor_center, anchor_valid, edge, max_anchors);
+  if (P > 0)
+    voxelize_assign_kernel<<<blocks_for(P), kThreads, 0, s>>>(
+        pkey, cell, point2anchor, counters, P, max_anchors);
+  return (int)cudaGetLastError();
+}
+
+// `dense` [B*gx*gy*gz, C] and `occ` [B*gx*gy*gz] arrive zeroed.
+extern "C" int tdv_scatter_dense(const float* feats,
+                                 const long long* anchor_idx3,
+                                 const long long* anchor_scene,
+                                 const uint8_t* anchor_valid, float* dense,
+                                 float* occ, int A, int C, int gx, int gy,
+                                 int gz, void* stream) {
+  const long long total = (long long)A * (C / 4);
+  if (total == 0) return 0;
+  voxelize_scatter_kernel<<<blocks_for(total), kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      feats, anchor_idx3, anchor_scene, anchor_valid, dense, occ, A, C, gx,
+      gy, gz);
+  return (int)cudaGetLastError();
+}

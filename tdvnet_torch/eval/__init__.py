@@ -1,1 +1,2 @@
-"""Evaluation metrics."""
+"""Evaluation: 2D depth metrics, whole-scene inference and the harness
+plug-in."""

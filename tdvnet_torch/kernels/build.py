@@ -39,6 +39,12 @@ SIGNATURES = {
                              _I, _P],
     "tdv_propagation_blend": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
     "tdv_softargmax_depth": [_P, _P, _P, _I, _I, _L, _P],
+    "tdv_scene_origins": [_P, _P, _P, _P, _P, _L, _I, _P],
+    "tdv_voxelize": [_P] * 14 + [_L, _I, _I, _I, _I, _F, _I, _P],
+    "tdv_scatter_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tdv_segment_max": [_P, _P, _P, _P, _L, _I, _L, _P],
+    "tdv_gather_concat": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
+    "tdv_masked_group_norm": [_P] * 8 + [_I, _I, _I, _L, _F, _I, _I, _P],
 }
 
 

@@ -12,6 +12,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tdvnet_torch.kernels.groupnorm import masked_group_norm
+
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 _BN = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
 
@@ -71,34 +73,10 @@ class ConvTransposeUp3d(nn.Module):
         return F.relu(self.BatchNorm_0(self.Conv_0(x)))
 
 
-def masked_group_norm(x: torch.Tensor, mask: torch.Tensor, num_groups: int,
-                      weight: torch.Tensor, bias: torch.Tensor,
-                      eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over active voxels only.
-
-    x [B, C, gx, gy, gz]; mask [B, 1, gx, gy, gz] in {0, 1}. Statistics are
-    per (batch, group) over the active sites and the group's channels: the
-    count is that of the batch element's own mask times C/G.
-    """
-    B, C = x.shape[:2]
-    G = num_groups
-    xg = x.reshape(B, G, C // G, -1).to(torch.float32)        # [B, G, c, V]
-    m = mask.reshape(B, 1, 1, -1).to(torch.float32)
-    cnt = (m.sum(dim=(2, 3)) * (C // G)).clamp(min=1.0)        # [B, 1]
-    s1 = (xg * m).sum(dim=(2, 3))                              # [B, G]
-    s2 = (xg * xg * m).sum(dim=(2, 3))
-    mean = s1 / cnt
-    var = s2 / cnt - mean * mean
-    xn = (xg - mean[..., None, None]) * torch.rsqrt(
-        var.clamp(min=0.0) + eps)[..., None, None]
-    xn = xn.reshape(x.shape).to(x.dtype)
-    shape = (1, C) + (1,) * (x.dim() - 2)
-    return (xn * weight.reshape(shape) + bias.reshape(shape)) * mask
-
-
 class MaskedGroupNorm(nn.Module):
-    """Masked GroupNorm with an affine; `weight`/`bias` are the flax
-    `scale`/`bias`."""
+    """Masked GroupNorm with an affine (the `masked_group_norm` kernel);
+    `weight`/`bias` are the flax `scale`/`bias`. `relu` and `skip` select
+    the kernel's fused tails `relu(y) * mask` and `relu(y + skip) * mask`."""
 
     def __init__(self, num_groups: int, features: int):
         super().__init__()
@@ -106,9 +84,9 @@ class MaskedGroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, relu: bool = False, skip=None):
         return masked_group_norm(x, mask, self.num_groups, self.weight,
-                                 self.bias)
+                                 self.bias, relu=relu, skip=skip)
 
 
 def downsample_mask(mask: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@
 A stride-1 conv over a zero-filled grid, multiplied by the occupancy mask,
 has the semantics of a sparse conv at the active sites; the stride-2 active
 set is the 2x max-pooled mask; GroupNorm statistics run over active voxels
-only. NCDHW inside; the public grids are [B, gx, gy, gz, C].
+only (the `masked_group_norm` kernel, which also applies the ReLU and
+residual tails). NCDHW inside; the public grids are [B, gx, gy, gz, C].
 """
 from __future__ import annotations
 
@@ -64,10 +65,10 @@ class SparseResidual3d(nn.Module):
         self.MaskedGroupNorm_1 = MaskedGroupNorm(num_groups, features)
 
     def forward(self, x, mask):
-        y = self.MaskedGroupNorm_0(self.MaskedConv3d_0(x, mask), mask)
-        y = F.relu(y) * mask
-        y = self.MaskedGroupNorm_1(self.MaskedConv3d_1(y, mask), mask)
-        return F.relu(y + x) * mask
+        y = self.MaskedGroupNorm_0(self.MaskedConv3d_0(x, mask), mask,
+                                   relu=True)
+        return self.MaskedGroupNorm_1(self.MaskedConv3d_1(y, mask), mask,
+                                      skip=x)
 
 
 class SceneUNet(nn.Module):
@@ -123,13 +124,16 @@ class SceneUNet(nn.Module):
             "grid": x.permute(0, 2, 3, 4, 1).contiguous(),
             "mask": masks[lvl].permute(0, 2, 3, 4, 1), "stride": 2 ** lvl}
 
-        x = grid.permute(0, 4, 1, 2, 3) * masks[0]
+        # NCDHW-contiguous from here on: the GroupNorm kernel wants a
+        # channel contiguous over the voxels, and a strided input would
+        # make cuDNN answer in channels-last
+        x = (grid.permute(0, 4, 1, 2, 3) * masks[0]).contiguous()
         skips = []
         for lvl in range(L):
             m = masks[lvl]
             if lvl > 0:
                 conv, gn = self.down[lvl]
-                x = F.relu(gn(conv(x, m), m)) * m
+                x = gn(conv(x, m), m, relu=True)
             for block in self.enc_res[lvl]:
                 x = block(x, m)
             skips.append(x)
@@ -138,9 +142,9 @@ class SceneUNet(nn.Module):
         for lvl in range(L - 2, -1, -1):
             m = masks[lvl]
             upconv, gn_up, conv, gn = self.up[lvl]
-            x = F.relu(gn_up(upconv(x, m), m)) * m
+            x = gn_up(upconv(x, m), m, relu=True)
             x = torch.cat([x, skips[lvl]], dim=1)
-            x = F.relu(gn(conv(x, m), m)) * m
+            x = gn(conv(x, m), m, relu=True)
             for block in self.dec_res[lvl]:
                 x = block(x, m)
             out.append(scale(x, lvl))

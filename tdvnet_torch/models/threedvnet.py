@@ -84,12 +84,12 @@ class ThreeDVNet(nn.Module):
                           g.grid_size, g.max_anchors, B)
         centers = torch.cat([vg.anchor_center,
                              vg.anchor_center.new_zeros((1, 3))])
-        # points in anchor-sorted order (the max pools are
-        # permutation-invariant, so this only fixes the memory order)
-        ordr = vg.order
-        x = torch.cat([pts_flat[ordr] - centers[vg.p2a_sorted],
-                       feats.reshape(R * P, -1)[ordr]], dim=-1)
-        anchor_feats = self.pointnet(x, vg.p2a_sorted, vg.point_valid[ordr],
+        # points stay in their input order: the PointNet's max pools and
+        # per-row linears do not depend on it (the JAX package sorts them by
+        # anchor only so that XLA can declare sorted segments)
+        x = torch.cat([pts_flat - centers[vg.point2anchor],
+                       feats.reshape(R * P, -1)], dim=-1)
+        anchor_feats = self.pointnet(x, vg.point2anchor, vg.point_valid,
                                      g.max_anchors)
         dense, occ = vox.scatter_anchors_to_dense(anchor_feats, vg,
                                                   g.grid_size, B)

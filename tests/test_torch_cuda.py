@@ -10,7 +10,7 @@ import pytest
 import torch
 
 KERNELS = ("source_variance", "trilinear_sample", "propagation_blend",
-           "softargmax_depth")
+           "softargmax_depth", "voxelize", "segment_max", "masked_group_norm")
 
 
 @pytest.mark.cuda
@@ -85,3 +85,114 @@ def test_kernels_match_twins_at_hostile_coordinates():
     trilinear_sample(grid, q, c0, 1.0, out, 0)
     assert torch.allclose(out, trilinear_sample_ref(grid, q, c0, 1.0),
                           rtol=1e-5, atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_anchors", [4096, 60, 1])
+def test_voxelize_kernel_equals_twin_with_overflow_and_hostile_points(
+        max_anchors):
+    """Every field equal, with the anchor capacity overflowing, points out
+    of the grid, invalid points, NaN and infinite coordinates, two scenes
+    (one of them empty in the last case), and origins found by the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import segmax, voxelize as vox
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(max_anchors)
+    P = 5000
+    pts = torch.rand(P, 3, generator=g) * 1.9 - 0.3
+    pts[0, 0] = float("nan")
+    pts[1, 1] = float("inf")
+    pts[2, 2] = -float("inf")
+    pts[3, 0] = 1e30
+    scene = (torch.arange(P) * 2 // P)
+    valid = torch.rand(P, generator=g) > 0.1
+    if max_anchors == 1:
+        valid[scene == 1] = False
+    pts, scene, valid = pts.to(dev), scene.to(dev), valid.to(dev)
+    origins = torch.tensor([[-0.1, 0.0, 0.05], [0.2, -0.2, 0.0]], device=dev)
+    for org in (None, origins):
+        args = (pts, scene, valid, 0.08, (16, 16, 16), max_anchors, 2, org)
+        a, b = vox.voxelize(*args), vox.voxelize_ref(*args)
+        assert a.order is None and a.p2a_sorted is None
+        for f in a._fields:
+            if getattr(a, f) is not None:
+                assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert not a.point_valid[:4].any()
+        if org is not None:
+            assert (int(a.n_overflow) > 0) == (max_anchors < 1000)
+        feats = torch.randn(max_anchors, 8, generator=g).to(dev)
+        for x, y in zip(vox.scatter_anchors_to_dense(feats, a, (16, 16, 16), 2),
+                        vox.scatter_anchors_to_dense_ref(feats, b,
+                                                         (16, 16, 16), 2)):
+            assert torch.equal(x, y)
+        y = torch.randn(P, 8, generator=g).to(dev)
+        y[7] = -6e29                     # at the empty threshold: reads as 0
+        n_seg = max_anchors + 1
+        pa = segmax.segment_max(y, a.point2anchor, a.point_valid, n_seg)
+        assert torch.equal(pa, segmax.segment_max_ref(
+            y, a.point2anchor, a.point_valid, n_seg))
+        for relu in (False, True):
+            assert torch.equal(
+                segmax.gather_concat(y, pa, a.point2anchor, relu),
+                segmax.gather_concat_ref(y, pa, a.point2anchor, relu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(16, 12, 8), (5, 3, 3)])
+def test_masked_group_norm_kernel_matches_twin_on_empty_and_full_masks(dims):
+    """Within 1e-4 of the twin's largest magnitude (the sums run in another
+    order), in the three tails, with B = 2 where one element's mask is empty
+    and with a mask of ones; V a multiple of 4 and not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels.groupnorm import (masked_group_norm,
+                                                masked_group_norm_ref)
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+    B, C, G = 2, 24, 4
+    x = (torch.randn(B, C, *dims, generator=g) * 2 + 1).to(dev)
+    skip = torch.randn(B, C, *dims, generator=g).to(dev)
+    w = torch.randn(C, generator=g).to(dev)
+    b = torch.randn(C, generator=g).to(dev)
+    sparse = (torch.rand(B, 1, *dims, generator=g) > 0.6).float()
+    sparse[1] = 0
+    for mask in (sparse.to(dev), torch.ones(B, 1, *dims, device=dev)):
+        for kw in ({}, {"relu": True}, {"skip": skip * mask}):
+            got = masked_group_norm(x * mask, mask, G, w, b, **kw)
+            want = masked_group_norm_ref(x * mask, mask, G, w, b, **kw)
+            tol = 1e-4 * max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= tol, (dims, list(kw))
+            assert torch.equal(got == 0, want == 0) or mask.all()
+            again = masked_group_norm(x * mask, mask, G, w, b, **kw)
+            assert torch.equal(got, again)      # fixed order: it repeats
+
+
+@pytest.mark.cuda
+def test_scene_model_counts_its_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.config import tiny_test_config
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+    from tdvnet_torch.models.threedvnet import ThreeDVNet
+
+    cfg = tiny_test_config()
+    torch.manual_seed(0)
+    model = ThreeDVNet(cfg.model).to("cuda").eval()
+    from tdvnet_torch.data import batch as B, synthetic
+
+    bc = cfg.batch
+    batch = B.collate_scenes(
+        [synthetic.make_batch_scene(bc.n_views, bc.img_size,
+                                    bc.depth_img_size, seed=0)],
+        bc.n_views, bc.n_ref, bc.n_src_on_either_side)
+    offsets = ((0.05, 0.025), (0.025,))
+    reset_launch_counts()
+    depth = model.infer_depth(batch, offsets)
+    torch.cuda.synchronize()
+    assert torch.isfinite(depth).all()
+    assert launch_counts() == chip_smoke.expected_launches(
+        offsets, 1, cfg.model.unet_res)

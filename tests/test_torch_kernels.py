@@ -134,3 +134,150 @@ def test_softargmax_ref_matches_xla_form():
     b = softargmax_depth_ref(t(cost), linspace_f32(0.5, 0.5 + 0.05 * 23, 24))
     # a 24-term softmax expectation of depths ~1 m in fp32
     np.testing.assert_allclose(np.asarray(a), n(b), rtol=2e-6, atol=1e-6)
+
+
+def _cloud(rng, n_pts, n_scenes):
+    """Points around a 16^3 grid of 0.08 m (1.28 m): inside, outside, some
+    invalid, and a few hostile coordinates."""
+    pts = rng.uniform(-0.3, 1.6, (n_pts, 3)).astype(np.float32)
+    scene = np.sort(rng.integers(0, n_scenes, n_pts)).astype(np.int32)
+    valid = rng.uniform(size=n_pts) > 0.1
+    valid[:8] = True
+    pts[0] = (np.nan, 0.5, 0.5)
+    pts[1] = (0.5, np.inf, 0.5)
+    pts[2] = (0.5, 0.5, -np.inf)
+    pts[3] = (1e30, 0.5, 0.5)
+    return pts, scene, valid
+
+
+@pytest.mark.parametrize("max_anchors", [4096, 60, 1])
+def test_voxelize_ref_matches_jax_with_hostile_points(max_anchors):
+    import torch
+
+    from tdvnet.ops import voxelize as J
+    from tdvnet_torch.kernels.voxelize import (scatter_anchors_to_dense_ref,
+                                               voxelize_ref)
+
+    rng = np.random.default_rng(21)
+    pts, scene, valid = _cloud(rng, 3000, 2)
+    # fixed origins: a NaN or infinite coordinate of a valid point would
+    # otherwise decide the bbox minimum
+    origins = np.array([[-0.1, 0.0, 0.05], [0.2, -0.2, 0.0]], np.float32)
+    targs = (t(scene), 0.08, (16, 16, 16), max_anchors, 2)
+    b_nan = voxelize_ref(t(pts), targs[0], torch.from_numpy(valid), *targs[1:],
+                         origins=t(origins))
+    # the one deliberate difference: XLA converts floor(NaN) to cell 0, so
+    # JAX voxelizes a NaN coordinate; the port tests the bounds on the
+    # float, so the point is out of the grid. Against JAX the NaN point is
+    # flagged invalid on input; the port's own run with it valid differs
+    # only in the out-of-grid count.
+    valid = valid.copy()
+    valid[0] = False
+    a = J.voxelize(pts, scene, valid, 0.08, (16, 16, 16), max_anchors, 2,
+                   origins=origins)
+    b = voxelize_ref(t(pts), targs[0], torch.from_numpy(valid), *targs[1:],
+                     origins=t(origins))
+    for f in b._fields:
+        if f == "n_out_of_grid":
+            assert int(b_nan.n_out_of_grid) == int(b.n_out_of_grid) + 1
+        else:
+            assert torch.equal(getattr(b_nan, f), getattr(b, f)), f
+    for f in a._fields:
+        x, y = np.asarray(getattr(a, f)), n(getattr(b, f))
+        if f in ("order", "p2a_sorted"):
+            # JAX's argsort is not stable among equal keys: compare the
+            # sorted keys, not the permutation
+            continue
+        if np.issubdtype(x.dtype, np.floating):
+            np.testing.assert_allclose(x, y, rtol=1e-6, atol=1e-6, err_msg=f)
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=f)
+    np.testing.assert_array_equal(np.asarray(a.p2a_sorted), n(b.p2a_sorted))
+    # the hostile points are out of the grid
+    assert not n(b.point_valid)[:4].any()
+    assert (n(b.point2anchor)[:4] == max_anchors).all()
+    assert int(b.n_out_of_grid) >= 3
+    assert (int(b.n_overflow) > 0) == (max_anchors < 1000)
+    feats = rng.normal(size=(max_anchors, 8)).astype(np.float32)
+    da, oa = J.scatter_anchors_to_dense(feats, a, (16, 16, 16), 2)
+    db, ob = scatter_anchors_to_dense_ref(t(feats), b, (16, 16, 16), 2)
+    np.testing.assert_array_equal(np.asarray(da), n(db))
+    np.testing.assert_array_equal(np.asarray(oa), n(ob))
+
+
+def test_scene_origins_ref_matches_jax():
+    import torch
+
+    from tdvnet.ops.voxelize import scene_origins as J
+    from tdvnet_torch.kernels.voxelize import scene_origins_ref
+
+    rng = np.random.default_rng(22)
+    pts = rng.normal(0, 2, (500, 3)).astype(np.float32)
+    scene = np.sort(rng.integers(0, 3, 500)).astype(np.int32)
+    valid = rng.uniform(size=500) > 0.3
+    valid[scene == 1] = False                  # an empty scene gives 0
+    a = J(pts, scene, valid, 3)
+    b = scene_origins_ref(t(pts), t(scene), torch.from_numpy(valid), 3)
+    np.testing.assert_array_equal(np.asarray(a), n(b))
+    assert (n(b)[1] == 0).all() and (n(b)[0] < -1).all()
+
+
+def test_segment_max_and_gather_concat_refs_match_jax():
+    import torch
+
+    from tdvnet.models.pointnet import NEG, _segmax
+    from tdvnet_torch.kernels.segmax import gather_concat_ref, segment_max_ref
+
+    rng = np.random.default_rng(23)
+    P, C, n_seg = 600, 12, 40
+    y = rng.normal(0, 3, (P, C)).astype(np.float32)
+    seg = rng.integers(0, n_seg, P).astype(np.int32)
+    seg[seg == 7] = 8                          # segment 7 is empty
+    valid = rng.uniform(size=P) > 0.2
+    valid[seg == 11] = False                   # segment 11 is all masked
+    y[seg == 13] = -3e29                       # above the empty threshold
+    y[seg == 14] = -6e29                       # at or below it: reads as 0
+    a = _segmax(jnp.where(jnp.asarray(valid)[:, None], y, NEG), seg, n_seg)
+    b = segment_max_ref(t(y), t(seg), torch.from_numpy(valid), n_seg)
+    np.testing.assert_array_equal(np.asarray(a), n(b))
+    assert (n(b)[[7, 11, 14]] == 0).all() and (n(b)[13] == -3e29).all()
+    back = a.at[seg].get()
+    cat = jnp.concatenate([y, back], axis=-1)
+    np.testing.assert_array_equal(
+        np.asarray(cat), n(gather_concat_ref(t(y), b, t(seg))))
+    np.testing.assert_array_equal(
+        np.asarray(jax.nn.relu(cat)),
+        n(gather_concat_ref(t(y), b, t(seg), relu=True)))
+
+
+@pytest.mark.parametrize("tail", ["none", "relu", "skip"])
+@pytest.mark.parametrize("full_mask", [False, True])
+def test_masked_group_norm_ref_matches_jax(tail, full_mask):
+    from tdvnet.models.layers import masked_group_norm as J
+    from tdvnet_torch.kernels.groupnorm import masked_group_norm_ref
+
+    rng = np.random.default_rng(24)
+    x = rng.normal(1, 2, (2, 6, 5, 4, 12)).astype(np.float32)
+    if full_mask:
+        mask = np.ones((2, 6, 5, 4, 1), np.float32)
+    else:
+        mask = (rng.uniform(size=(2, 6, 5, 4, 1)) > 0.4).astype(np.float32)
+        mask[1] = 0.0                          # one batch element is empty
+    x = x * mask
+    skip = (rng.normal(size=x.shape) * mask).astype(np.float32)
+    scale = rng.normal(size=12).astype(np.float32)
+    bias = rng.normal(size=12).astype(np.float32)
+    a = J(x, mask, 4, scale, bias)
+    if tail == "relu":
+        a = jax.nn.relu(a) * mask
+    elif tail == "skip":
+        a = jax.nn.relu(a + skip) * mask
+    cf = lambda v: t(v).permute(0, 4, 1, 2, 3)
+    b = masked_group_norm_ref(cf(x), cf(mask), 4, t(scale), t(bias),
+                              relu=tail == "relu",
+                              skip=cf(skip) if tail == "skip" else None)
+    # fp32 group statistics over a few hundred sites
+    np.testing.assert_allclose(np.asarray(a), n(b.permute(0, 2, 3, 4, 1)),
+                               rtol=1e-5, atol=1e-5)
+    if not full_mask:
+        assert not n(b)[1].any()

@@ -102,6 +102,35 @@ def test_wrappers_run_their_twin_on_cpu_and_count_nothing():
     cost, dv = r(2, 8, 3, 4), torch.linspace(0.5, 2.0, 8)
     assert torch.equal(K.softargmax_depth(cost, dv),
                        softargmax_depth_ref(cost, dv))
+
+    from tdvnet_torch.kernels.groupnorm import masked_group_norm_ref
+    from tdvnet_torch.kernels.segmax import gather_concat_ref, segment_max_ref
+    from tdvnet_torch.kernels.voxelize import (scatter_anchors_to_dense_ref,
+                                               voxelize_ref)
+
+    pts3 = torch.rand(200, 3, generator=g) * 1.5 - 0.1
+    scene = torch.arange(200) // 100
+    valid = torch.rand(200, generator=g) > 0.1
+    vargs = (pts3, scene, valid, 0.08, (16, 16, 16), 64, 2)
+    va, vb = K.voxelize_points(*vargs), voxelize_ref(*vargs)
+    assert all(torch.equal(a, b) for a, b in zip(va, vb))
+    assert va.order is not None            # the twin keeps the sorted view
+    af = r(64, 8)
+    for a, b in zip(K.scatter_anchors_to_dense(af, va, (16, 16, 16), 2),
+                    scatter_anchors_to_dense_ref(af, vb, (16, 16, 16), 2)):
+        assert torch.equal(a, b)
+    y = r(200, 8)
+    pa = K.segment_max(y, va.point2anchor, va.point_valid, 65)
+    assert torch.equal(pa, segment_max_ref(y, va.point2anchor,
+                                           va.point_valid, 65))
+    assert torch.equal(K.gather_concat(y, pa, va.point2anchor, relu=True),
+                       gather_concat_ref(y, pa, va.point2anchor, relu=True))
+    x, m = r(2, 8, 3, 4, 5), (torch.rand(2, 1, 3, 4, 5, generator=g) > 0.5).float()
+    w, b = r(8), r(8)
+    for kw in ({}, {"relu": True}, {"skip": r(2, 8, 3, 4, 5)}):
+        assert torch.equal(K.masked_group_norm(x, m, 4, w, b, **kw),
+                           masked_group_norm_ref(x, m, 4, w, b, **kw))
+    assert len(K.launch_counts()) == 9
     assert all(v == 0 for v in K.launch_counts().values())
 
 
@@ -114,6 +143,13 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         K.propagation_blend(torch.empty(2, 5, 6, 9), torch.empty(
             2, 5, 6, device="meta"))
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        K.segment_max(torch.empty(5, 4), torch.empty(5, dtype=torch.int64),
+                      torch.empty(5, dtype=torch.bool, device="meta"), 3)
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        K.masked_group_norm(torch.empty(1, 4, 2, 2, 2, device="meta"),
+                            torch.empty(1, 1, 2, 2, 2), 2, torch.empty(4),
+                            torch.empty(4))
 
 
 def test_config_matches_jax_defaults_and_refuses_matmul_warp():
