@@ -5,10 +5,8 @@ Two deviations from the JAX package's `ModelConfig`:
   homography matmul warp is a TPU matrix-unit artifact and is not ported.
 - `conv3d_impl` is gone: cuDNN runs the 3D convolutions.
 
-`EvalConfig` holds the fields whole-scene inference reads and the fusion
-constants as plain data. The fast-path switches (`fast_path`, `fast_rank`,
-`fast_patch`) arrive with the fast path; until then they are unknown keys
-and `load_config` raises on them.
+`EvalConfig` holds the fields whole-scene inference reads, the fast-path
+switches and the fusion constants as plain data.
 """
 from __future__ import annotations
 
@@ -105,7 +103,7 @@ class BatchConfig:
 
 @dataclass(frozen=True)
 class EvalConfig:
-    """Evaluation constants (the JAX package's `EvalConfig`, parity path)."""
+    """Evaluation constants (the JAX package's `EvalConfig`)."""
 
     dataset_type: str = "scannet"
     save_dir: str = "eval_results"
@@ -132,6 +130,15 @@ class EvalConfig:
     # multiples, capped at eval_grid_size with a warning when the cap clips)
     auto_grid: bool = True
     grid_bucket: int = 16
+    # the fast path (off = the parity op mix): merged U-Net scales projected
+    # onto the decoder's top `fast_rank` scene directions and sampled from
+    # per-channel int8 tables, one fine offset pass in refinement iteration
+    # 2, and with `fast_patch` the image variance of a pixel's whole
+    # hypothesis fan from one 4x4 patch per source. The projection is off
+    # when `fast_rank` reaches the decoder's scene-channel count.
+    fast_path: bool = False
+    fast_rank: int = 96
+    fast_patch: bool = True
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,4 @@
-"""Whole-scene depth inference (port of `tdvnet/eval/fused_scene.py`,
-parity path).
+"""Whole-scene depth inference (port of `tdvnet/eval/fused_scene.py`).
 
 One scene of N ordered views has R = N - 2k ref views (k sources on either
 side). Refs are processed in chunks of `EvalConfig.fused_chunk`; the ref
@@ -17,12 +16,22 @@ result:
            result (bounded +-0.5 mm quantization)
 
 The chunk semantics are those of the JAX class; a Python loop over chunks
-stands where it scans on the device. Two deviations, both exact in real
-arithmetic: the JAX class merges the U-Net scales into one fine lattice
-and packs gather tables (`combine_scales`, `pack_scales`) because the TPU's
-gather costs per row, while this one samples each scale's grid directly
-with the `trilinear_sample` kernel; and `count_flops`, which reads XLA's
-cost analysis, has no counterpart here.
+stands where it scans on the device. `count_flops`, which reads XLA's cost
+analysis, has no counterpart here.
+
+Parity path (`fast_path=False`): each U-Net scale's grid is sampled directly
+with the `trilinear_sample` kernel. The JAX class packs oct gather tables
+(`pack_scales`) because the TPU's gather costs per row; that is exact in
+real arithmetic and has no counterpart here.
+
+Fast path (`fast_path=True`, the JAX class's op mix): iteration 2 runs one
+fine offset pass (`FAST_OFFSETS`); per iteration the U-Net scales merge
+into one fine lattice (`combine_scales`), which is projected onto the top
+`fast_rank` singular directions of the decoder's first-conv scene weights
+(the decoder's copy with the projected Conv_0 reads it) and quantized per
+channel to int8, sampled by `trilinear_sample_i8` into bf16; with
+`fast_patch` the image variance of a pixel's hypothesis fan comes from one
+4x4 patch per source (`patch_fan_variance`).
 """
 from __future__ import annotations
 
@@ -35,10 +44,15 @@ import torch
 
 from tdvnet_torch.config import Config, GridConfig, set_fp32_numerics
 from tdvnet_torch.data.batch import FrameBatch
+from tdvnet_torch.models import hypothesis
 from tdvnet_torch.models.threedvnet import ThreeDVNet
 from tdvnet_torch.ops import camera
+from tdvnet_torch.ops.sampling import quantize_per_channel_int8
 
 PARITY_OFFSETS = ((0.05, 0.05, 0.025), (0.05, 0.05, 0.025))
+# the fast path's offsets: iteration 2 runs one fine pass, by then the
+# depth is within the fine capture range
+FAST_OFFSETS = ((0.05, 0.05, 0.025), (0.025,))
 FEATURE_CHUNK = 32        # images per backbone call (memory, not numerics)
 STAT_KEYS = ("n_out_of_grid", "n_overflow", "n_points")
 
@@ -48,18 +62,41 @@ class FusedSceneInference:
 
     def __init__(self, model: ThreeDVNet, cfg: Config,
                  offsets_list: Sequence[Sequence[float]] = PARITY_OFFSETS,
-                 fetch_mm: bool = True):
+                 fetch_mm: bool = True, fast_path: Optional[bool] = None):
         self.model = model
         self.cfg = cfg
-        self.offsets_list = tuple(tuple(float(o) for o in off)
-                                  for off in offsets_list)
-        self.fetch_mm = fetch_mm
         e = cfg.eval
+        self.fast_path = e.fast_path if fast_path is None else fast_path
+        offsets = tuple(tuple(float(o) for o in off) for off in offsets_list)
+        if self.fast_path and offsets == PARITY_OFFSETS:
+            offsets = FAST_OFFSETS
+        self.offsets_list = offsets
+        self.fetch_mm = fetch_mm
         self.chunk = e.fused_chunk
         self.grid_cfg = GridConfig(
             edge_len=cfg.model.grid.edge_len, grid_size=e.eval_grid_size,
             max_anchors=e.eval_max_anchors)
         self.device = next(model.parameters()).device
+        self.fast_patch = self.fast_path and e.fast_patch
+        # the rank projection: V on the card and the decoder that reads
+        # the projected table; off when the rank keeps every scene channel
+        self.fast_rank = e.fast_rank if self.fast_path else 0
+        self._proj_V = self._decoder_fast = None
+        if self.fast_rank:
+            feat_dim = cfg.model.feat_dim
+            n_scene = model.decoder.Conv_0.in_channels - feat_dim
+            if 0 < self.fast_rank < n_scene:
+                V, self._decoder_fast, tail = hypothesis.projected_decoder(
+                    model.decoder, feat_dim, self.fast_rank)
+                self._proj_V = torch.from_numpy(V).to(self.device)
+                print(f"fast-rank {self.fast_rank}/{n_scene}: discarded "
+                      f"interface spectral energy {tail:.4f}")
+            else:
+                self.fast_rank = 0
+        # fast path: tables sampled per iteration of the last scene, and
+        # whether the projection applied to them
+        self.last_n_tables = None
+        self.last_projected = None
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self.last_scene_stats: Dict = {}
@@ -146,6 +183,32 @@ class FusedSceneInference:
         return GridConfig(edge_len=gc.edge_len,
                           grid_size=tuple(int(x) for x in capped),
                           max_anchors=gc.max_anchors)
+
+    def _fast_tables(self, scales):
+        """The fast path's tables of one iteration: merge the scales, project
+        a single merged grid onto V (the projected decoder then reads it),
+        quantize each grid per channel to int8 unless its oct table would
+        exceed the budget (then it is sampled in fp32, as in the JAX
+        package). Returns (scales, decoder or None for the model's own)."""
+        scales = hypothesis.combine_scales(scales)
+        decoder, V = None, self._proj_V
+        if V is not None and len(scales) == 1 \
+                and scales[0]["grid"].shape[-1] == V.shape[0]:
+            g = scales[0]["grid"]
+            gp = (g.reshape(-1, g.shape[-1]) @ V).reshape(*g.shape[:-1],
+                                                         V.shape[1])
+            scales = [dict(scales[0], grid=gp)]
+            decoder = self._decoder_fast
+        out = []
+        for sc in scales:
+            g = sc["grid"]
+            if hypothesis.int8_table_bytes(g) <= \
+                    hypothesis._COMBINE_BUDGET_BYTES:
+                qs = [quantize_per_channel_int8(gb) for gb in g]
+                sc = dict(sc, grid=torch.stack([q for q, _ in qs]),
+                          scale=torch.stack([s for _, s in qs]))
+            out.append(sc)
+        return out, decoder
 
     # ------------------------------------------------------------ transfers
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -280,13 +343,20 @@ class FusedSceneInference:
                 scales, origins, sstats = model.model_scene(d_pad, fq, sb, gc)
                 stats_acc = stats_acc + torch.stack(
                     [sstats[name] for name in STAT_KEYS])
+            decoder = None
+            if self.fast_path:
+                with span("stage_C_fast_tables"):
+                    scales, decoder = self._fast_tables(scales)
+                st["n_tables"] = len(scales)
+                st["projected"] = decoder is not None
             with span("stage_D_pointflow"):
                 # refs are independent inside an iteration: every chunk
                 # starts from the depth the iteration began with
                 depth_all = torch.cat([
                     model.run_pointflow_multi(
                         scales, origins, depth_all[r0:r0 + CH],
-                        fq[r0:r0 + CH + 2 * k], cb, offsets, 3, gc)
+                        fq[r0:r0 + CH + 2 * k], cb, offsets, 3, gc,
+                        self.fast_patch, decoder)
                     for r0, cb in chunks])
 
         with span("stage_E_upsample"):
@@ -312,6 +382,8 @@ class FusedSceneInference:
             if ev is not None:
                 ev.synchronize()
         self.last_grid_size = st["grid_size"]
+        self.last_n_tables = st.get("n_tables")
+        self.last_projected = st.get("projected")
         self.last_scene_stats = {name: int(v) for name, v in
                                  zip(STAT_KEYS, st["stats"].cpu().tolist())}
         out = st["result"].cpu().numpy()

@@ -13,9 +13,9 @@ from tdvnet_torch.eval.fused_scene import FusedSceneInference
 
 def make_3dvnet_pred_fn(model, cfg: Config):
     """The model's `pred_fn(views, scene_dir, dset)`: whole-scene inference
-    through `FusedSceneInference` on the model's device. Result depths are
-    millimetre-quantized on fetch (+-0.5 mm, far below every metric
-    threshold)."""
+    through `FusedSceneInference` on the model's device, on the fast path
+    when `cfg.eval.fast_path` says so. Result depths are millimetre-quantized
+    on fetch (+-0.5 mm, far below every metric threshold)."""
     inf = FusedSceneInference(model, cfg)
 
     def pred_fn(views, scene_dir, dset):

@@ -37,6 +37,10 @@ SIGNATURES = {
                             _F, _F, _P],
     "tdv_trilinear_sample": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _F, _I,
                              _I, _P],
+    "tdv_trilinear_sample_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
+                                _F, _F, _I, _I, _P],
+    "tdv_patch_fan_variance": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I,
+                               _I, _I, _F, _F, _P],
     "tdv_propagation_blend": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
     "tdv_softargmax_depth": [_P, _P, _P, _I, _I, _L, _P],
     "tdv_scene_origins": [_P, _P, _P, _P, _P, _L, _I, _P],

@@ -27,6 +27,24 @@ from tdvnet_torch.ops import camera, costvolume, voxelize as vox
 from tdvnet_torch.ops.sampling import resize_nearest
 
 
+def hypothesis_points(depth_pred: torch.Tensor, K: torch.Tensor,
+                      rotmats: torch.Tensor, tvecs: torch.Tensor,
+                      img_size, offset: float, n: int = 3) -> torch.Tensor:
+    """World points of the 2n+1 depth hypotheses d + i * offset (i = -n..n)
+    along each pixel's ray of the ref views: depth_pred [R, h, w], the refs'
+    K/rotmats/tvecs -> [R, 2n+1, h*w, 3]."""
+    R, h, w = depth_pred.shape
+    P = h * w
+    dev = depth_pred.device
+    grid = camera.build_img_grid(img_size, (h, w), dev)
+    ray_cam = grid @ torch.linalg.inv(K).transpose(-1, -2)
+    ray_world = ray_cam @ rotmats                                # R^T ray
+    center = camera.camera_center(rotmats, tvecs)
+    ivals = torch.arange(-n, n + 1, dtype=torch.float32, device=dev)
+    dh = depth_pred.reshape(R, 1, P) + ivals[None, :, None] * offset
+    return center[:, None, None, :] + ray_world[:, None, :, :] * dh[..., None]
+
+
 class ThreeDVNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -107,50 +125,60 @@ class ThreeDVNet(nn.Module):
 
     def run_pointflow(self, scales, origins, depth_pred, feats_quarter,
                       batch: FrameBatch, offset: float, n: int = 3,
-                      grid_cfg: Optional[GridConfig] = None):
+                      grid_cfg: Optional[GridConfig] = None,
+                      patch_variance: bool = False,
+                      decoder: Optional[nn.Module] = None):
         """Score 2n+1 depth-offset hypotheses per pixel; return the expected
-        depth correction [R, h, w]."""
+        depth correction [R, h, w]. `patch_variance` samples the image
+        variance of a pixel's whole hypothesis fan from one 4x4 patch per
+        source (fast path); `decoder` replaces `self.decoder` (the fast
+        path's projected decoder)."""
         g = grid_cfg or self.cfg.grid
         R, h, w = depth_pred.shape
         P = h * w
         H = 2 * n + 1
         B = batch.n_scenes
         n_ref = R // B
-        dev = depth_pred.device
-
         ri = batch.ref_idx
-        grid = camera.build_img_grid(self.cfg.img_size, (h, w), dev)
-        ray_cam = grid @ torch.linalg.inv(batch.K[ri]).transpose(-1, -2)
-        Rr = batch.rotmats[ri]
-        ray_world = ray_cam @ Rr                                  # R^T ray
-        center = camera.camera_center(Rr, batch.tvecs[ri])
-        ivals = torch.arange(-n, n + 1, dtype=torch.float32, device=dev)
-        dh = depth_pred.reshape(R, 1, P) + ivals[None, :, None] * offset
-        pts_hyp = center[:, None, None, :] \
-            + ray_world[:, None, :, :] * dh[..., None]            # [R, H, P, 3]
+        pts_hyp = hypothesis_points(depth_pred, batch.K[ri], batch.rotmats[ri],
+                                    batch.tvecs[ri], self.cfg.img_size,
+                                    offset, n)                   # [R, H, P, 3]
+        ivals = torch.arange(-n, n + 1, dtype=torch.float32,
+                             device=depth_pred.device)
 
-        var = costvolume.hypothesis_point_variance(
-            pts_hyp.reshape(R, H * P, 3), feats_quarter, batch.src_idx,
-            batch.src_mask, batch.rotmats, batch.tvecs, batch.K,
-            self.cfg.img_size)                                    # [R, HP, C]
+        if patch_variance:
+            var = costvolume.hypothesis_patch_variance(
+                pts_hyp, feats_quarter, batch.src_idx, batch.src_mask,
+                batch.rotmats, batch.tvecs, batch.K, self.cfg.img_size)
+        else:
+            var = costvolume.hypothesis_point_variance(
+                pts_hyp.reshape(R, H * P, 3), feats_quarter, batch.src_idx,
+                batch.src_mask, batch.rotmats, batch.tvecs, batch.K,
+                self.cfg.img_size)                                # [R, HP, C]
         scene_feats = sample_scales(scales, pts_hyp.reshape(B, n_ref * H * P, 3),
                                     origins, g.edge_len)
+        # as in the JAX package, the variance takes the scene features'
+        # dtype before the concat (bf16 from the fast path's int8 tables)
+        # and the decoder widens its input to its own fp32
         feats = torch.cat([scene_feats.reshape(R, H, P, -1),
-                           var.reshape(R, H, P, -1)], dim=-1)
+                           var.reshape(R, H, P, -1).to(scene_feats.dtype)],
+                          dim=-1)
         feats = feats.transpose(1, 2).reshape(R * P, H, -1)
-        probs = self.decoder(feats)                               # [RP, H]
+        probs = (decoder or self.decoder)(feats.to(torch.float32))  # [RP, H]
         pred = (probs * (ivals * offset)[None, :]).sum(dim=-1)
         return pred.reshape(R, h, w)
 
     def run_pointflow_multi(self, scales, origins, depth_pred, feats_quarter,
                             batch: FrameBatch, offsets, n: int = 3,
-                            grid_cfg: Optional[GridConfig] = None):
+                            grid_cfg: Optional[GridConfig] = None,
+                            patch_variance: bool = False,
+                            decoder: Optional[nn.Module] = None):
         """All of one refinement iteration's offset passes; the depth
         carries from pass to pass."""
         for off in offsets:
             depth_pred = depth_pred + self.run_pointflow(
                 scales, origins, depth_pred, feats_quarter, batch, float(off),
-                n, grid_cfg)
+                n, grid_cfg, patch_variance, decoder)
         return depth_pred
 
     def upsample(self, depth_pred, feats_half, feats_quarter, images,

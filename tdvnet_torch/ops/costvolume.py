@@ -1,8 +1,10 @@
 """Plane-sweep variance cost volume and per-point variance features
 (port of `tdvnet/ops/costvolume.py`, exact gather warp only).
 
-Both reduce to one call of the `source_variance` kernel over world points.
-The card holds the [R, P, C] result whole, so nothing is chunked.
+The cost volume and the point variance reduce to one call of the
+`source_variance` kernel over world points, the fast path's hypothesis-fan
+variance to one call of `patch_fan_variance`. The card holds the result
+whole, so nothing is chunked.
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from tdvnet_torch.kernels import source_variance
+from tdvnet_torch.kernels import patch_fan_variance, source_variance
 from tdvnet_torch.ops import camera
 
 
@@ -45,3 +47,17 @@ def hypothesis_point_variance(pts_world: torch.Tensor, feats: torch.Tensor,
     P_all = camera.projection_matrix(K, rotmats, tvecs)
     return source_variance(pts_world.contiguous(), feats.contiguous(),
                            src_idx, src_mask, P_all.contiguous(), img_size)
+
+
+def hypothesis_patch_variance(pts_hyp: torch.Tensor, feats: torch.Tensor,
+                              src_idx: torch.Tensor, src_mask: torch.Tensor,
+                              rotmats: torch.Tensor, tvecs: torch.Tensor,
+                              K: torch.Tensor,
+                              img_size: Tuple[int, int]) -> torch.Tensor:
+    """Fast-path variance over hypothesis fans: pts_hyp [R, Hh, P, 3] (the
+    Hh hypotheses of P pixels, the centre one at Hh // 2) -> [R, Hh, P, C],
+    each hypothesis sampled from one 4x4 patch per (pixel, source) around
+    the centre's anchor (see `patch_fan_variance_ref`)."""
+    P_all = camera.projection_matrix(K, rotmats, tvecs)
+    return patch_fan_variance(pts_hyp.contiguous(), feats.contiguous(),
+                              src_idx, src_mask, P_all.contiguous(), img_size)

@@ -4,7 +4,20 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_one_thread():
+    """One torch thread while a module of the port's tests runs (a module
+    imports this fixture to use it). Their tensors are tiny, where torch's
+    thread pool costs more than it gains, and the test workers run side by
+    side, each with a pool of one thread per core."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def flax_variables(module, *args, seed=0, perturb=True, **kwargs):

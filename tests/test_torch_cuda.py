@@ -6,11 +6,13 @@ card's machine has no JAX, so run them there without the repo's conftest:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+import numpy as np
 import pytest
 import torch
 
 KERNELS = ("source_variance", "trilinear_sample", "propagation_blend",
-           "softargmax_depth", "voxelize", "segment_max", "masked_group_norm")
+           "softargmax_depth", "voxelize", "segment_max", "masked_group_norm",
+           "trilinear_sample_i8", "patch_fan_variance")
 
 
 @pytest.mark.cuda
@@ -196,3 +198,92 @@ def test_scene_model_counts_its_kernels():
     assert torch.isfinite(depth).all()
     assert launch_counts() == chip_smoke.expected_launches(
         offsets, 1, cfg.model.unet_res)
+
+
+@pytest.mark.cuda
+def test_fast_path_kernels_match_twins_at_hostile_coordinates():
+    """The int8 sampling across its low pad, outside the grid and at
+    infinity (within one bf16 ulp, NaN for NaN), and the patch-fan variance
+    with fans behind a camera, on its plane, overflowing fp32, NaN, beyond
+    +-1 texel and with masked sources (within 1e-5, NaN for NaN)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import patch_fan_variance, trilinear_sample_i8
+    from tdvnet_torch.kernels.patchfan import patch_fan_variance_ref
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_i8_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(4)
+    grid = torch.randint(-127, 128, (2, 6, 5, 4, 8), generator=g,
+                         dtype=torch.int8).to(dev)
+    scale = torch.rand(2, 8, generator=g).to(dev)
+    inf = float("inf")
+    q = torch.tensor([[-1e30, 0, 0], [3e38, 1, 1], [-0.99, 0.5, 0.5],
+                      [5.99, 4.5, 3.5], [-2.0, 2, 2], [2.5, 2.5, 2.5],
+                      [inf, 1, 1], [-4.0, -3.5, -3.2], [2.9, 1.9, 0.9]])
+    q = q.expand(2, 9, 3).contiguous().to(dev)
+    c0 = torch.zeros(2, 3, device=dev)
+    out = torch.zeros(2, 9, 8, dtype=torch.bfloat16, device=dev)
+    trilinear_sample_i8(grid, scale, q, c0, 1.0, out, 0, cell_offset=3.0)
+    want = trilinear_sample_i8_ref(grid, scale, q, c0, 1.0, 3.0)
+    assert torch.allclose(out.float(), want.float(), rtol=2 ** -8, atol=0,
+                          equal_nan=True)
+    assert torch.isnan(out[:, 6]).all() and not torch.isnan(out[:, :6]).any()
+
+    feats = torch.randn(3, 16, 20, 8, generator=g).to(dev)
+    K = torch.tensor([[60.0, 0, 40], [0, 60, 32], [0, 0, 1]])
+    Rt = torch.cat([torch.eye(3), torch.zeros(3, 1)], 1)
+    P_all = torch.stack([K @ (Rt + torch.tensor([[0, 0, 0, 0.1 * i],
+                                                [0, 0, 0, 0], [0, 0, 0, 0]]))
+                         for i in range(3)]).to(dev).contiguous()
+    z = torch.tensor([-2.0, -1e-9, 0.0, 1e-9, 1e-3, 0.5, 2.0, 1e6, 3e38,
+                      float("nan")])
+    xy = torch.randn(2, 1, 10, 2, generator=g) * 2
+    base = torch.cat([xy, z.expand(2, 1, 10)[..., None]], -1)
+    step = torch.tensor([0.0, 0.0, 0.02])
+    fan = base + torch.arange(-3, 4.0)[None, :, None, None] * step
+    fan[1, :, :5] += torch.tensor([0.3, 0.0, 0.0]) * torch.arange(
+        -3, 4.0)[:, None, None]                       # beyond +-1 texel
+    fan = fan.contiguous().to(dev)
+    sidx = torch.tensor([[0, 1, 2], [2, 1, 0]], device=dev)
+    smask = torch.tensor([[True, True, False], [True, True, True]],
+                         device=dev)
+    args = (fan, feats, sidx, smask, P_all, (64, 80))
+    got, want = patch_fan_variance(*args), patch_fan_variance_ref(*args)
+    assert torch.isnan(want[:, :, -2:]).all()         # 3e38 and NaN
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_fast_scene_counts_its_kernels():
+    """A tiny fast-path scene on the card launches what
+    `chip_smoke.expected_launches` counts: one int8 sampling and one
+    patch-fan variance per chunk pass, no fp32 sampling, no pointflow
+    `source_variance`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+
+    import chip_smoke
+    from tdvnet_torch.config import tiny_test_config
+    from tdvnet_torch.data import synthetic
+    from tdvnet_torch.eval.fused_scene import FusedSceneInference
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+    from tdvnet_torch.models.threedvnet import ThreeDVNet
+
+    cfg = tiny_test_config()
+    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, fused_chunk=4, n_src_on_either_side=1,
+        eval_grid_size=(16, 16, 16), eval_max_anchors=2048, grid_bucket=8,
+        fast_path=True, fast_rank=48))
+    torch.manual_seed(0)
+    model = ThreeDVNet(cfg.model).to("cuda").eval()
+    inf = FusedSceneInference(model, cfg, fetch_mm=False)
+    views = synthetic.make_scene(n_views=11, img_size=(64, 80), seed=2)
+    reset_launch_counts()
+    depth = inf.predict_scene(views)
+    torch.cuda.synchronize()
+    assert np.isfinite(depth).all() and depth.shape == (9, 64, 80)
+    assert inf.last_projected and inf.last_n_tables == 1
+    assert launch_counts() == chip_smoke.expected_launches(
+        inf.offsets_list, 3, cfg.model.unet_res, True, 1)

@@ -19,6 +19,13 @@ all):
 
     python tests/test_torch_golden.py --write-scene [n_views]
 
+A third holds the fast path: the same scene and stream through
+`FusedSceneInference(fast_path=True)` with the default `EvalConfig`
+(`fast_rank=96`, `fast_patch=True`, the fast offsets), plus the rank
+projection's basis V and its discarded energy:
+
+    python tests/test_torch_golden.py --write-fast-scene [n_views]
+
 The tier-1 tests below only check that the recorded settings are the ones
 `chip_smoke.py` drives.
 """
@@ -34,6 +41,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_synth48.npz")
 SCENE_GOLDEN = os.path.join(ROOT, "tests", "data",
                             "torch_golden_scene_synth48.npz")
+FAST_SCENE_GOLDEN = os.path.join(ROOT, "tests", "data",
+                                 "torch_golden_fastscene_synth48.npz")
 WEIGHTS = os.path.join(ROOT, "weights", "3dvnet_synth48.npz")
 SCENE_VIEWS, SCENE_SEED = 24, 11
 
@@ -114,15 +123,18 @@ def write_golden():
     print(json.dumps(record))
 
 
-def _eval_record(eval_cfg):
-    """The `EvalConfig` fields whole-scene inference reads."""
+def _eval_record(eval_cfg, fast=False):
+    """The `EvalConfig` fields whole-scene inference reads (with `fast`,
+    also the fast path's)."""
     keys = ("n_src_on_either_side", "fused_chunk", "eval_grid_size",
             "eval_max_anchors", "auto_grid", "grid_bucket")
+    if fast:
+        keys += ("fast_path", "fast_rank", "fast_patch")
     d = dataclasses.asdict(eval_cfg)
     return json.loads(json.dumps({k: d[k] for k in keys}))
 
 
-def write_scene_golden(n_views=SCENE_VIEWS):
+def write_scene_golden(n_views=SCENE_VIEWS, fast=False):
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, ROOT)
     import jax
@@ -138,11 +150,15 @@ def write_scene_golden(n_views=SCENE_VIEWS):
 
     mc = ModelConfig(warp_mode="gather")
     cfg = Config(model=mc)
+    if fast:
+        cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+            cfg.eval, fast_path=True))
     variables, epoch = load_npz(WEIGHTS)
     views = synthetic.make_scene(n_views=n_views, img_size=mc.img_size,
                                  seed=SCENE_SEED)
+    # the fast path swaps the parity offsets for its own
     inf = FusedSceneInference(ThreeDVNet(mc), variables, cfg,
-                              offsets_list=OFFSETS, fast_path=False,
+                              offsets_list=OFFSETS, fast_path=fast,
                               fetch_mm=True)
     grids = []
     choose = inf._grid_from_extent
@@ -164,27 +180,36 @@ def write_scene_golden(n_views=SCENE_VIEWS):
     s_mets = metrics2d.calc_2d_depth_metrics(
         s_depth, s_views["depth"][k:STREAM_VIEWS - k])
     stream = {"n_views": STREAM_VIEWS, "seed": STREAM_SEEDS[0],
+              "grid_size": grids[-1][3:],
               "abs_rel": float(s_mets["abs_rel"]),
               "stats": {k_: int(v) for k_, v in
                         inf.last_scene_stats.items()}}
     record = {
         "config": _config_record(mc, BatchConfig()),
-        "eval": _eval_record(cfg.eval),
+        "eval": _eval_record(cfg.eval, fast),
         "n_views": int(n_views), "seed": SCENE_SEED,
         "n_refs": int(depth.shape[0]),
-        "offsets": [list(o) for o in OFFSETS],
+        "offsets": [list(o) for o in inf.offsets_list],
         "weights": os.path.relpath(WEIGHTS, ROOT),
         "weights_sha256": file_sha256(WEIGHTS),
         "weights_epoch": int(epoch),
-        "warp_mode": "gather", "fast_path": False, "fetch_mm": True,
+        "warp_mode": "gather", "fast_path": fast, "fetch_mm": True,
         "extent": grids[0][:3], "grid_size": grids[0][3:],
         "stats": {k_: int(v) for k_, v in stats.items()},
         "abs_rel": float(mets["abs_rel"]),
         "stream": stream,
     }
-    depth_mm = np.round(depth * 1000.0).astype(np.uint16)
-    np.savez_compressed(SCENE_GOLDEN, depth_mm=depth_mm,
-                        record=np.array(json.dumps(record)))
+    arrays = {"depth_mm": np.round(depth * 1000.0).astype(np.uint16)}
+    if fast:
+        from tdvnet.models.hypothesis import decoder_scene_projection
+
+        V, _, tail = decoder_scene_projection(
+            variables["params"]["decoder"], mc.feat_dim, cfg.eval.fast_rank)
+        record["projected"] = inf._proj_V is not None
+        record["tail"] = tail
+        arrays["V"] = np.asarray(V, np.float32)
+    np.savez_compressed(FAST_SCENE_GOLDEN if fast else SCENE_GOLDEN,
+                        record=np.array(json.dumps(record)), **arrays)
     print(json.dumps(record))
 
 
@@ -237,12 +262,47 @@ def test_scene_golden_matches_chip_smoke_settings():
         assert z["depth_mm"].dtype == np.uint16
 
 
+def test_fast_scene_golden_matches_chip_smoke_settings():
+    import chip_smoke
+    from tdvnet_torch.config import BatchConfig, EvalConfig, ModelConfig
+    from tdvnet_torch.eval.fused_scene import FAST_OFFSETS
+
+    rec = read_record(FAST_SCENE_GOLDEN)
+    parity = read_record(SCENE_GOLDEN)
+    assert rec == chip_smoke.scene_golden_record(FAST_SCENE_GOLDEN)
+    assert rec["config"] == _config_record(ModelConfig(), BatchConfig())
+    fast_eval = dataclasses.replace(EvalConfig(), fast_path=True)
+    assert rec["eval"] == _eval_record(fast_eval, fast=True)
+    assert [tuple(o) for o in rec["offsets"]] == list(FAST_OFFSETS)
+    assert rec["weights_sha256"] == file_sha256(WEIGHTS)
+    assert (rec["warp_mode"], rec["fast_path"], rec["fetch_mm"],
+            rec["projected"]) == ("gather", True, True, True)
+    # the same scene and stream as the parity golden
+    for k in ("n_views", "seed", "n_refs", "extent", "grid_size"):
+        assert rec[k] == parity[k], k
+    assert (rec["stream"]["n_views"], rec["stream"]["seed"]) == \
+        (parity["stream"]["n_views"], parity["stream"]["seed"])
+    assert rec["stats"]["n_points"] == \
+        len(rec["offsets"]) * rec["n_refs"] * 56 * 56
+    n_scene = sum(ModelConfig().unet_dims)
+    with np.load(FAST_SCENE_GOLDEN) as z:
+        assert z["depth_mm"].shape == (rec["n_refs"], *ModelConfig().img_size)
+        assert z["depth_mm"].dtype == np.uint16
+        V = z["V"]
+    assert V.shape == (n_scene, EvalConfig().fast_rank)
+    np.testing.assert_allclose(V.T @ V, np.eye(V.shape[1]), atol=1e-5)
+    assert 0.0 < rec["tail"] < 1.0
+
+
 if __name__ == "__main__":
-    if "--write-scene" in sys.argv:
-        rest = sys.argv[sys.argv.index("--write-scene") + 1:]
-        write_scene_golden(int(rest[0]) if rest else SCENE_VIEWS)
-    elif "--write" in sys.argv:
-        write_golden()
+    for flag, fast in (("--write-scene", False), ("--write-fast-scene", True)):
+        if flag in sys.argv:
+            rest = sys.argv[sys.argv.index(flag) + 1:]
+            write_scene_golden(int(rest[0]) if rest else SCENE_VIEWS, fast)
+            break
     else:
-        sys.exit("usage: python tests/test_torch_golden.py "
-                 "--write | --write-scene [n_views]")
+        if "--write" in sys.argv:
+            write_golden()
+        else:
+            sys.exit("usage: python tests/test_torch_golden.py --write | "
+                     "--write-scene [n_views] | --write-fast-scene [n_views]")

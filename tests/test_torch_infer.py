@@ -9,6 +9,7 @@ import torch
 
 from _torch_helpers import (both_batches, flax_apply, flax_variables,
                             jax_tiny_config, n, t, torch_module)
+from _torch_helpers import torch_one_thread  # noqa: F401 (autouse)
 
 OFFSETS = ((0.05, 0.025), (0.025,))
 

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from _torch_helpers import both_batches, jax_tiny_config, n, t
+from _torch_helpers import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

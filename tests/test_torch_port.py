@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from _torch_helpers import n, t
+from _torch_helpers import torch_one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "tdvnet")
@@ -130,7 +131,22 @@ def test_wrappers_run_their_twin_on_cpu_and_count_nothing():
     for kw in ({}, {"relu": True}, {"skip": r(2, 8, 3, 4, 5)}):
         assert torch.equal(K.masked_group_norm(x, m, 4, w, b, **kw),
                            masked_group_norm_ref(x, m, 4, w, b, **kw))
-    assert len(K.launch_counts()) == 9
+    from tdvnet_torch.kernels.patchfan import patch_fan_variance_ref
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_i8_ref
+
+    qg = torch.randint(-127, 128, (2, 4, 5, 6, 8), generator=g,
+                       dtype=torch.int8)
+    sc = torch.rand(2, 8, generator=g)
+    out = torch.zeros(2, 9, 12, dtype=torch.bfloat16)
+    K.trilinear_sample_i8(qg, sc, q, c0, 0.5, out, 4, cell_offset=1.0)
+    assert torch.equal(out[..., 4:],
+                       trilinear_sample_i8_ref(qg, sc, q, c0, 0.5, 1.0))
+    assert not out[..., :4].any()
+    fan = r(2, 7, 5, 3) * 0.2 + torch.tensor([0.0, 0.0, 3.0])
+    args = (fan, feats, sidx, smask, P_all, (24, 28))
+    assert torch.equal(K.patch_fan_variance(*args),
+                       patch_fan_variance_ref(*args))
+    assert len(K.launch_counts()) == 11
     assert all(v == 0 for v in K.launch_counts().values())
 
 

@@ -10,6 +10,7 @@ import torch
 
 from _torch_helpers import (both_batches, flax_variables, jax_tiny_config, n,
                             torch_module)
+from _torch_helpers import torch_one_thread  # noqa: F401 (autouse)
 
 OFFSETS = ((0.05, 0.025),)
 EVAL = dict(fused_chunk=4, n_src_on_either_side=1, eval_grid_size=(16, 16, 16),
@@ -245,18 +246,24 @@ def test_chunk_tables_and_masks_match_jax(models, n_refs):
 
 
 def test_eval_config_matches_jax_and_refuses_fast_path_keys():
+    """The fast-path keys arrived with the fast path: they load with the
+    JAX package's defaults; a key the port lacks still raises."""
     from tdvnet.config import EvalConfig as J
     from tdvnet_torch.config import Config, EvalConfig, load_config
 
     ours = dataclasses.asdict(EvalConfig())
     theirs = dataclasses.asdict(J())
     assert set(theirs) - set(ours) == {
-        "fast_path", "fast_rank", "fast_patch", "init_depth_batch",
-        "offset_batch", "upsample_batch"}
+        "init_depth_batch", "offset_batch", "upsample_batch"}
     assert all(theirs[k] == v for k, v in ours.items())
+    assert (ours["fast_path"], ours["fast_rank"], ours["fast_patch"]) == \
+        (False, 96, True)
     assert Config().eval == EvalConfig()
     assert load_config({"eval": {"fused_chunk": 8}}).eval.fused_chunk == 8
-    for key in ("fast_path", "fast_rank", "fast_patch"):
+    for key, v in (("fast_path", True), ("fast_rank", 48),
+                   ("fast_patch", False)):
+        assert getattr(load_config({"eval": {key: v}}).eval, key) == v
+    for key in ("offset_batch", "no_such_key"):
         with pytest.raises(KeyError, match=key):
             load_config({"eval": {key: 1}})
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from _torch_helpers import flax_apply, n
+from _torch_helpers import torch_one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINTS = ["weights/3dvnet_synth48.npz",
