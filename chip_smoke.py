@@ -27,7 +27,15 @@ Phases (any failure exits non-zero):
      offsets): (a) against the JAX golden
      `tests/data/torch_golden_fastscene_synth48.npz` (depth, grid, drop
      counters, the projection's basis, launch counts); (b) the stream;
-     (c) a trace.
+     (c) a trace;
+  8. 3D evaluation on datasets written here (`data/synthetic_dataset.py`,
+     52 views at 480x640, GT meshes fused on the card): (a) the 2D,
+     fused-cloud and TSDF metrics of the golden scene's recipe predictions
+     against the JAX golden `tests/data/torch_golden_eval3d_synth48.npz`
+     (metrics, fused point count, GT mesh size, launch counts); (b)
+     `harness.main` with the model's fast-path `pred_fn` over three scenes,
+     per-stage shares, and a second call that reuses every cached file; (c)
+     one scene's evaluation traced by stage span.
 
 The line before the last is the `kernels` JSON; the last line is the device
 JSON. Imports nothing of JAX; the port runs on the card only.
@@ -71,6 +79,33 @@ FAST_V_ABS = 1e-4
 # of the larger of the two magnitudes
 BF16_ULP = "bf16_ulp"
 
+# 3D evaluation (phase 8): the golden scene, the recipe of its predictions
+# (GT depth of refs k..n-k-1, nearest-resized to the model's resolution,
+# with seeded multiplicative noise and dropped pixels so that the
+# consistency test rejects some) and the EvalConfig overrides; the streamed
+# harness scenes
+EVAL3D_GOLDEN = os.path.join(ROOT, "tests", "data",
+                             "torch_golden_eval3d_synth48.npz")
+EVAL3D = {"scene": "synth_eval3d", "seed": 21, "n_views": 52,
+          "hw": [480, 640], "pred_hw": [256, 320], "k": 2,
+          "noise_sigma": 0.002, "drop": 0.05, "noise_seed": 0}
+EVAL3D_EVAL = {"run_tsdf_fusion": True}
+EVAL3D_STREAM_SEEDS = (22, 23, 24)
+# refs per consistency-fusion chunk (`fuse_point_cloud`'s, and JAX's)
+FUSION_REF_CHUNK = 16
+# the golden's limits: metrics in metres and fractions, counts relative
+EVAL3D_ABS = {"acc": 1e-4, "comp": 1e-4, "prec": 2e-3, "recal": 2e-3,
+              "fscore": 2e-3}
+EVAL3D_REL_2D = 1e-5
+EVAL3D_COUNT_REL = 1e-3
+EVAL3D_MESH_REL = 5e-3
+# kernel against twin: TSDF weights equal on this share of voxels (tsdf and
+# colour within 1e-5 where they agree), fusion keep flags on this share of
+# pixels (points within 1e-5 m where both keep)
+TSDF_WEIGHT_SHARE = 0.9999
+FUSE_KEEP_SHARE = 0.999
+K9_ABS = 1e-5
+
 # kernel -> (source, the TPU op it replaces, its wrappers in
 # tdvnet_torch.kernels.WRAPPERS)
 KERNEL_META = {
@@ -98,6 +133,10 @@ KERNEL_META = {
     "masked_group_norm": ("tdvnet_torch/csrc/masked_group_norm.cu",
                           "tdvnet/models/layers.py:106",
                           ("masked_group_norm",)),
+    "tsdf_integrate": ("tdvnet_torch/csrc/tsdf_integrate.cu",
+                       "tdvnet/ops/tsdf.py:42", ("tsdf_integrate",)),
+    "consistency_fuse": ("tdvnet_torch/csrc/consistency_fuse.cu",
+                         "tdvnet/ops/fusion.py:47", ("consistency_fuse",)),
 }
 
 
@@ -125,11 +164,13 @@ def expected_launches(offsets_list, n_chunks, unet_res, fast_patch=False,
     (`n_tables`, the int8 tables left per iteration: 1 when the scales
     merge into one grid) each pass samples every table with
     `trilinear_sample_i8` in place of the three fp32 samplings, and with
-    `fast_patch` takes its variance from `patch_fan_variance`."""
+    `fast_patch` takes its variance from `patch_fan_variance`. The 3D
+    evaluation's kernels do not run in inference."""
     n_iters = len(offsets_list)
     pf = n_chunks * sum(len(o) for o in offsets_list)   # chunk passes
     gn = sum(a + b for a, b in group_norm_calls(unet_res))
-    return {"source_variance": n_chunks + n_iters + (0 if fast_patch else pf),
+    return {"tsdf_integrate": 0, "consistency_fuse": 0,
+            "source_variance": n_chunks + n_iters + (0 if fast_patch else pf),
             "trilinear_sample": 3 * pf if n_tables is None else 0,
             "trilinear_sample_i8": 0 if n_tables is None else n_tables * pf,
             "patch_fan_variance": pf if fast_patch else 0,
@@ -193,9 +234,10 @@ def scene_golden_record(path=SCENE_GOLDEN):
         return json.loads(str(z["record"]))
 
 
-# the kernels whose main path is the fast whole-scene path; the others' is
-# infer_depth
-FAST_PATH_KERNELS = ("trilinear_sample_i8", "patch_fan_variance")
+# the kernels whose main path is the fast whole-scene path or one scene's
+# 3D evaluation; the others' is infer_depth
+MAIN_PATHS = {"trilinear_sample_i8": "fast", "patch_fan_variance": "fast",
+              "tsdf_integrate": "eval3d", "consistency_fuse": "eval3d"}
 
 
 def stream_chunk(device, k):
@@ -511,7 +553,132 @@ def kernel_cases(device, seed=0):
     cases += scene_model_cases(device, gen, "scene", "scene",
                                n_slots * P_ref, 1, tuple(rec["grid_size"]),
                                ev.eval_max_anchors, unet)
-    return cases + fast_cases(device, gen)
+    return cases + fast_cases(device, gen) + eval3d_cases(device)
+
+
+def eval3d_preds(poses, K0, depth_gt, scene):
+    """The golden recipe's `preds.npz` arrays (numpy only, shared with the
+    JAX golden's writer): refs k..n-k-1 of a scene with cam->world `poses`
+    [n, 4, 4], intrinsics K0 at the GT resolution and the refs' GT depth
+    [n - 2k, H, W]; the depth nearest-resized (index floor(dst * in / out) in
+    fp32) to `pred_hw`, times 1 + N(0, noise_sigma), a `drop` share of
+    pixels zeroed."""
+    import numpy as np
+
+    r = EVAL3D
+    k, n = r["k"], poses.shape[0]
+    img_idx = np.arange(k, n - k)
+    R = poses[img_idx, :3, :3].transpose(0, 2, 1)
+    t = -np.einsum("nij,nj->ni", R, poses[img_idx, :3, 3])
+    (H, W), (h, w) = r["hw"], r["pred_hw"]
+    K = np.repeat(np.asarray(K0, np.float32)[None], len(img_idx), 0)
+    K[:, 0, :] *= w / W
+    K[:, 1, :] *= h / H
+    ys = np.floor(np.arange(h, dtype=np.float32) * np.float32(H / h))
+    xs = np.floor(np.arange(w, dtype=np.float32) * np.float32(W / w))
+    d = depth_gt[:, ys.astype(np.int64)[:, None], xs.astype(np.int64)[None]]
+    rng = np.random.default_rng(r["noise_seed"])
+    d = d * (1 + rng.normal(0, r["noise_sigma"], d.shape)).astype(np.float32)
+    d[rng.random(d.shape) < r["drop"]] = 0
+    return {"scene": scene, "depth_preds": d.astype(np.float32),
+            "rotmats": R.astype(np.float32), "tvecs": t.astype(np.float32),
+            "K": K, "img_idx": img_idx}
+
+
+def tsdf_check(got, want):
+    """K9a against its twin: the share of voxels whose weights are equal,
+    and tsdf and colour within K9_ABS (relative to the largest magnitude,
+    at least 1) where they are."""
+    import torch
+
+    (tt, tw, tc), (rt, rw, rc) = got, want
+    agree = tw == rw
+    share = float(agree.double().mean())
+    err_t = float((tt - rt).abs()[agree].max())
+    err_c = float((tc - rc).abs()[agree].max())
+    ok = (share >= TSDF_WEIGHT_SHARE
+          and err_t <= K9_ABS * max(1.0, float(rt.abs().max()))
+          and err_c <= K9_ABS * max(1.0, float(rc.abs().max())))
+    log(f"  tsdf_integrate: weights equal on {share:.7f} of "
+        f"{agree.numel()} voxels (limit {TSDF_WEIGHT_SHARE}); where equal "
+        f"max |d| tsdf {err_t:.3e}, colour {err_c:.3e}; "
+        f"{int((rw > 0).sum())} voxels observed")
+    return max(err_t, err_c), ok and bool(torch.isfinite(tt).all())
+
+
+def fuse_check(got, want):
+    """K9b against its twin: the share of pixels whose keep flags are equal
+    (at least FUSE_KEEP_SHARE), and points within K9_ABS m where both
+    keep."""
+    (tp, tk), (rp, rk) = got, want
+    share = float((tk == rk).double().mean())
+    both = tk & rk
+    err = float((tp - rp).abs()[both].max()) if bool(both.any()) else 0.0
+    log(f"  consistency_fuse: keep equal on {share:.7f} of {tk.numel()} "
+        f"pixels (limit {FUSE_KEEP_SHARE}), {int(rk.sum())} kept; points "
+        f"max |d| {err:.3e} m where both keep")
+    return err, share >= FUSE_KEEP_SHARE and err <= K9_ABS
+
+
+def eval3d_cases(device):
+    """K9a and K9b at the shapes phase 8a gives them, on the recipe's
+    predictions of the golden scene rendered here (52 views at 480x640, 48
+    refs): the TSDF of all 48 frames in the default EvalConfig's volume
+    (voxel 0.04 m, margin 1.5 m) and the first 16-ref fusion chunk against
+    all 48 views, the depths nearest-upsampled back to 480x640."""
+    import numpy as np
+    import torch
+
+    from tdvnet_torch.config import EvalConfig
+    from tdvnet_torch.data import synthetic
+    from tdvnet_torch.kernels import consistency_fuse, tsdf_integrate
+    from tdvnet_torch.kernels.fusion import camera_table, consistency_fuse_ref
+    from tdvnet_torch.kernels.tsdf import tsdf_integrate_ref
+    from tdvnet_torch.ops.tsdf import volume_bounds
+
+    r, ev = EVAL3D, EvalConfig(**EVAL3D_EVAL)
+    k, n = r["k"], r["n_views"]
+    sc = synthetic.make_scene(n, tuple(r["hw"]), seed=r["seed"],
+                              normalize=False)
+    preds = eval3d_preds(sc["poses"], sc["K"][0], sc["depth"][k:n - k],
+                         r["scene"])
+    depth = synthetic.resize_nearest_np(preds["depth_preds"], r["hw"])
+    R, t, N = preds["rotmats"], preds["tvecs"], depth.shape[0]
+    K = np.repeat(sc["K"][:1], N, 0)
+    P = np.einsum("nij,njk->nik", K, np.concatenate(
+        [R, t[..., None]], axis=2)).astype(np.float32)
+    lo, dims = volume_bounds(depth, P, ev.tsdf_voxel_size,
+                             ev.tsdf_bounds_quantile, ev.tsdf_margin,
+                             ev.tsdf_img_batch)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    d_dev = up(depth)
+    colors = up((sc["images"][k:n - k] * 255).astype(np.uint8)).float()
+    P_dev, origin = up(P), torch.from_numpy(lo)
+    H, W = r["hw"]
+    V = dims[0] * dims[1] * dims[2]
+    targs = (d_dev, colors, P_dev, origin, dims, ev.tsdf_voxel_size,
+             ev.tsdf_trunc_ratio)
+    cases = [Case(
+        "tsdf_integrate", f"{dims[0]}x{dims[1]}x{dims[2]} = {V} voxels x "
+        f"{N} frames of {H}x{W}", -(-N // ev.tsdf_img_batch),
+        lambda a=targs: tsdf_integrate(*a), lambda a=targs:
+            tsdf_integrate_ref(*a), tsdf_check,
+        4 * N * H * W * (1 + 3) + 48 * N + 20 * V, 25 * V * N,
+        path="eval3d")]
+
+    C = min(FUSION_REF_CHUNK, N)
+    cams = camera_table(up(K), up(R), up(t))
+    idx = torch.arange(C, device=device)
+    fargs = (d_dev[:C], d_dev, cams, idx, ev.z_thresh, ev.n_consistent_thresh)
+    _, _, n_valid = consistency_fuse_ref(*fargs, return_counts=True)
+    pairs = C * H * W * N
+    cases.append(Case(
+        "consistency_fuse", f"[{C},{H}x{W}] refs x {N} views",
+        -(-N // C), lambda a=fargs: consistency_fuse(*a),
+        lambda a=fargs: consistency_fuse_ref(*a), fuse_check,
+        4 * N * H * W + 4 * 33 * N + C * H * W * 13,
+        45 * pairs + 25 * int(n_valid.sum()), path="eval3d"))
+    return cases
 
 
 def bf16_ulp(m):
@@ -526,11 +693,14 @@ def check_case(case):
     """Max |kernel - twin| over the outputs and whether it is within the
     tolerance, which is relative to the twin's largest magnitude (at least
     1); a tolerance of 0 asks for equal tensors, BF16_ULP for every element
-    within one bf16 ulp of the larger of its two magnitudes."""
+    within one bf16 ulp of the larger of its two magnitudes, and a callable
+    one decides itself: (got, want) -> (max |d|, ok)."""
     import torch
 
     got, want = case.run(), case.ref()
     torch.cuda.synchronize()
+    if callable(case.tol):
+        return case.tol(got, want)
     if isinstance(got, torch.Tensor):
         got, want = (got,), (want,)
     err, ok = 0.0, len(got) == len(want)
@@ -578,8 +748,9 @@ def kernel_phase(device):
         ms = time_ms(case.run)
         plain = time_ms(case.ref, iters=3, warmup=1)
         lib = time_ms(case.library) if case.library else None
+        tol = getattr(case.tol, "__name__", case.tol)
         log(f"  {case.kernel:18s} {case.label:48s} max|d|={err:.3e} "
-            f"{'ok' if good else 'FAIL (tol %s)' % case.tol} "
+            f"{'ok' if good else 'FAIL (tol %s)' % tol} "
             f"kernel={ms:.4f} ms plain={plain:.4f} ms "
             f"library={'%.4f ms' % lib if lib is not None else '-'} "
             f"bound={case.bound_ms:.4f} ms "
@@ -846,10 +1017,11 @@ def _union_us(intervals):
     return total
 
 
-def profile_phase(run, what, card):
+def profile_phase(run, what, card, prefix="stage_"):
     """One traced call of `run`: the device's busy share of the host's
     window (the union of the intervals in which a kernel, copy or set ran
-    on the card), device time under each stage span, and the top kernels."""
+    on the card), host and device time under each span named `prefix`...,
+    and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -866,14 +1038,15 @@ def profile_phase(run, what, card):
     # a stage span's device-side range covers its kernels: it is no work
     # of its own
     work = [e for e in on_card
-            if not (e.is_user_annotation or e.name.startswith("stage_"))]
+            if not (e.is_user_annotation
+                    or e.name.startswith(("stage_", "eval_")))]
     if not work:
         raise RuntimeError("the profiler recorded no work on the card")
     busy_ms = _union_us([(e.time_range.start, e.time_range.end)
                          for e in work]) / 1e3
     stages = {}
     for e in events:
-        if e.name.startswith("stage_"):
+        if e.name.startswith(prefix):
             side = "device" if e.device_type == DeviceType.CUDA else "host"
             stages.setdefault(e.name, {"host": 0.0, "device": 0.0})
             stages[e.name][side] += e.time_range.elapsed_us() / 1e3
@@ -908,7 +1081,258 @@ def profile_phase(run, what, card):
             "stages_ms": stages, "ported_kernels": ported}
 
 
+# ----------------------------------------------------------- 3D evaluation
+# the files `harness.main` writes per scene and beside the scenes
+EVAL3D_SCENE_FILES = ("preds.npz", "metrics_2d.json",
+                      "metrics_3d_0.010_3v_masked.json",
+                      "fused_0.010_3v_masked.ply", "tsdf_mesh_masked.ply",
+                      "metrics_tsdf_masked.json")
+EVAL3D_AVG_FILES = ("metrics_2d.json", "metrics_3d_0.010_3v_masked.json",
+                    "metrics_tsdf_masked.json")
+
+
+def eval3d_record(path=EVAL3D_GOLDEN):
+    import numpy as np
+
+    with np.load(path) as z:
+        return json.loads(str(z["record"]))
+
+
+def eval3d_expected_launches(n_refs, ecfg):
+    """Launches per wrapper in one scene's depth-3D and TSDF evaluation:
+    one fusion per chunk of FUSION_REF_CHUNK refs, one TSDF integration per
+    `tsdf_img_batch` frames."""
+    from tdvnet_torch.kernels import WRAPPERS
+
+    out = {w: 0 for w in WRAPPERS}
+    out["consistency_fuse"] = -(-n_refs // FUSION_REF_CHUNK)
+    out["tsdf_integrate"] = -(-n_refs // ecfg.tsdf_img_batch)
+    return out
+
+
+class recording_fused_points:
+    """Within the block, every `fuse_point_cloud` of `fusion_module`
+    appends its point count (before the downsample) to `counts`."""
+
+    def __init__(self, fusion_module, counts):
+        self.mod, self.counts = fusion_module, counts
+
+    def __enter__(self):
+        self.inner = inner = self.mod.fuse_point_cloud
+
+        def recorded(*args, **kwargs):
+            pts, rgb = inner(*args, **kwargs)
+            self.counts.append(int(pts.shape[0]))
+            return pts, rgb
+        self.mod.fuse_point_cloud = recorded
+        return self.counts
+
+    def __exit__(self, *exc):
+        self.mod.fuse_point_cloud = self.inner
+        return False
+
+
+def eval3d_metrics_ok(name, want, got):
+    """One metrics file against the golden's, with the limits above."""
+    ok = set(got) == set(want)
+    for k, w in want.items():
+        g = got.get(k, float("nan"))
+        if k in EVAL3D_ABS:
+            good = abs(g - w) <= EVAL3D_ABS[k]
+        elif k.startswith("n_") or k == "n":
+            good = abs(g - w) <= EVAL3D_COUNT_REL * max(abs(w), 1)
+        else:
+            good = abs(g - w) <= EVAL3D_REL_2D * max(abs(w), 1e-12)
+        if not good:
+            log(f"  {name} {k}: {g!r} against the golden's {w!r}")
+        ok &= good
+    return ok
+
+
+def eval3d_golden_phase(root, device):
+    """The golden scene written here, the recipe's predictions, then the 2D,
+    fused-cloud and TSDF metrics with the GT-mesh masking, held to the JAX
+    golden; K9 launches counted over the evaluation."""
+    import numpy as np
+    import torch
+
+    from tdvnet_torch.config import EvalConfig
+    from tdvnet_torch.data.synthetic_dataset import make_scene_dir
+    from tdvnet_torch.eval import processresults as PR
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+    from tdvnet_torch.ops import fusion, ply
+
+    rec = eval3d_record()
+    if rec["recipe"] != EVAL3D or rec["eval_overrides"] != EVAL3D_EVAL:
+        raise RuntimeError(f"golden recipe {rec['recipe']} "
+                           f"{rec['eval_overrides']} != {EVAL3D} "
+                           f"{EVAL3D_EVAL}")
+    r = EVAL3D
+    t0 = time.perf_counter()
+    scene = make_scene_dir(root, r["scene"], r["n_views"], r["hw"], r["seed"],
+                           device)
+    write_s = time.perf_counter() - t0
+    with open(os.path.join(scene, "info.json")) as f:
+        info = json.load(f)
+    verts, faces, _ = ply.read_ply(info["gt_mesh"])
+    poses = np.stack([np.asarray(fr["pose"], np.float32)
+                      for fr in info["frames"]])
+    k, n = r["k"], r["n_views"]
+    preds = eval3d_preds(poses, info["intrinsics"],
+                         PR.load_gt_depth(np.arange(k, n - k), scene),
+                         r["scene"])
+    save = os.path.join(root, "eval3d_golden")
+    os.makedirs(save)
+    np.savez(os.path.join(save, "preds.npz"), **preds)
+    ecfg = EvalConfig(**EVAL3D_EVAL)
+    fused, timings = [], {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_fused_points(fusion, fused):
+        got = {"metrics_2d.json": PR.process_scene_2d_metrics(
+            scene, save, device=device, timings=timings)}
+        name3 = (f"metrics_3d_{ecfg.z_thresh:.3f}_"
+                 f"{ecfg.n_consistent_thresh}v_masked.json")
+        got[name3] = PR.process_depth_3d_metrics(
+            scene, save, ecfg, True, device=device, timings=timings)
+    eval_s = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(os.path.join(save, "metrics_tsdf_masked.json")) as f:
+        got["metrics_tsdf_masked.json"] = json.load(f)
+    expected = eval3d_expected_launches(len(preds["img_idx"]), ecfg)
+
+    ok = set(got) == set(rec["metrics"])
+    for name, want in rec["metrics"].items():
+        m_ok = eval3d_metrics_ok(name, want, got.get(name, {}))
+        log(f"  {name}: {json.dumps(got.get(name))} "
+            f"{'ok' if m_ok else 'FAIL'}")
+        ok &= m_ok
+    n_fused = fused[0] if fused else -1
+    fused_ok = abs(n_fused - rec["n_fused_points"]) \
+        <= EVAL3D_COUNT_REL * rec["n_fused_points"]
+    mesh_ok = abs(len(verts) - rec["gt_mesh_vertices"]) \
+        <= EVAL3D_MESH_REL * rec["gt_mesh_vertices"]
+    log(f"  scene written in {write_s:.2f} s (GT mesh {len(verts)} vertices,"
+        f" {len(faces)} faces; golden {rec['gt_mesh_vertices']}, limit "
+        f"{EVAL3D_MESH_REL:.1%}); evaluated in {eval_s:.2f} s; fused points "
+        f"before the downsample {n_fused} (golden {rec['n_fused_points']})")
+    log(f"  stage host seconds: {json.dumps(timings)}")
+    log(f"  launches in that evaluation: {json.dumps(counts)} (expected "
+        f"{json.dumps(expected)})")
+    ok &= fused_ok and mesh_ok and counts == expected
+    return ok, counts
+
+
+def eval3d_config(save_dir):
+    import dataclasses
+
+    from tdvnet_torch.config import Config
+
+    cfg = Config()
+    return dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, fast_path=True, save_dir=save_dir, **EVAL3D_EVAL))
+
+
+def eval3d_stream_phase(model, root, device, card):
+    """`harness.main` with the model's fast-path `pred_fn` over three
+    scenes written here: s/scene end to end, each stage's share of the
+    summed stage seconds, the averaged metrics, every reference-named file;
+    then a second call, which must reuse every cached file."""
+    import math
+
+    import torch
+
+    from tdvnet_torch.data.synthetic_dataset import ensure_scene_dir
+    from tdvnet_torch.eval import harness
+
+    cfg = eval3d_config(os.path.join(root, "results"))
+    t0 = time.perf_counter()
+    scenes = [ensure_scene_dir(root, f"synth_{s:04d}", STREAM_VIEWS,
+                               EVAL3D["hw"], s, device)
+              for s in EVAL3D_STREAM_SEEDS]
+    write_s = time.perf_counter() - t0
+    inner = harness.make_3dvnet_pred_fn(model, cfg)
+    calls = []
+
+    def pred_fn(views, scene_dir, dset):
+        calls.append(scene_dir)
+        return inner(views, scene_dir, dset)
+
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg = harness.main("fast", pred_fn, cfg, scenes=scenes, device=device,
+                       timings=timings)
+    wall = time.perf_counter() - t0
+    save = os.path.join(cfg.eval.save_dir, "fast")
+    missing = [os.path.join(os.path.basename(sc), f) for sc in scenes
+               for f in EVAL3D_SCENE_FILES
+               if not os.path.exists(os.path.join(save, "scenes",
+                                                  os.path.basename(sc), f))]
+    missing += [f for f in EVAL3D_AVG_FILES
+                if not os.path.exists(os.path.join(save, f))]
+    total = sum(timings.values())
+    shares = {k: v / total for k, v in sorted(timings.items())}
+    finite = all(math.isfinite(v) for m in avg.values() for v in m.values())
+    log(f"  {len(scenes)} scenes of {STREAM_VIEWS} views written in "
+        f"{write_s:.2f} s; harness.main {wall:.3f} s: "
+        f"{wall / len(scenes):.3f} s/scene end to end [{card}]")
+    log(f"  stage host seconds {json.dumps(timings)}; shares "
+        f"{json.dumps({k: round(v, 4) for k, v in shares.items()})}")
+    for name, m in sorted(avg.items()):
+        log(f"  averaged {name}: {json.dumps(m)}")
+
+    stamp = lambda: {os.path.join(d, f): os.stat(os.path.join(
+        save, "scenes", d, f)).st_mtime_ns
+        for d in os.listdir(os.path.join(save, "scenes"))
+        for f in os.listdir(os.path.join(save, "scenes", d))}
+    before, n_calls = stamp(), len(calls)
+    t0 = time.perf_counter()
+    again = harness.main("fast", pred_fn, cfg, scenes=scenes, device=device)
+    again_s = time.perf_counter() - t0
+    reused = stamp() == before and len(calls) == n_calls and again == avg
+    log(f"  second call {again_s:.3f} s, every cached file reused: {reused};"
+        f" missing files: {missing}")
+    ok = (not missing and reused and finite and len(calls) == len(scenes)
+          and set(avg) == set(EVAL3D_AVG_FILES))
+    return ok, {"seconds": wall, "s_per_scene": wall / len(scenes),
+                "stage_seconds": timings, "stage_shares": shares,
+                "metrics": avg, "second_call_s": again_s}, scenes
+
+
+def eval3d_trace_phase(model, scene, root, device, card):
+    """One scene's evaluation in this thread under the profiler (the
+    harness runs the metrics on a thread the profiler does not see): load,
+    predict, the 2D, fused-cloud and TSDF metrics, by stage span."""
+    from tdvnet_torch.data import frameselector
+    from tdvnet_torch.data.dataset import Dataset
+    from tdvnet_torch.eval import harness
+    from tdvnet_torch.eval.stages import stage
+
+    cfg = eval3d_config(os.path.join(root, "trace"))
+    e = cfg.eval
+    dset = Dataset([scene], frameselector.NextPoseDistSelector(e.pdist, 20),
+                   None, depth_img_size=e.depth_img_size,
+                   img_size=cfg.batch.img_size,
+                   n_src_on_either_side=e.n_src_on_either_side)
+    save = os.path.join(e.save_dir, os.path.basename(scene))
+    os.makedirs(save)
+    pred_fn = harness.make_3dvnet_pred_fn(model, cfg)
+
+    def run():
+        with stage("eval_load"):
+            views = dset.load_views(0, seed_idx=0)
+        harness.write_scene_preds(views, scene, save, pred_fn, dset, e)
+        harness.scene_metrics(scene, save, e, device=device)
+
+    return profile_phase(run, f"3D evaluation of {os.path.basename(scene)}",
+                         card, prefix="eval_")
+
+
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -979,18 +1403,34 @@ def main():
                                f"fast predict_scene ({STREAM_VIEWS} views)",
                                card)
 
-    # per kernel, over one inference of its main path (the keys of the
-    # contract): infer_depth, or the fast whole scene for the fast path's
-    # kernels; beside them the launches and sums of the other paths
+    # the datasets of phase 8 live in a temporary directory, removed at the
+    # end whatever happens
+    with tempfile.TemporaryDirectory(prefix="tdvnet_eval3d_") as root:
+        log("phase 8a: 3D evaluation of the golden scene against the JAX "
+            "golden")
+        e_ok, eval3d_counts = eval3d_golden_phase(root, device)
+        log("phase 8b: harness.main over a stream of scenes (fast path, "
+            "TSDF on)")
+        es_ok, eval3d_stream, scenes = eval3d_stream_phase(model, root,
+                                                           device, card)
+        log("phase 8c: trace of one scene's 3D evaluation")
+        eval3d_trace = eval3d_trace_phase(model, scenes[0], root, device,
+                                          card)
+
+    # per kernel, over one run of its main path (the keys of the contract):
+    # infer_depth, the fast whole scene for the fast path's kernels, one
+    # scene's 3D evaluation for K9; beside them the launches of every
+    # wrapper on that path and the launches and sums of the other paths
     kernels = []
     runs = {"infer_depth": (counts, trace), "scene": (scene_counts,
                                                       scene_trace),
-            "fast": (fast_counts, fast_trace)}
+            "fast": (fast_counts, fast_trace),
+            "eval3d": (eval3d_counts, eval3d_trace)}
     sums = lambda t: t and {x: t[x] for x in (
         "ms", "plain_ms", "bound_ms", "library_ms")}
     for name, k in per_kernel.items():
         src, replaces, wrappers = KERNEL_META[name]
-        main_path = "fast" if name in FAST_PATH_KERNELS else "infer_depth"
+        main_path = MAIN_PATHS.get(name, "infer_depth")
         tot = k["paths"][main_path]
         launches = {p: sum(c[w] for w in wrappers)
                     for p, (c, _) in runs.items()}
@@ -999,6 +1439,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "main_path": main_path,
+            "wrappers": {w: runs[main_path][0][w] for w in wrappers},
             "launches": launches[main_path],
             "max_abs_err": k["max_abs_err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
@@ -1007,6 +1448,7 @@ def main():
             "trace_ms": traced[main_path],
             "scene_launches": launches["scene"],
             "fast_scene_launches": launches["fast"],
+            "eval3d_launches": launches["eval3d"],
             "scene": sums(k["paths"].get("scene")),
             "scene_trace_ms": traced["scene"],
             "fast_scene_trace_ms": traced["fast"],
@@ -1016,16 +1458,26 @@ def main():
                     "peak_bytes": peak, "card": card, "trace": trace,
                     "scene_stream": stream, "scene_trace": scene_trace,
                     "fast_scene_stream": fast_stream,
-                    "fast_scene_trace": fast_trace}))
+                    "fast_scene_trace": fast_trace,
+                    "eval3d_stream": eval3d_stream,
+                    "eval3d_trace": eval3d_trace}))
     phases = {"kernels": k_ok, "full path": f_ok, "scene golden": g_ok,
               "scene stream": s_ok, "fast scene golden": fg_ok,
-              "fast scene stream": fs_ok}
+              "fast scene stream": fs_ok, "eval3d golden": e_ok,
+              "eval3d stream": es_ok}
     if not all(phases.values()):
         log(f"FAILED: {json.dumps(phases)}")
         return 1
     if set(per_kernel) != set(KERNEL_META):
         log(f"FAILED: kernels without a case: "
             f"{sorted(set(KERNEL_META) - set(per_kernel))}")
+        return 1
+    from tdvnet_torch.kernels import WRAPPERS
+
+    listed = [w for k in kernels for w in k["wrappers"]]
+    if sorted(listed) != sorted(WRAPPERS):
+        log(f"FAILED: the kernels line lists wrappers {sorted(listed)}, the "
+            f"package has {sorted(WRAPPERS)}")
         return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ Two deviations from the JAX package's `ModelConfig`:
   homography matmul warp is a TPU matrix-unit artifact and is not ported.
 - `conv3d_impl` is gone: cuDNN runs the 3D convolutions.
 
-`EvalConfig` holds the fields whole-scene inference reads, the fast-path
-switches and the fusion constants as plain data.
+`EvalConfig` holds the fields whole-scene inference and 3D evaluation
+read, the fast-path switches and the fusion constants as plain data;
+`DataConfig` the dataset roots.
 """
 from __future__ import annotations
 
@@ -142,10 +143,21 @@ class EvalConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Dataset roots (the JAX package's `DataConfig`; its loader settings
+    arrive with training)."""
+
+    scannet_dir: str = "/data/scannet"
+    icl_nuim_dir: str = "/data/icl-nuim"
+    tum_rgbd_dir: str = "/data/tum-rgbd"
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     batch: BatchConfig = field(default_factory=BatchConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    data: DataConfig = field(default_factory=DataConfig)
 
 
 def _overlay(dc, updates: Dict[str, Any]):

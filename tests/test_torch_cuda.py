@@ -12,7 +12,8 @@ import torch
 
 KERNELS = ("source_variance", "trilinear_sample", "propagation_blend",
            "softargmax_depth", "voxelize", "segment_max", "masked_group_norm",
-           "trilinear_sample_i8", "patch_fan_variance")
+           "trilinear_sample_i8", "patch_fan_variance", "tsdf_integrate",
+           "consistency_fuse")
 
 
 @pytest.mark.cuda
@@ -287,3 +288,128 @@ def test_fast_scene_counts_its_kernels():
     assert inf.last_projected and inf.last_n_tables == 1
     assert launch_counts() == chip_smoke.expected_launches(
         inf.offsets_list, 3, cfg.model.unet_res, True, 1)
+
+
+def _k9_scene(n_views, hw, seed=5):
+    from tdvnet_torch.data import synthetic
+
+    sc = synthetic.make_scene(n_views, hw, seed=seed, normalize=False)
+    rng = np.random.default_rng(seed)
+    d = sc["depth"] * (1 + rng.normal(0, 0.003, sc["depth"].shape))
+    d[rng.random(d.shape) < 0.05] = 0
+    sc["noisy"] = d.astype(np.float32)
+    sc["P"] = np.einsum("nij,njk->nik", sc["K"], np.concatenate(
+        [sc["rotmats"], sc["tvecs"][..., None]], 2)).astype(np.float32)
+    return sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_views,hw,dims,split", [
+    (8, (48, 64), (30, 29, 20), 8),
+    # ragged: more frames than one shared-memory tile (64), odd sizes, and
+    # the accumulators carried from a first batch into a second
+    (70, (37, 53), (23, 17, 11), 41)])
+def test_tsdf_integrate_kernel_matches_twin(n_views, hw, dims, split):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import tsdf_integrate
+    from tdvnet_torch.kernels.tsdf import tsdf_integrate_ref
+
+    sc = _k9_scene(n_views, hw)
+    dev = torch.device("cuda")
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    origin = torch.tensor([-2.3, -2.2, -0.25])
+    vs = 4.6 / dims[0]
+    got = want = None
+    for sl in (slice(0, split), slice(split, n_views)):
+        if sl.start == sl.stop:
+            continue
+        args = (up(sc["noisy"][sl]), up(sc["images"][sl] * 255),
+                up(sc["P"][sl]), origin, dims, vs, 3.0)
+        got = tsdf_integrate(*args, init=got)
+        want = tsdf_integrate_ref(*args, init=want)
+    torch.cuda.synchronize()
+    err, ok = chip_smoke.tsdf_check(got, want)
+    assert ok, err
+    assert float(want[1].max()) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_views,hw,refs", [
+    (8, (48, 64), (0, 5)),
+    # ragged: more views than one shared-memory tile (64), odd sizes, the
+    # last refs of the scene
+    (70, (37, 53), (67, 70))])
+def test_consistency_fuse_kernel_matches_twin(n_views, hw, refs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import consistency_fuse
+    from tdvnet_torch.kernels.fusion import camera_table, consistency_fuse_ref
+
+    sc = _k9_scene(n_views, hw, seed=6)
+    dev = torch.device("cuda")
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    d = up(sc["noisy"])
+    cams = camera_table(up(sc["K"]), up(sc["rotmats"]), up(sc["tvecs"]))
+    c0, c1 = refs
+    args = (d[c0:c1], d, cams, torch.arange(c0, c1, device=dev), 0.01, 2)
+    got, want = consistency_fuse(*args), consistency_fuse_ref(*args)
+    torch.cuda.synchronize()
+    err, ok = chip_smoke.fuse_check(got, want)
+    assert ok, err
+    assert 0 < int(want[1].sum()) < want[1].numel()
+
+
+@pytest.mark.cuda
+def test_k9_wrappers_count_their_launches():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+    from tdvnet_torch.ops import fusion, tsdf
+
+    sc = _k9_scene(8, (48, 64))
+    reset_launch_counts()
+    tsdf.fuse_scene(sc["noisy"], sc["images"] * 255, sc["P"],
+                    voxel_size=0.1, frame_batch=3, device="cuda")
+    fusion.fuse_point_cloud(sc["noisy"], (sc["images"] * 255).astype(
+        np.uint8), sc["rotmats"], sc["tvecs"], sc["K"], 0.01, 2,
+        ref_chunk=3, device="cuda")
+    counts = launch_counts()
+    assert counts["tsdf_integrate"] == 3 and counts["consistency_fuse"] == 3
+    assert sum(counts.values()) == 6
+
+
+@pytest.mark.cuda
+def test_imageio_and_synthetic_dataset_need_no_cv2(tmp_path):
+    """The port's PNG codec and dataset writer on the card's machine: a
+    scene written with the GT mesh fused on the card reads back through
+    `Dataset` exactly, and its mesh is within 0.5% of the CPU twin's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import sys
+
+    from tdvnet_torch.data import frameselector, imageio, synthetic
+    from tdvnet_torch.data.dataset import Dataset
+    from tdvnet_torch.data.synthetic_dataset import make_scene_dir
+    from tdvnet_torch.ops import ply
+
+    d_gpu = make_scene_dir(str(tmp_path / "gpu"), "s", 10, (60, 80), 3,
+                           device="cuda")
+    d_cpu = make_scene_dir(str(tmp_path / "cpu"), "s", 10, (60, 80), 3,
+                           device="cpu")
+    sc = synthetic.make_scene(10, (60, 80), seed=3, normalize=False)
+    for i in range(10):
+        bgr = imageio.imread(f"{d_gpu}/color/{i:05d}.png")
+        assert np.array_equal(bgr, (sc["images"][i][..., ::-1] * 255)
+                              .astype(np.uint8))
+        dep = imageio.imread_depth(f"{d_gpu}/depth/{i:05d}.png")
+        assert np.array_equal(dep, (sc["depth"][i] * 1000).astype(np.uint16))
+    views = Dataset([d_gpu], frameselector.NextPoseDistSelector(0.05, 20),
+                    img_size=(64, 80)).load_views(0, seed_idx=0)
+    assert views["images_u8"].shape[1:] == (64, 80, 3)
+    gv, gf, _ = ply.read_ply(f"{d_gpu}/gt_mesh.ply")
+    cv, cf, _ = ply.read_ply(f"{d_cpu}/gt_mesh.ply")
+    assert len(gf) > 0 and abs(len(gv) - len(cv)) <= 0.005 * len(cv)
+    assert "cv2" not in sys.modules

@@ -26,6 +26,15 @@ projection's basis V and its discarded energy:
 
     python tests/test_torch_golden.py --write-fast-scene [n_views]
 
+A fourth holds 3D evaluation: the JAX package's 2D, fused-cloud and TSDF
+metrics (GT-mesh masking on, `run_tsdf_fusion=True`) of a recipe's
+predictions for one synthetic scene written by
+`tools/make_synthetic_dataset.py` (52 views at 480x640), with the fused
+point count before the downsample and the GT mesh's size; the recipe and
+the `EvalConfig` fields are recorded beside them (a few minutes on the CPU):
+
+    python tests/test_torch_golden.py --write-eval3d
+
 The tier-1 tests below only check that the recorded settings are the ones
 `chip_smoke.py` drives.
 """
@@ -213,6 +222,66 @@ def write_scene_golden(n_views=SCENE_VIEWS, fast=False):
     print(json.dumps(record))
 
 
+EVAL3D_FIELDS = ("z_thresh", "n_consistent_thresh", "voxel_downsample",
+                 "fscore_thresh", "run_tsdf_fusion", "run_pc_fusion",
+                 "tsdf_img_batch", "tsdf_voxel_size", "tsdf_margin",
+                 "tsdf_bounds_quantile", "tsdf_trunc_ratio")
+
+
+def _eval3d_fields(eval_cfg):
+    d = dataclasses.asdict(eval_cfg)
+    return json.loads(json.dumps({k: d[k] for k in EVAL3D_FIELDS}))
+
+
+def write_eval3d_golden():
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    sys.path.insert(0, ROOT)
+    import tempfile
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+
+    from chip_smoke import (EVAL3D, EVAL3D_EVAL, EVAL3D_GOLDEN, eval3d_preds,
+                            recording_fused_points)
+    from tdvnet.config import EvalConfig
+    from tdvnet.eval import processresults as PR
+    from tdvnet.ops import fusion, ply
+    from tools.make_synthetic_dataset import make_scene_dir
+
+    r = EVAL3D
+    ecfg = EvalConfig(**EVAL3D_EVAL)
+    k, n = r["k"], r["n_views"]
+    with tempfile.TemporaryDirectory() as root:
+        scene = make_scene_dir(root, r["scene"], n, r["hw"], r["seed"])
+        with open(os.path.join(scene, "info.json")) as f:
+            info = json.load(f)
+        verts, faces, _ = ply.read_ply(info["gt_mesh"])
+        poses = np.stack([np.asarray(fr["pose"], np.float32)
+                          for fr in info["frames"]])
+        preds = eval3d_preds(poses, info["intrinsics"],
+                             PR.load_gt_depth(np.arange(k, n - k), scene),
+                             r["scene"])
+        save = os.path.join(root, "save")
+        os.makedirs(save)
+        np.savez(os.path.join(save, "preds.npz"), **preds)
+        fused = []
+        with recording_fused_points(fusion, fused):
+            metrics = {"metrics_2d.json": PR.process_scene_2d_metrics(
+                scene, save)}
+            name3 = (f"metrics_3d_{ecfg.z_thresh:.3f}_"
+                     f"{ecfg.n_consistent_thresh}v_masked.json")
+            metrics[name3] = PR.process_depth_3d_metrics(scene, save, ecfg,
+                                                         True)
+        with open(os.path.join(save, "metrics_tsdf_masked.json")) as f:
+            metrics["metrics_tsdf_masked.json"] = json.load(f)
+    record = {"recipe": EVAL3D, "eval_overrides": EVAL3D_EVAL,
+              "eval": _eval3d_fields(ecfg), "metrics": metrics,
+              "n_fused_points": fused[0], "gt_mesh_vertices": len(verts),
+              "gt_mesh_faces": len(faces)}
+    np.savez_compressed(EVAL3D_GOLDEN, record=np.array(json.dumps(record)))
+    print(json.dumps(record))
+
+
 def read_record(path=GOLDEN):
     with np.load(path) as z:
         return json.loads(str(z["record"]))
@@ -294,6 +363,27 @@ def test_fast_scene_golden_matches_chip_smoke_settings():
     assert 0.0 < rec["tail"] < 1.0
 
 
+def test_eval3d_golden_matches_chip_smoke_settings():
+    import chip_smoke
+    from tdvnet_torch.config import EvalConfig
+
+    rec = chip_smoke.eval3d_record()
+    assert rec["recipe"] == chip_smoke.EVAL3D
+    assert rec["eval_overrides"] == chip_smoke.EVAL3D_EVAL
+    ecfg = EvalConfig(**chip_smoke.EVAL3D_EVAL)
+    assert rec["eval"] == _eval3d_fields(ecfg)
+    assert sorted(rec["metrics"]) == sorted(chip_smoke.EVAL3D_AVG_FILES)
+    assert rec["metrics"]["metrics_3d_0.010_3v_masked.json"]["n"] == \
+        chip_smoke.EVAL3D["n_views"] - 2 * chip_smoke.EVAL3D["k"]
+    # the recipe's noise and dropped pixels make the consistency test
+    # reject some of the refs' pixels
+    n_px = (rec["metrics"]["metrics_2d.json"]["n"]
+            * chip_smoke.EVAL3D["hw"][0] * chip_smoke.EVAL3D["hw"][1])
+    assert 0 < rec["n_fused_points"] < 0.9 * n_px
+    assert rec["gt_mesh_vertices"] > 0 and rec["gt_mesh_faces"] > 0
+    assert os.path.getsize(chip_smoke.EVAL3D_GOLDEN) < 1 << 20
+
+
 if __name__ == "__main__":
     for flag, fast in (("--write-scene", False), ("--write-fast-scene", True)):
         if flag in sys.argv:
@@ -301,8 +391,11 @@ if __name__ == "__main__":
             write_scene_golden(int(rest[0]) if rest else SCENE_VIEWS, fast)
             break
     else:
-        if "--write" in sys.argv:
+        if "--write-eval3d" in sys.argv:
+            write_eval3d_golden()
+        elif "--write" in sys.argv:
             write_golden()
         else:
             sys.exit("usage: python tests/test_torch_golden.py --write | "
-                     "--write-scene [n_views] | --write-fast-scene [n_views]")
+                     "--write-scene [n_views] | --write-fast-scene [n_views]"
+                     " | --write-eval3d")

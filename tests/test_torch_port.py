@@ -146,7 +146,21 @@ def test_wrappers_run_their_twin_on_cpu_and_count_nothing():
     args = (fan, feats, sidx, smask, P_all, (24, 28))
     assert torch.equal(K.patch_fan_variance(*args),
                        patch_fan_variance_ref(*args))
-    assert len(K.launch_counts()) == 11
+    from tdvnet_torch.kernels.fusion import camera_table, consistency_fuse_ref
+    from tdvnet_torch.kernels.tsdf import tsdf_integrate_ref
+
+    depths, colors = r(3, 6, 7).abs() + 1, r(3, 6, 7, 3)
+    targs = (depths, colors, P_all, torch.tensor([-1.0, -1.0, 0.5]),
+             (5, 4, 6), 0.3)
+    for a, b in zip(K.tsdf_integrate(*targs), tsdf_integrate_ref(*targs)):
+        assert torch.equal(a, b)
+    Kc = torch.tensor([[5.0, 0, 3], [0, 5, 3], [0, 0, 1]]).expand(3, 3, 3)
+    cams = camera_table(Kc, torch.eye(3).expand(3, 3, 3),
+                        torch.tensor([[0.0, 0, 0], [0.1, 0, 0], [0, 0.1, 0]]))
+    fargs = (depths[:2], depths, cams, torch.tensor([0, 1]), 0.5, 1)
+    for a, b in zip(K.consistency_fuse(*fargs), consistency_fuse_ref(*fargs)):
+        assert torch.equal(a, b)
+    assert len(K.launch_counts()) == 13
     assert all(v == 0 for v in K.launch_counts().values())
 
 
