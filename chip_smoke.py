@@ -35,12 +35,25 @@ Phases (any failure exits non-zero):
      (metrics, fused point count, GT mesh size, launch counts); (b)
      `harness.main` with the model's fast-path `pred_fn` over three scenes,
      per-stage shares, and a second call that reuses every cached file; (c)
-     one scene's evaluation traced by stage span.
+     one scene's evaluation traced by stage span;
+  9. training, n_iters=0 (`train.loop.make_train_step`, the non-finetune
+     regime, from the synth48 weights on the golden batch): (a) the three
+     backward kernels against their twins at the step's shapes; (b) three
+     steps against the JAX golden `tests/data/torch_golden_train_synth48.npz`
+     (losses, step 1's gradient norms per module and three gradient
+     leaves, a CostRegNet BatchNorm's running statistics, launch counts);
+     (c) warm steps timed, ref-frames/s trained, peak memory; (d) one step
+     traced by span (train_forward, train_backward, train_optimizer);
+ 10. the probe tools (`tdvnet_torch.tools.probe_batched_dot`,
+     `probe_gather`): every case against its twin, timed beside the
+     library call.
 
 The line before the last is the `kernels` JSON; the last line is the device
 JSON. Imports nothing of JAX; the port runs on the card only.
 """
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -64,6 +77,7 @@ STREAM_SEEDS = (7, 8, 9)
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12          # H100 SXM, bf16 tensor cores, dense
 
 # golden tolerances on the full path (see PERF.md): the card sums in
 # another order than the JAX CPU run, and the golden's final depth is f16
@@ -106,6 +120,66 @@ TSDF_WEIGHT_SHARE = 0.9999
 FUSE_KEEP_SHARE = 0.999
 K9_ABS = 1e-5
 
+# training (phase 9): three n_iters=0 steps of `make_train_step` on the
+# golden batch from the synth48 weights, held to the JAX golden (losses per
+# step; step 1's gradient norm per module and the full gradient of three
+# leaves; one CostRegNet BatchNorm's running statistics after the steps),
+# then timed warm over TRAIN_TIMED steps and traced for one
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                            "torch_golden_train_synth48.npz")
+TRAIN_STEPS = 3
+TRAIN_TIMED = 10
+TRAIN_MODULES = ("mvsnet.backbone", "mvsnet.fpn", "mvsnet.cost_reg",
+                 "pointnet", "scene_unet", "decoder", "refine_quarter",
+                 "refine_half", "refine_full")
+TRAIN_LEAVES = ("mvsnet.fpn.smooth1.weight",
+                "mvsnet.cost_reg.ConvBnRelu_0.Conv_0.weight",
+                "refine_full.ConvBnRelu_3.Conv_0.weight")
+TRAIN_BN = "mvsnet.cost_reg.ConvBnRelu_0.BatchNorm_0"
+# limits against the float64 referee (each step's loss at the port's own
+# parameters): losses relative per step; gradient norms and leaves
+# relative (L2 for a leaf); running statistics relative to their largest;
+# step 1's parameter update, per element, within TRAIN_UPDATE_REL of the lr
+# plus one fp32 ulp of the parameter
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_REL = 1e-3
+TRAIN_STATS_REL = 1e-3
+TRAIN_UPDATE_REL = 1e-3
+ADAM_EPS = 1e-8
+# the share of trained elements whose float64 gradient is noise-level (at
+# most TRAIN_GRAD_REL of its leaf's largest) read 4.64% at full width
+# (PERF.md, section 6); the optimizer check from the port's own gradients
+# holds every element
+TRAIN_NOISE_SHARE = 0.1
+# the last cost conv's bias shifts every plane's cost alike, which the
+# soft-argmax does not see: its gradient is zero in exact arithmetic, and
+# both sides' are rounding noise
+ZERO_GRAD = "mvsnet.cost_reg.Conv_0.bias"
+# limits against the JAX golden, per step for the losses and per quantity
+# for step 1's gradients ("" for the rest), each 1.3x to 2.5x the golden's
+# own error: its fp32 step 1 is 9.9e-4 off a float64 rerun at the same
+# parameters in the loss and 4e-5 to 1.03e-2 in the gradients (the largest
+# behind the cost volume, whose first batch variance XLA's CPU sums put
+# 2-4e-4 off), and its steps 2 and 3 drift 3.9e-3 and 2.9e-3 from the
+# port's (PERF.md, section 6); the port's fp32 step is 5e-7 and 1e-5 to
+# 8.4e-5 off the float64 referee, which holds it to its own precision
+GOLDEN_LOSS_REL = (2.5e-3, 5e-3, 4e-3)
+GOLDEN_GRAD_REL = {"": 4e-3, "mvsnet.cost_reg": 1.5e-2,
+                   "mvsnet.fpn.smooth1.weight": 1e-2,
+                   "mvsnet.cost_reg.ConvBnRelu_0.Conv_0.weight": 1e-2}
+# controls: faults that the limits above must see. A loss-composition
+# fault (the full-resolution stage's term counted 1% more), an optimizer
+# fault (step 1's lr 1% off) and a BatchNorm fault (flax's momentum 0.9
+# taken as torch's, the update weights swapped)
+CONTROL_STAGE_WEIGHT = 1.01
+CONTROL_LR = 1.01
+# backward kernels against their twins, relative to the twin's largest
+# magnitude; the variance backward's as its forward's: the kernel's
+# projection rounds apart from the twin's matmul (a tap's weight moves by
+# an ulp of the coordinate), and its atomics sum in a run-dependent order
+BACKWARD_TOL = 1e-5
+VARIANCE_BACKWARD_TOL = 1e-4
+
 # kernel -> (source, the TPU op it replaces, its wrappers in
 # tdvnet_torch.kernels.WRAPPERS)
 KERNEL_META = {
@@ -137,6 +211,23 @@ KERNEL_META = {
                        "tdvnet/ops/tsdf.py:42", ("tsdf_integrate",)),
     "consistency_fuse": ("tdvnet_torch/csrc/consistency_fuse.cu",
                          "tdvnet/ops/fusion.py:47", ("consistency_fuse",)),
+    "source_variance_backward": (
+        "tdvnet_torch/csrc/source_variance_backward.cu",
+        "tdvnet/ops/costvolume.py:36 (VJP)", ("source_variance_backward",)),
+    "softargmax_depth_backward": (
+        "tdvnet_torch/csrc/softargmax_depth_backward.cu",
+        "tdvnet/kernels/depthops_pallas.py:44 (2df7997^, VJP)",
+        ("softargmax_depth_backward",)),
+    "propagation_blend_backward": (
+        "tdvnet_torch/csrc/propagation_blend_backward.cu",
+        "tdvnet/kernels/depthops_pallas.py:83 (2df7997^, VJP)",
+        ("propagation_blend_backward",)),
+    "batched_dot": ("tdvnet_torch/csrc/batched_dot.cu",
+                    "tools/probe_mosaic_batched_dot.py:119",
+                    ("batched_dot",)),
+    "take_along_axis": ("tdvnet_torch/csrc/take_along_axis.cu",
+                        "tools/probe_mosaic_gather.py:49",
+                        ("take_along_axis",)),
 }
 
 
@@ -178,7 +269,21 @@ def expected_launches(offsets_list, n_chunks, unet_res, fast_patch=False,
             "softargmax_depth": n_chunks,
             "voxelize": n_iters, "scatter_anchors_to_dense": n_iters,
             "segment_max": 4 * n_iters, "gather_concat": 3 * n_iters,
-            "masked_group_norm": gn * n_iters}
+            "masked_group_norm": gn * n_iters,
+            "source_variance_backward": 0, "softargmax_depth_backward": 0,
+            "propagation_blend_backward": 0, "batched_dot": 0,
+            "take_along_axis": 0}
+
+
+def train_expected_launches(n_steps):
+    """Launches per wrapper in `n_steps` n_iters=0 train steps: per step
+    the forward's cost volume, soft-argmax and three propagation blends,
+    and the backward of each."""
+    out = {w: 0 for w in expected_launches((), 1, ())}
+    for k, n in (("source_variance", 1), ("softargmax_depth", 1),
+                 ("propagation_blend", 3)):
+        out[k] = out[k + "_backward"] = n * n_steps
+    return out
 
 
 def log(*args):
@@ -234,10 +339,15 @@ def scene_golden_record(path=SCENE_GOLDEN):
         return json.loads(str(z["record"]))
 
 
-# the kernels whose main path is the fast whole-scene path or one scene's
-# 3D evaluation; the others' is infer_depth
+# the kernels whose main path is the fast whole-scene path, one scene's 3D
+# evaluation, the n_iters=0 train step or the probe tools; the others' is
+# infer_depth
 MAIN_PATHS = {"trilinear_sample_i8": "fast", "patch_fan_variance": "fast",
-              "tsdf_integrate": "eval3d", "consistency_fuse": "eval3d"}
+              "tsdf_integrate": "eval3d", "consistency_fuse": "eval3d",
+              "source_variance_backward": "train",
+              "softargmax_depth_backward": "train",
+              "propagation_blend_backward": "train",
+              "batched_dot": "probe", "take_along_axis": "probe"}
 
 
 def stream_chunk(device, k):
@@ -681,14 +791,6 @@ def eval3d_cases(device):
     return cases
 
 
-def bf16_ulp(m):
-    """The spacing of bf16 values at magnitudes m (a tensor)."""
-    import torch
-
-    _, e = torch.frexp(m.double())
-    return torch.ldexp(torch.ones_like(m, dtype=torch.float64), e - 8)
-
-
 def check_case(case):
     """Max |kernel - twin| over the outputs and whether it is within the
     tolerance, which is relative to the twin's largest magnitude (at least
@@ -696,6 +798,8 @@ def check_case(case):
     within one bf16 ulp of the larger of its two magnitudes, and a callable
     one decides itself: (got, want) -> (max |d|, ok)."""
     import torch
+
+    from tdvnet_torch.tools.timing import bf16_ulp
 
     got, want = case.run(), case.ref()
     torch.cuda.synchronize()
@@ -724,26 +828,12 @@ def check_case(case):
     return err, bool(ok)
 
 
-def time_ms(fn, iters=10, warmup=2):
-    import torch
+def kernel_phase(device, cases=None):
+    from tdvnet_torch.tools.timing import time_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def kernel_phase(device):
     ok = True
     per_kernel = {}
-    for case in kernel_cases(device):
+    for case in kernel_cases(device) if cases is None else cases:
         err, good = check_case(case)
         ms = time_ms(case.run)
         plain = time_ms(case.ref, iters=3, warmup=1)
@@ -1039,7 +1129,7 @@ def profile_phase(run, what, card, prefix="stage_"):
     # of its own
     work = [e for e in on_card
             if not (e.is_user_annotation
-                    or e.name.startswith(("stage_", "eval_")))]
+                    or e.name.startswith(("stage_", "eval_", "train_")))]
     if not work:
         raise RuntimeError("the profiler recorded no work on the card")
     busy_ms = _union_us([(e.time_range.start, e.time_range.end)
@@ -1079,6 +1169,543 @@ def profile_phase(run, what, card, prefix="stage_"):
             f"{ported[k]['launches']} device kernels")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "stages_ms": stages, "ported_kernels": ported}
+
+
+# ------------------------------------------------------------------ training
+def train_cases(device, seed=1):
+    """The three backward kernels at the shapes the full-width n_iters=0
+    train step gives them, on the golden batch's cameras with seeded
+    random features, costs, logits and incoming gradients: the cost
+    volume's variance, the soft-argmax and the three propagation blends."""
+    import torch
+
+    from tdvnet_torch.config import ModelConfig
+    from tdvnet_torch.kernels import (propagation_blend_backward,
+                                      softargmax_depth_backward,
+                                      source_variance_backward)
+    from tdvnet_torch.kernels.propagation import (
+        propagation_blend_backward_ref, propagation_blend_ref)
+    from tdvnet_torch.kernels.softargmax import (
+        softargmax_depth_backward_ref, softargmax_depth_ref)
+    from tdvnet_torch.kernels.variance import (source_variance_backward_ref,
+                                               source_variance_ref)
+    from tdvnet_torch.ops import camera
+
+    cfg = ModelConfig()
+    dc = cfg.depth_train
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(device)
+    b = golden_batch(GOLDEN_SEEDS).to(device)
+    R, S = b.src_idx.shape
+    N = b.n_imgs
+    H, W = cfg.img_size
+    f = cfg.feat_dim
+    ri = b.ref_idx
+    active = float(b.src_mask.sum())
+    cases = []
+
+    feats = rnd(N, H // 4, W // 4, f).contiguous()
+    P_all = camera.projection_matrix(b.K, b.rotmats, b.tvecs).contiguous()
+    pts = camera.plane_sweep_points(
+        dc.depth_start, dc.depth_interval, dc.n_intervals, b.rotmats[ri],
+        b.tvecs[ri], b.K[ri], cfg.img_size, dc.size).contiguous()
+    P = pts.shape[1]
+    _, mean = source_variance_ref(pts, feats, b.src_idx, b.src_mask, P_all,
+                                  cfg.img_size, with_mean=True)
+    g = rnd(R, P, f)
+    args = (g, mean, pts, feats, b.src_idx, b.src_mask, P_all, cfg.img_size)
+    hw = f"{dc.size[0]}*{dc.size[1]}"
+    cases.append(Case(
+        "source_variance_backward",
+        f"cost volume [{R},{dc.n_intervals}*{hw},{f}] -> [{N},{H // 4},"
+        f"{W // 4},{f}]", 1,
+        lambda a=args: source_variance_backward(*a),
+        lambda a=args: source_variance_backward_ref(*a),
+        VARIANCE_BACKWARD_TOL,
+        4 * (2 * R * P * f + 2 * feats.numel() + pts.numel()
+             + P_all.numel() + R * S * 3),
+        (active / R) * R * P * (24 + 19 * f), path="train"))
+
+    D = dc.n_intervals
+    cost = (rnd(R, D, *dc.size) * 3).contiguous()
+    dvals = camera.linspace_f32(dc.depth_start, dc.depth_end, D, device)
+    depth = softargmax_depth_ref(cost, dvals)
+    gd = rnd(R, *dc.size)
+    args = (gd, cost, dvals, depth)
+    cases.append(Case(
+        "softargmax_depth_backward", f"[{R},{D},{dc.size[0]},{dc.size[1]}]",
+        1, lambda a=args: softargmax_depth_backward(*a),
+        lambda a=args: softargmax_depth_backward_ref(*a), BACKWARD_TOL,
+        4 * (2 * cost.numel() + D + 2 * R * dc.size[0] * dc.size[1]),
+        cost.numel() * 8, path="train"))
+
+    for h, w in ((H // 4, W // 4), (H // 2, W // 2), (H, W)):
+        logits = rnd(R, 9, h, w).permute(0, 2, 3, 1)
+        depth = (1.0 + torch.rand(R, h, w, generator=gen) * 3).to(device)
+        out = propagation_blend_ref(logits, depth)
+        gp = rnd(R, h, w)
+        args = (gp, logits, depth, out)
+        cases.append(Case(
+            "propagation_blend_backward", f"[{R},{h},{w},9]", 1,
+            lambda a=args: propagation_blend_backward(*a),
+            lambda a=args: propagation_blend_backward_ref(*a),
+            BACKWARD_TOL, 4 * R * h * w * 22, R * h * w * 90, path="train"))
+    return cases
+
+
+def _rel(got, want):
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def train_steps_record(state, step, batch, lam, before_step=None):
+    """Run TRAIN_STEPS steps (calling `before_step(i, model)` before step i);
+    the losses of each, step 1's gradient norm per module of TRAIN_MODULES
+    and its TRAIN_LEAVES gradients (float64 numpy), TRAIN_BN's running
+    statistics after the steps, and the steps' host ms (to a synchronise
+    on the loss)."""
+    import numpy as np
+
+    model = state.model
+    rec = {"loss": [], "loss_2d": [], "ms": []}
+    for i in range(TRAIN_STEPS):
+        if before_step is not None:
+            before_step(i, model)
+        t0 = time.perf_counter()
+        _, mets = step(state, batch, lam)
+        rec["loss"].append(float(mets["loss"]))
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["loss_2d"].append(float(mets["loss_2d"]))
+        if i == 0:
+            rec.update(_grad_record(model))
+    rec["bn"] = _bn_record(model)
+    if not np.isfinite(rec["loss"]).all():
+        raise RuntimeError(f"non-finite training loss {rec['loss']}")
+    return rec
+
+
+def _grad_record(model):
+    grads = {k: p.grad for k, p in model.named_parameters()
+             if p.grad is not None}
+    return {"grad_norms": {m: math.sqrt(sum(
+        float((g.double() ** 2).sum()) for k, g in grads.items()
+        if k.startswith(m + "."))) for m in TRAIN_MODULES},
+        "leaves": {k: grads[k].double().cpu().numpy() for k in TRAIN_LEAVES}}
+
+
+def _bn_record(model):
+    bn = model.get_submodule(TRAIN_BN)
+    return {"running_mean": bn.running_mean.double().cpu().numpy(),
+            "running_var": bn.running_var.double().cpu().numpy()}
+
+
+def train_golden_record():
+    """The JAX golden in the layout of `train_steps_record`."""
+    import numpy as np
+
+    with np.load(TRAIN_GOLDEN) as z:
+        rec = json.loads(str(z["record"]))
+        rec["leaves"] = {k[len("grad:"):]: z[k].astype(np.float64)
+                         for k in z.files if k.startswith("grad:")}
+        rec["bn"] = {"running_mean": z["bn_running_mean"].astype(np.float64),
+                     "running_var": z["bn_running_var"].astype(np.float64)}
+    if tuple(rec["seeds"]) != GOLDEN_SEEDS or rec["steps"] != TRAIN_STEPS:
+        raise RuntimeError(f"train golden settings {rec['seeds']}, "
+                           f"{rec['steps']} steps differ from the script's")
+    return rec
+
+
+def _limit(lim, key):
+    """A limit given as one number, per step (a tuple) or per quantity (a
+    dict whose "" entry covers the rest)."""
+    if isinstance(lim, tuple):
+        return lim[key]
+    if isinstance(lim, dict):
+        return lim.get(key, lim[""])
+    return lim
+
+
+def _verdict(e, lim):
+    return "ok" if e <= lim else "FAIL (limit %.1e)" % lim
+
+
+def compare_train_records(got, want, name, loss_rel, grad_rel, stats_rel,
+                          steps=TRAIN_STEPS):
+    """Log `got` against `want` and return whether every quantity is within
+    its limit: the losses of the first `steps` steps relative, gradient
+    norms relative (a zero norm must stay zero), leaves in relative L2, and
+    after all TRAIN_STEPS steps the running statistics (`compare_bn`). A
+    limit is a number, per step or per quantity (`_limit`)."""
+    import numpy as np
+
+    ok = True
+    for i in range(steps):
+        e = max(_rel(got["loss"][i], want["loss"][i]),
+                _rel(got["loss_2d"][i], want["loss_2d"][i]))
+        log(f"  step {i}: loss {got['loss'][i]:.7f} vs {name} "
+            f"{want['loss'][i]:.7f}, loss_2d {got['loss_2d'][i]:.7f} vs "
+            f"{want['loss_2d'][i]:.7f}: rel {e:.2e} "
+            f"{_verdict(e, _limit(loss_rel, i))}")
+        ok &= e <= _limit(loss_rel, i)
+    for m in TRAIN_MODULES:
+        g, w = got["grad_norms"][m], want["grad_norms"][m]
+        e = (0.0 if g == 0.0 else math.inf) if w == 0.0 else _rel(g, w)
+        log(f"  grad norm {m:18s} {g:.6e} vs {name} {w:.6e}: rel {e:.2e} "
+            f"{_verdict(e, _limit(grad_rel, m))}")
+        ok &= e <= _limit(grad_rel, m)
+    for k in TRAIN_LEAVES:
+        g, w = got["leaves"][k], want["leaves"][k]
+        e = float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+        log(f"  grad {k:44s} rel L2 {e:.2e} vs {name} "
+            f"{_verdict(e, _limit(grad_rel, k))}")
+        ok &= e <= _limit(grad_rel, k)
+    if steps < TRAIN_STEPS:
+        return bool(ok)
+    return bool(ok) & compare_bn(got["bn"], want["bn"], name, stats_rel)
+
+
+def compare_bn(got, want, name, stats_rel):
+    """TRAIN_BN's running statistics after TRAIN_STEPS steps: the mean in
+    units of the spread (a mean near zero has no scale of its own), the
+    variance relative to its largest."""
+    import numpy as np
+
+    scale = {"running_mean": np.sqrt(want["running_var"]).max(),
+             "running_var": np.abs(want["running_var"]).max()}
+    ok = True
+    for k in ("running_mean", "running_var"):
+        e = float(np.abs(got[k] - want[k]).max() / max(scale[k], 1e-30))
+        log(f"  {TRAIN_BN}.{k} after {TRAIN_STEPS} steps: rel {e:.2e} vs "
+            f"{name} {_verdict(e, stats_rel)}")
+        ok &= e <= stats_rel
+    return bool(ok)
+
+
+def update_check(p0, p1, grads, lr, name, noise=True):
+    """Log and return the worst ratio, over the trained parameters, of the
+    port's first Adam update (p0 -> p1) off a float64 one from `grads`
+    (optax's first step, whose bias corrections cancel: p0 - lr * g / (|g|
+    + eps)) to its limit: TRAIN_UPDATE_REL * lr plus one fp32 ulp of the
+    parameter. With `noise` (gradients other than the port's own), an
+    element whose gradient is rounding noise (nonzero and |g| at most
+    TRAIN_GRAD_REL of its leaf's largest, or in ZERO_GRAD) moves in a
+    direction the noise picks: it is held only to move by at most lr (plus
+    the same margin). Returns that ratio (at most 1 passes) and the share
+    of such elements."""
+    import torch
+
+    worst, worst_lr, n_noise, n_all = 0.0, 0.0, 0, 0
+    for k, a in p0.items():
+        g, a = grads[k].double(), a.double()
+        b = p1[k].double()
+        want = a - lr * g / (g.abs() + ADAM_EPS)
+        w32 = want.float()
+        ulp = (torch.nextafter(w32, torch.full_like(w32, math.inf))
+               - w32).double()
+        margin = TRAIN_UPDATE_REL * lr + ulp
+        mag = g.abs()
+        if not noise:
+            loud = torch.ones_like(mag, dtype=torch.bool)
+        elif k == ZERO_GRAD:
+            loud = torch.zeros_like(mag, dtype=torch.bool)
+        else:
+            loud = (mag > TRAIN_GRAD_REL * mag.max()) | (mag == 0)
+        d = (b - want).abs()
+        ratio = torch.where(loud, d / margin, (b - a).abs() / (lr + margin))
+        worst = max(worst, float(ratio.max()))
+        if bool(loud.any()):
+            worst_lr = max(worst_lr, float(d[loud].max()) / lr)
+        n_noise += int((~loud).sum())
+        n_all += g.numel()
+    share = n_noise / max(n_all, 1)
+    log(f"  step 1's update vs {name}: worst {worst_lr:.2e} lr off, "
+        f"{worst:.2e} of its limit {'ok' if worst <= 1.0 else 'FAIL'}"
+        + (f"; {n_noise} of {n_all} elements ({share:.2%}, at most "
+           f"{TRAIN_NOISE_SHARE:.0%}) with noise-level gradients held to "
+           f"move by at most lr" if noise else ""))
+    return worst, share
+
+
+@contextlib.contextmanager
+def float64_twins():
+    """Within the block the n_iters=0 path's three kernel call sites run
+    their plain twins, which keep float64 and which autograd differentiates:
+    the float64 reference run on the card."""
+    import tdvnet_torch.models.mvsnet as mvsnet
+    import tdvnet_torch.models.upsampling as upsampling
+    import tdvnet_torch.ops.costvolume as costvolume
+    from tdvnet_torch.kernels.propagation import propagation_blend_ref
+    from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
+    from tdvnet_torch.kernels.variance import source_variance_ref
+
+    saved = (mvsnet.softargmax_depth, upsampling.propagation_blend,
+             costvolume.source_variance)
+    mvsnet.softargmax_depth = softargmax_depth_ref
+    upsampling.propagation_blend = propagation_blend_ref
+    costvolume.source_variance = source_variance_ref
+    try:
+        yield
+    finally:
+        (mvsnet.softargmax_depth, upsampling.propagation_blend,
+         costvolume.source_variance) = saved
+
+
+class Float64Referee:
+    """Before each of the port's steps, the same parameters, buffers and
+    batch in float64 through the twins (the cameras and projections stay
+    fp32, as in the port's run): the loss the step should compute, at step
+    1 its gradients and the faulty loss of the composition control, after
+    the last step the BatchNorm statistics. Each step starts from the
+    port's own state, so fp32 noise that Adam's sign-like first updates
+    amplify does not compound into the reference. It also keeps the port's
+    trained parameters before and after step 1 and TRAIN_BN's statistics
+    before each step, for `update_check` and the BatchNorm control."""
+
+    def __init__(self, cfg, batch, lam, device):
+        import dataclasses
+
+        from tdvnet_torch.models.threedvnet import ThreeDVNet
+        from tdvnet_torch.train import loop as L
+
+        self.model = ThreeDVNet(cfg.model).to(device).double()
+        # the regime's frozen leaves, and step 1's lr
+        self.lr = L.make_optimizer(cfg, self.model, 1).sched(0)
+        self.batch = dataclasses.replace(
+            batch, images=batch.images.double(),
+            depth_gt=batch.depth_gt.double())
+        self.lam = lam
+        self.offsets = list(cfg.train.offsets)
+        self.bb_train = bool(cfg.train.finetune)
+        self.record = {"loss": [], "loss_2d": []}
+        self.bn_before = []
+        self.seconds = 0.0
+
+    def _forward(self):
+        m = self.model
+        for p in m.parameters():
+            p.grad = None
+        with float64_twins():
+            return m(self.batch, self.offsets, 0, self.lam,
+                     with_metrics=False, backbone_train=self.bb_train)
+
+    def __call__(self, i, model):
+        import torch
+
+        t0 = time.perf_counter()
+        m = self.model
+        trained = {k: p.detach().clone() for k, p in model.named_parameters()
+                   if p.requires_grad}
+        if i == 0:
+            self.p0 = trained
+        elif i == 1:
+            # step 2 has not zeroed step 1's gradients yet
+            self.p1 = trained
+            self.port_grads = {k: p.grad.detach().clone()
+                               for k, p in model.named_parameters()
+                               if k in trained}
+        self.bn_before.append(_bn_record(model))
+        m.load_state_dict(model.state_dict())
+        m.train()
+        out = self._forward()
+        self.record["loss"].append(out["loss"].item())
+        self.record["loss_2d"].append(out["loss_2d"].item())
+        self.record["bn"] = _bn_record(m)
+        if i == 0:
+            with float64_twins():
+                out["loss"].backward()
+            self.record.update(_grad_record(m))
+            self.grads = {k: torch.zeros_like(p) if p.grad is None
+                          else p.grad for k, p in m.named_parameters()
+                          if k in self.p0}
+            # the control's statistics are not read: its forward's update
+            # is overwritten by the next step's load
+            out = self._forward()
+            loss = out["loss"] + (CONTROL_STAGE_WEIGHT - 1.0) \
+                * out["final"]["loss_2d"]
+            with float64_twins():
+                loss.backward()
+            self.control = {"loss": [loss.item()],
+                            "loss_2d": [out["loss_2d"].item()],
+                            **_grad_record(m)}
+        self.seconds += time.perf_counter() - t0
+
+
+def bn_control(before, after, momentum=0.9):
+    """TRAIN_BN's running statistics after the steps had each update
+    weighted the other way round (flax's momentum 0.9 given to torch as
+    0.9): each step's batch statistic b_t recovered from the port's
+    r_{t+1} = momentum r_t + (1 - momentum) b_t, then r' = (1 - momentum) r'
+    + momentum b_t from the same start."""
+    rec = {}
+    for k in ("running_mean", "running_var"):
+        r = [x[k] for x in before] + [after[k]]
+        out = r[0]
+        for t in range(len(r) - 1):
+            b = (r[t + 1] - momentum * r[t]) / (1.0 - momentum)
+            out = (1.0 - momentum) * out + momentum * b
+        rec[k] = out
+    return rec
+
+
+def train_golden_phase(state, step, batch, lam, cfg, device):
+    """TRAIN_STEPS steps of the port from the synth48 weights, against the
+    float64 referee and the JAX golden, then the controls; returns (ok,
+    launch counts of those steps, the steps' host ms)."""
+    import torch
+
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+
+    golden = train_golden_record()
+    referee = Float64Referee(cfg, batch, lam, device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = train_steps_record(state, step, batch, lam, before_step=referee)
+    counts = launch_counts()
+    log(f"  float64 referee: {referee.seconds:.1f} s over the "
+        f"{TRAIN_STEPS} steps")
+    log("  the port (fp32) against the float64 referee:")
+    ok = compare_train_records(got, referee.record, "float64",
+                               TRAIN_LOSS_REL, TRAIN_GRAD_REL,
+                               TRAIN_STATS_REL)
+    # the optimizer alone: Adam in float64 from the port's own gradients,
+    # every element; then from the referee's, every element whose gradient
+    # is above rounding noise (each leaf's gradient in sign and size)
+    worst, _ = update_check(referee.p0, referee.p1, referee.port_grads,
+                            referee.lr, "float64 Adam of its own gradients",
+                            noise=False)
+    ok &= worst <= 1.0
+    worst, share = update_check(referee.p0, referee.p1, referee.grads,
+                                referee.lr, "float64 Adam of the float64 "
+                                "gradients")
+    ok &= worst <= 1.0 and share <= TRAIN_NOISE_SHARE
+    log("  the port (fp32) against the JAX golden (fp32):")
+    ok &= compare_train_records(got, golden, "JAX", GOLDEN_LOSS_REL,
+                                GOLDEN_GRAD_REL, TRAIN_STATS_REL)
+    log("  the JAX golden against the float64 referee at step 1 (the same "
+        "parameters; later steps follow another trajectory):")
+    compare_train_records(golden, referee.record, "float64",
+                          GOLDEN_LOSS_REL, GOLDEN_GRAD_REL, TRAIN_STATS_REL,
+                          steps=1)
+    expected = train_expected_launches(TRAIN_STEPS)
+    log(f"  launches in those steps: {json.dumps(counts)} (expected "
+        f"{json.dumps(expected)})")
+    ok &= counts == expected
+    # each control must fail the limits that stand for it: a FAIL below is
+    # the limit seeing the fault
+    log(f"  control: the final stage's loss term x{CONTROL_STAGE_WEIGHT} "
+        f"(float64) against the float64 referee and the JAX golden:")
+    seen = {"composition vs float64": not compare_train_records(
+        referee.control, referee.record, "float64", TRAIN_LOSS_REL,
+        TRAIN_GRAD_REL, TRAIN_STATS_REL, steps=1)}
+    seen["composition vs JAX"] = not compare_train_records(
+        referee.control, golden, "JAX", GOLDEN_LOSS_REL, GOLDEN_GRAD_REL,
+        TRAIN_STATS_REL, steps=1)
+    log(f"  control: the port's update against a float64 Adam update at "
+        f"lr x{CONTROL_LR}:")
+    seen["optimizer"] = update_check(
+        referee.p0, referee.p1, referee.port_grads, referee.lr * CONTROL_LR,
+        f"float64 Adam of its own gradients at lr x{CONTROL_LR}",
+        noise=False)[0] > 1.0
+    log("  control: the BatchNorm updates weighted the other way round "
+        "(momentum 0.9 as torch's):")
+    swapped = bn_control(referee.bn_before, got["bn"])
+    seen["batchnorm vs float64"] = not compare_bn(
+        swapped, referee.record["bn"], "float64", TRAIN_STATS_REL)
+    seen["batchnorm vs JAX"] = not compare_bn(
+        swapped, golden["bn"], "JAX", TRAIN_STATS_REL)
+    log(f"  controls seen by their limits: {json.dumps(seen)}")
+    ok &= all(seen.values())
+    return bool(ok), counts, got["ms"]
+
+
+def train_time_phase(state, step, batch, lam, card):
+    """TRAIN_TIMED warm steps, each timed on the host clock to a
+    synchronise; peak device memory over them."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        _, mets = step(state, batch, lam)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if not np.isfinite(float(mets["loss"])):
+            raise RuntimeError("non-finite training loss")
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(times))
+    log(f"  warm train step median {med:.1f} ms (min {min(times):.1f}, max "
+        f"{max(times):.1f}); {1e3 * batch.n_refs / med:.2f} ref-frames/s "
+        f"trained; peak memory {peak / 2**30:.2f} GiB [{card}]")
+    return {"step_ms": times, "median_ms": med,
+            "ref_frames_per_s": 1e3 * batch.n_refs / med, "peak_bytes": peak}
+
+
+def train_phase(device, card):
+    """Phase 9: the backward kernels against their twins, three golden
+    steps, warm timing and a trace of one step."""
+    import torch
+
+    from tdvnet_torch.config import Config
+    from tdvnet_torch.train import loop as L
+    from tdvnet_torch.weights import load_threedvnet
+
+    log("phase 9a: backward kernels against their twins at the train "
+        "step's shapes")
+    k_ok, per_kernel = kernel_phase(device, train_cases(device))
+    log("phase 9b: n_iters=0 train steps against a float64 referee and "
+        "the JAX golden")
+    cfg = Config()
+    lam = L.lambda_for_epoch(cfg, 0)
+    batch = golden_batch(GOLDEN_SEEDS).to(device)
+    model = load_threedvnet(WEIGHTS, device=device)
+    state = L.TrainState(model, L.make_optimizer(cfg, model, 1))
+    step = L.make_train_step(model, cfg, 0)
+    g_ok, counts, first_ms = train_golden_phase(state, step, batch, lam, cfg,
+                                                device)
+    log(f"  the first {TRAIN_STEPS} steps (cold): "
+        f"{', '.join('%.1f ms' % t for t in first_ms)}")
+    torch.cuda.empty_cache()
+    log("phase 9c: warm train steps")
+    timing = train_time_phase(state, step, batch, lam, card)
+    timing["first_step_ms"] = first_ms
+    log("phase 9d: trace of one train step")
+    trace = profile_phase(lambda: step(state, batch, lam), "train step",
+                          card, prefix="train_")
+    del state, model
+    torch.cuda.empty_cache()
+    return k_ok, g_ok, per_kernel, counts, timing, trace
+
+
+def probe_phase(device):
+    """Phase 10: both probe tools' cases on the card against the twins;
+    per kernel the sums over the cases of one probe run."""
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+    from tdvnet_torch.tools import probe_batched_dot, probe_gather
+
+    reset_launch_counts()
+    dot = probe_batched_dot.run(device)
+    gather = probe_gather.run(device)
+    counts = launch_counts()
+    per_kernel = {}
+    for name, recs in (("batched_dot", [dot]), ("take_along_axis", gather)):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "nbytes": 0.0, "flops": 0.0}
+        for r in recs:
+            flops = r.get("flops", 0.0)
+            for k in ("ms", "plain_ms", "library_ms", "nbytes"):
+                tot[k] += r[k]
+            tot["flops"] += flops
+            tot["bound_ms"] += 1e3 * max(r["nbytes"] / HBM_BYTES_PER_S,
+                                         flops / BF16_FLOPS)
+        per_kernel[name] = {
+            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in recs),
+            "paths": {"probe": tot},
+            "calls": [{**{k: v for k, v in r.items() if k != "name"},
+                       "shape": r["name"], "path": "probe"} for r in recs]}
+    ok = all(r["ok"] for r in [dot] + gather)
+    return ok, per_kernel, counts, {"batched_dot": dot, "gather": gather}
 
 
 # ----------------------------------------------------------- 3D evaluation
@@ -1417,6 +2044,16 @@ def main():
         eval3d_trace = eval3d_trace_phase(model, scenes[0], root, device,
                                           card)
 
+    del model, inf, fast
+    torch.cuda.empty_cache()
+    tk_ok, tg_ok, train_kernels, train_counts, train_timing, train_trace = \
+        train_phase(device, card)
+    per_kernel.update(train_kernels)
+
+    log("phase 10: probes")
+    p_ok, probe_kernels, probe_counts, probes = probe_phase(device)
+    per_kernel.update(probe_kernels)
+
     # per kernel, over one run of its main path (the keys of the contract):
     # infer_depth, the fast whole scene for the fast path's kernels, one
     # scene's 3D evaluation for K9; beside them the launches of every
@@ -1425,7 +2062,9 @@ def main():
     runs = {"infer_depth": (counts, trace), "scene": (scene_counts,
                                                       scene_trace),
             "fast": (fast_counts, fast_trace),
-            "eval3d": (eval3d_counts, eval3d_trace)}
+            "eval3d": (eval3d_counts, eval3d_trace),
+            "train": (train_counts, train_trace),
+            "probe": (probe_counts, None)}
     sums = lambda t: t and {x: t[x] for x in (
         "ms", "plain_ms", "bound_ms", "library_ms")}
     for name, k in per_kernel.items():
@@ -1434,7 +2073,7 @@ def main():
         tot = k["paths"][main_path]
         launches = {p: sum(c[w] for w in wrappers)
                     for p, (c, _) in runs.items()}
-        traced = {p: t["ported_kernels"][name]["ms"]
+        traced = {p: t["ported_kernels"][name]["ms"] if t else None
                   for p, (_, t) in runs.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -1449,6 +2088,7 @@ def main():
             "scene_launches": launches["scene"],
             "fast_scene_launches": launches["fast"],
             "eval3d_launches": launches["eval3d"],
+            "train_launches": launches["train"],
             "scene": sums(k["paths"].get("scene")),
             "scene_trace_ms": traced["scene"],
             "fast_scene_trace_ms": traced["fast"],
@@ -1460,11 +2100,13 @@ def main():
                     "fast_scene_stream": fast_stream,
                     "fast_scene_trace": fast_trace,
                     "eval3d_stream": eval3d_stream,
-                    "eval3d_trace": eval3d_trace}))
+                    "eval3d_trace": eval3d_trace, "train": train_timing,
+                    "train_trace": train_trace, "probes": probes}))
     phases = {"kernels": k_ok, "full path": f_ok, "scene golden": g_ok,
               "scene stream": s_ok, "fast scene golden": fg_ok,
               "fast scene stream": fs_ok, "eval3d golden": e_ok,
-              "eval3d stream": es_ok}
+              "eval3d stream": es_ok, "backward kernels": tk_ok,
+              "train golden": tg_ok, "probes": p_ok}
     if not all(phases.values()):
         log(f"FAILED: {json.dumps(phases)}")
         return 1

@@ -5,9 +5,9 @@ Two deviations from the JAX package's `ModelConfig`:
   homography matmul warp is a TPU matrix-unit artifact and is not ported.
 - `conv3d_impl` is gone: cuDNN runs the 3D convolutions.
 
-`EvalConfig` holds the fields whole-scene inference and 3D evaluation
-read, the fast-path switches and the fusion constants as plain data;
-`DataConfig` the dataset roots.
+`TrainConfig` holds the training schedule; `EvalConfig` the fields
+whole-scene inference and 3D evaluation read, the fast-path switches and
+the fusion constants as plain data; `DataConfig` the dataset roots.
 """
 from __future__ import annotations
 
@@ -143,9 +143,46 @@ class EvalConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """The training schedule (the JAX package's `TrainConfig`): Adam with a
+    StepLR schedule, the lambda ramp on the refinement losses and the
+    n_iters switch, or the finetune regime. `bf16_compute`, `remat` and
+    `grad_accum_steps` keep the JAX package's defaults; another value
+    raises until the port has them."""
+
+    lr: float = 1e-3
+    lr_step: int = 100               # epochs between decays (StepLR)
+    lr_gamma: float = 0.1
+    finetune: bool = False
+    finetune_lr: float = 1e-4
+    finetune_lr_step: int = 50
+    finetune_lr_gamma: float = 0.5
+    offsets: Tuple[float, float, float] = (0.05, 0.05, 0.025)
+    n_iters_early: int = 1           # refinement iters before the switch
+    n_iters_late: int = 2
+    iters_switch_epoch: int = 20
+    lambda_ramp_epochs: int = 10     # lam = min(epoch, 10) * 0.1 unless finetune
+    seed: int = 0
+    log_every: int = 50
+    ckpt_every_epochs: int = 1
+    use_tensorboard: bool = True
+    bf16_compute: bool = False
+    remat: bool = False
+    grad_accum_steps: int = 1
+
+    def __post_init__(self):
+        for name, default in (("bf16_compute", False), ("remat", False),
+                              ("grad_accum_steps", 1)):
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"TrainConfig.{name}={getattr(self, name)!r}: the port "
+                    f"trains in fp32, without rematerialisation or gradient "
+                    f"accumulation, so far")
+
+
+@dataclass(frozen=True)
 class DataConfig:
-    """Dataset roots (the JAX package's `DataConfig`; its loader settings
-    arrive with training)."""
+    """Dataset roots (the JAX package's `DataConfig`)."""
 
     scannet_dir: str = "/data/scannet"
     icl_nuim_dir: str = "/data/icl-nuim"
@@ -156,6 +193,7 @@ class DataConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     batch: BatchConfig = field(default_factory=BatchConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     data: DataConfig = field(default_factory=DataConfig)
 

@@ -24,19 +24,17 @@
 // written. Bounds are tested on the float coordinates before the
 // float-to-int conversion: a point near or behind a camera projects to a
 // huge coordinate, and (int) of such a float is undefined. A non-finite
-// coordinate gives NaN, as in the JAX package and the twin.
+// coordinate gives NaN, as in the JAX package and the twin. In training the
+// kernel also writes the per-point mean over the sources, which the
+// backward (source_variance_backward.cu) reads instead of reducing over the
+// sources again.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "source_variance.cuh"
 
-__device__ __forceinline__ void fma4(float4& acc, const float4 v, float w) {
-  acc.x = fmaf(v.x, w, acc.x);
-  acc.y = fmaf(v.y, w, acc.y);
-  acc.z = fmaf(v.z, w, acc.z);
-  acc.w = fmaf(v.w, w, acc.w);
-}
+namespace {
 
 __global__ void source_variance_kernel(
     const float* __restrict__ feats,      // [N, Hf, Wf, C]
@@ -45,6 +43,7 @@ __global__ void source_variance_kernel(
     const float* __restrict__ src_w,      // [R, S]: 1 real source, 0 padding
     const float* __restrict__ proj,       // [N, 3, 4]
     float* __restrict__ out,              // [R, P, C]
+    float* __restrict__ mean_out,         // [R, P, C] or null
     int R, long long P, int S, int Hf, int Wf, int C, float sx, float sy) {
   const int cq = C >> 2;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -55,8 +54,6 @@ __global__ void source_variance_kernel(
   const float px = pts[rp * 3 + 0];
   const float py = pts[rp * 3 + 1];
   const float pz = pts[rp * 3 + 2];
-  const float wmax = (float)(Wf - 1);
-  const float hmax = (float)(Hf - 1);
 
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 acc2 = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -65,13 +62,8 @@ __global__ void source_variance_kernel(
     const float m = src_w[r * S + s];
     cnt += m;
     const long long n = src_idx[r * S + s];
-    const float* M = proj + n * 12;
-    const float X = M[0] * px + M[1] * py + M[2] * pz + M[3];
-    const float Y = M[4] * px + M[5] * py + M[6] * pz + M[7];
-    const float Z = M[8] * px + M[9] * py + M[10] * pz + M[11];
-    const float den = fabsf(Z) + 1e-8f;
-    const float x = (X / den) * sx;
-    const float y = (Y / den) * sy;
+    float x, y;
+    sv::project(proj + n * 12, px, py, pz, sx, sy, x, y);
     // a non-finite coordinate (a point at infinity, or a NaN input) makes
     // every bilinear weight NaN in the reference, and its f * mask poisons
     // the sums even for a padding source: the result is NaN, as there
@@ -80,57 +72,44 @@ __global__ void source_variance_kernel(
       continue;
     }
     if (m == 0.f) continue;
-    const float x0f = floorf(x);
-    const float y0f = floorf(y);
+    sv::Footprint fp;
     // the whole 2x2 footprint is outside the map: the sample is zero and
     // adds nothing to either sum
-    if (!(x0f >= -1.f && x0f <= wmax && y0f >= -1.f && y0f <= hmax)) continue;
-    const int x0 = (int)x0f;
-    const int y0 = (int)y0f;
-    const float wx = x - x0f;
-    const float wy = y - y0f;
+    if (!sv::footprint(x, y, Hf, Wf, fp)) continue;
     const float4* fm =
         reinterpret_cast<const float4*>(feats + (size_t)n * Hf * Wf * C) + q;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    const bool xin0 = x0 >= 0, xin1 = x0 + 1 <= Wf - 1;
-    const bool yin0 = y0 >= 0, yin1 = y0 + 1 <= Hf - 1;
-    if (yin0 && xin0)
-      fma4(f, __ldg(fm + ((size_t)y0 * Wf + x0) * cq), (1.f - wx) * (1.f - wy));
-    if (yin0 && xin1)
-      fma4(f, __ldg(fm + ((size_t)y0 * Wf + x0 + 1) * cq), wx * (1.f - wy));
-    if (yin1 && xin0)
-      fma4(f, __ldg(fm + ((size_t)(y0 + 1) * Wf + x0) * cq), (1.f - wx) * wy);
-    if (yin1 && xin1)
-      fma4(f, __ldg(fm + ((size_t)(y0 + 1) * Wf + x0 + 1) * cq), wx * wy);
-    fma4(acc, f, m);
+    const float4 f = sv::sample4(fm, fp, Wf, cq);
+    sv::fma4(acc, f, m);
     acc2.x = fmaf(f.x * f.x, m, acc2.x);
     acc2.y = fmaf(f.y * f.y, m, acc2.y);
     acc2.z = fmaf(f.z * f.z, m, acc2.z);
     acc2.w = fmaf(f.w * f.w, m, acc2.w);
   }
   const float c = fmaxf(cnt, 1.f);
-  float4 v;
-  float mu;
-  mu = acc.x / c; v.x = acc2.x / c - mu * mu;
-  mu = acc.y / c; v.y = acc2.y / c - mu * mu;
-  mu = acc.z / c; v.z = acc2.z / c - mu * mu;
-  mu = acc.w / c; v.w = acc2.w / c - mu * mu;
+  float4 v, mu;
+  mu.x = acc.x / c; v.x = acc2.x / c - mu.x * mu.x;
+  mu.y = acc.y / c; v.y = acc2.y / c - mu.y * mu.y;
+  mu.z = acc.z / c; v.z = acc2.z / c - mu.z * mu.z;
+  mu.w = acc.w / c; v.w = acc2.w / c - mu.w * mu.w;
   reinterpret_cast<float4*>(out)[rp * cq + q] = v;
+  if (mean_out) reinterpret_cast<float4*>(mean_out)[rp * cq + q] = mu;
 }
 
 }  // namespace
 
 extern "C" int tdv_source_variance(const float* feats, const float* pts,
                                    const int64_t* src_idx, const float* src_w,
-                                   const float* proj, float* out, int R,
-                                   long long P, int S, int Hf, int Wf, int C,
-                                   float sx, float sy, void* stream) {
+                                   const float* proj, float* out,
+                                   float* mean_out, int R, long long P, int S,
+                                   int Hf, int Wf, int C, float sx, float sy,
+                                   void* stream) {
   const long long total = (long long)R * P * (C / 4);
   if (total == 0) return 0;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   source_variance_kernel<<<(unsigned)blocks, threads, 0,
                            (cudaStream_t)stream>>>(
-      feats, pts, src_idx, src_w, proj, out, R, P, S, Hf, Wf, C, sx, sy);
+      feats, pts, src_idx, src_w, proj, out, mean_out, R, P, S, Hf, Wf, C, sx,
+      sy);
   return (int)cudaGetLastError();
 }

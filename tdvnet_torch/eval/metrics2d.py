@@ -1,5 +1,6 @@
-"""2D depth metrics (port of `tdvnet/eval/metrics2d.py`): per-image masked
-means over GT in [0.5, 65) m, then a weighted mean over images."""
+"""2D depth metrics and the training loss (port of
+`tdvnet/eval/metrics2d.py`): per-image masked means over GT in [0.5, 65) m,
+then a weighted mean over images; `mae_loss` over GT != 0."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -55,3 +56,19 @@ def calc_2d_depth_metrics(depth_pred: torch.Tensor, depth_gt: torch.Tensor,
         out[name] = img_mean(((rel_max < thr) * valid).sum(dim=(1, 2))
                              / denom)
     return out
+
+
+def mae_loss(depth_pred: torch.Tensor, depth_gt: torch.Tensor,
+             depth_interval: float,
+             img_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked mean absolute error in units of depth intervals (the JAX
+    package's `mae_loss`); GT == 0 pixels are invalid. Per image over its
+    valid pixels, then the mean over images, or their `img_weight`-weighted
+    mean."""
+    mask = (depth_gt != 0.0).to(torch.float32)
+    denom = mask.sum(dim=(1, 2)) + 1e-7
+    per_img = (mask * (depth_pred - depth_gt).abs()).sum(dim=(1, 2))
+    per_img = per_img / depth_interval / denom
+    if img_weight is None:
+        return per_img.mean()
+    return (per_img * img_weight).sum() / img_weight.sum().clamp(min=1e-7)

@@ -3,15 +3,23 @@
 Each wrapper checks its arguments, launches its kernel on the current
 stream for CUDA tensors (building the library at first use, see `build`),
 runs its plain twin `*_ref` for CPU tensors, and counts its launches in
-`<wrapper>.launches`.
+`<wrapper>.launches`. Three forwards have a hand backward, a wrapper of its
+own here (`*_backward`), reached through a `torch.autograd.Function` when
+autograd records the call; on CUDA tensors every other wrapper raises
+`NotImplementedError` when an input requires grad, since its launch returns
+a tensor without a `grad_fn`.
 """
 from tdvnet_torch.kernels.fusion import consistency_fuse
 from tdvnet_torch.kernels.groupnorm import masked_group_norm
 from tdvnet_torch.kernels.patchfan import patch_fan_variance
-from tdvnet_torch.kernels.propagation import propagation_blend
+from tdvnet_torch.kernels.probes import batched_dot, take_along_axis
+from tdvnet_torch.kernels.propagation import (propagation_blend,
+                                              propagation_blend_backward)
 from tdvnet_torch.kernels.segmax import gather_concat, segment_max
-from tdvnet_torch.kernels.softargmax import softargmax_depth
-from tdvnet_torch.kernels.variance import source_variance
+from tdvnet_torch.kernels.softargmax import (softargmax_depth,
+                                             softargmax_depth_backward)
+from tdvnet_torch.kernels.variance import (source_variance,
+                                           source_variance_backward)
 from tdvnet_torch.kernels.trilinear import (trilinear_sample,
                                             trilinear_sample_i8)
 from tdvnet_torch.kernels.tsdf import tsdf_integrate
@@ -33,6 +41,11 @@ WRAPPERS = {
     "masked_group_norm": masked_group_norm,
     "tsdf_integrate": tsdf_integrate,
     "consistency_fuse": consistency_fuse,
+    "source_variance_backward": source_variance_backward,
+    "softargmax_depth_backward": softargmax_depth_backward,
+    "propagation_blend_backward": propagation_blend_backward,
+    "batched_dot": batched_dot,
+    "take_along_axis": take_along_axis,
 }
 
 

@@ -1,4 +1,5 @@
-"""Argument checks and the launch call shared by the kernel wrappers."""
+"""Argument checks, the launch call and the twins' working type, shared by
+the kernel wrappers."""
 from __future__ import annotations
 
 import torch
@@ -15,6 +16,30 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"tensors must all be on the CPU or on one CUDA device, "
                      f"got {[str(t.device) for t in tensors]}")
+
+
+def wants_grad(*tensors) -> bool:
+    """True when autograd records this call: grad mode is on and a tensor
+    (None skipped) requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def no_backward(kernel: str, *tensors) -> None:
+    """Raise for a kernel without a backward when autograd would record the
+    call. The C launch returns a tensor without a `grad_fn`, so training
+    through it would drop the gradient without a word."""
+    if wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{kernel}: backward not ported yet (an input requires grad); "
+            f"run under torch.no_grad() or torch.inference_mode(), or on "
+            f"CPU tensors, where the plain twin is differentiable")
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """A twin's working type: the JAX package widens a bf16 compute dtype to
+    fp32; a float64 input (a float64 reference run) stays float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,

@@ -2,7 +2,8 @@
 
 Every `csrc/*.cu` file is compiled by its own `nvcc` process (all started
 together) for `sm_90a`, and the objects are linked into one shared library
-with a plain C interface, loaded through ctypes. The library goes under
+with a plain C interface, loaded through ctypes. The `*.cuh` headers they
+include count in the hash of the sources. The library goes under
 `build/tdvnet_torch/<hash of the sources>/` beside the package, at first
 use; a second process that finds it there loads it as it is. Nothing is
 built when the package is imported.
@@ -33,8 +34,9 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
-    "tdv_source_variance": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
-                            _F, _F, _P],
+    "tdv_source_variance": [_P] * 7 + [_I, _L, _I, _I, _I, _I, _F, _F, _P],
+    "tdv_source_variance_backward": [_P] * 8 + [_I, _L, _I, _I, _I, _I, _F,
+                                                _F, _P],
     "tdv_trilinear_sample": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _F, _I,
                              _I, _P],
     "tdv_trilinear_sample_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
@@ -43,6 +45,10 @@ SIGNATURES = {
                                _I, _I, _F, _F, _P],
     "tdv_propagation_blend": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
     "tdv_softargmax_depth": [_P, _P, _P, _I, _I, _L, _P],
+    "tdv_softargmax_depth_backward": [_P] * 5 + [_I, _I, _L, _P],
+    "tdv_propagation_blend_backward": [_P] * 7 + [_I] * 3 + [_L] * 8 + [_P],
+    "tdv_batched_dot": [_P] * 3 + [_L, _I, _I, _I, _P],
+    "tdv_take_along_axis": [_P] * 3 + [_I] * 5 + [_P],
     "tdv_scene_origins": [_P, _P, _P, _P, _P, _L, _I, _P],
     "tdv_voxelize": [_P] * 14 + [_L, _I, _I, _I, _I, _F, _I, _P],
     "tdv_scatter_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -71,7 +77,8 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(ARCH.encode())
-    for src in sources():
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for src in sources() + headers:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())

@@ -11,7 +11,8 @@ from typing import Tuple
 
 import torch
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu
+from tdvnet_torch.kernels._launch import (check, launch, no_backward,
+                                          on_cpu)
 from tdvnet_torch.kernels.patchfan import _fma
 from tdvnet_torch.ops.camera import linspace_f32
 
@@ -115,6 +116,7 @@ def consistency_fuse(ref_depth: torch.Tensor, all_depth: torch.Tensor,
     if on_cpu(ref_depth, all_depth, cams, self_idx):
         return consistency_fuse_ref(ref_depth, all_depth, cams, self_idx,
                                     z_thresh, n_consistent)
+    no_backward("consistency_fuse", ref_depth, all_depth, cams)
     C, H, W = ref_depth.shape
     N = all_depth.shape[0]
     check(ref_depth, "ref_depth", torch.float32, (C, H, W))

@@ -11,7 +11,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu
+from tdvnet_torch.kernels._launch import (check, launch, no_backward,
+                                          on_cpu)
 
 CHUNK = 4096              # voxels per block of the statistics pass
 
@@ -57,6 +58,7 @@ def masked_group_norm(x: torch.Tensor, mask: torch.Tensor, num_groups: int,
     if on_cpu(*tensors):
         return masked_group_norm_ref(x, mask, num_groups, weight, bias, eps,
                                      relu, skip)
+    no_backward("masked_group_norm", *tensors)
     B, C = x.shape[:2]
     G = num_groups
     if C % G:

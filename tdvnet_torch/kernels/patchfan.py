@@ -12,7 +12,8 @@ from typing import Tuple
 
 import torch
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu
+from tdvnet_torch.kernels._launch import (check, launch, no_backward,
+                                          on_cpu)
 from tdvnet_torch.kernels.variance import _feature_scale
 from tdvnet_torch.ops.sampling import patch_sample_hypotheses_batched
 
@@ -80,6 +81,7 @@ def patch_fan_variance(pts_hyp: torch.Tensor, feats: torch.Tensor,
     if on_cpu(pts_hyp, feats, src_idx, src_mask, P_all):
         return patch_fan_variance_ref(pts_hyp, feats, src_idx, src_mask,
                                       P_all, img_size)
+    no_backward("patch_fan_variance", pts_hyp, feats, P_all)
     R, Hh, P, _ = pts_hyp.shape
     N, Hf, Wf, C = feats.shape
     S = src_idx.shape[1]

@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu
+from tdvnet_torch.kernels._launch import (check, launch, no_backward,
+                                          on_cpu)
 
 NEG = -1e30
 
@@ -45,6 +46,7 @@ def segment_max(y: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
                 n_seg: int) -> torch.Tensor:
     if on_cpu(y, seg, valid):
         return segment_max_ref(y, seg, valid, n_seg)
+    no_backward("segment_max", y)
     P, C = y.shape
     _check_rows(y, seg, P, C, "segment_max")
     check(valid, "valid", torch.bool, (P,))
@@ -62,6 +64,7 @@ def gather_concat(y: torch.Tensor, pooled: torch.Tensor, seg: torch.Tensor,
                   relu: bool = False) -> torch.Tensor:
     if on_cpu(y, pooled, seg):
         return gather_concat_ref(y, pooled, seg, relu)
+    no_backward("gather_concat", y, pooled)
     P, C = y.shape
     _check_rows(y, seg, P, C, "gather_concat")
     n_seg = pooled.shape[0]

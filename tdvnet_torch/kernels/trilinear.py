@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu
+from tdvnet_torch.kernels._launch import (check, launch, no_backward,
+                                          on_cpu)
 from tdvnet_torch.ops.sampling import trilinear_sample_batched
 
 
@@ -64,6 +65,7 @@ def trilinear_sample(grid: torch.Tensor, pts: torch.Tensor,
         out[..., ch_off:ch_off + C] = trilinear_sample_ref(grid, pts, center0,
                                                            cell)
         return out
+    no_backward("trilinear_sample", grid, pts, center0)
     B, X, Y, Z, C = grid.shape
     Q = pts.shape[1]
     Ctot = out.shape[-1]
@@ -94,6 +96,7 @@ def trilinear_sample_i8(grid: torch.Tensor, scale: torch.Tensor,
         out[..., ch_off:ch_off + C] = trilinear_sample_i8_ref(
             grid, scale, pts, center0, cell, cell_offset)
         return out
+    no_backward("trilinear_sample_i8", scale, pts, center0)
     B, X, Y, Z, C = grid.shape
     Q = pts.shape[1]
     Ctot = out.shape[-1]

@@ -11,7 +11,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu
+from tdvnet_torch.kernels._launch import (check, launch, no_backward,
+                                          on_cpu)
 from tdvnet_torch.kernels.patchfan import _fma
 
 Accumulators = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -100,6 +101,8 @@ def tsdf_integrate(depths: torch.Tensor, colors: torch.Tensor,
         return tsdf_integrate_ref(depths, colors, projections,
                                   origin.cpu(), dims, voxel_size,
                                   trunc_ratio, init)
+    no_backward("tsdf_integrate", depths, colors, projections, origin,
+                *carried)
     N, H, W = depths.shape
     nx, ny, nz = (int(d) for d in dims)
     V = nx * ny * nz

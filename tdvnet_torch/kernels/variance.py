@@ -1,8 +1,13 @@
-"""Masked per-point feature variance over each ref view's sources (K1+K2).
+"""Masked per-point feature variance over each ref view's sources (K1+K2),
+and its gradient with respect to the feature maps.
 
-Kernel: `csrc/source_variance.cu` (see its header for the TPU op it
-replaces, its bound and its design). `source_variance_ref` is the plain
-PyTorch twin; the wrapper runs it only for CPU tensors.
+Kernels: `csrc/source_variance.cu` and `csrc/source_variance_backward.cu`
+(see their headers for the TPU op each replaces, its bound and its design).
+`source_variance_ref` and `source_variance_backward_ref` are the plain
+PyTorch twins; the wrappers run them only for CPU tensors. When autograd
+records a call (grad mode on and `feats` requiring grad), `source_variance`
+goes through `SourceVarianceFn`, whose backward is
+`source_variance_backward`.
 """
 from __future__ import annotations
 
@@ -10,9 +15,9 @@ from typing import Tuple
 
 import torch
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu
+from tdvnet_torch.kernels._launch import check, launch, on_cpu, wants_grad
 from tdvnet_torch.ops import camera
-from tdvnet_torch.ops.sampling import bilinear_sample_batched
+from tdvnet_torch.ops.sampling import _floor_in, bilinear_sample_batched
 
 
 def _feature_scale(feats: torch.Tensor, img_size: Tuple[int, int]):
@@ -22,13 +27,20 @@ def _feature_scale(feats: torch.Tensor, img_size: Tuple[int, int]):
     return (Wf - 1.0) / (W - 1.0), (Hf - 1.0) / (H - 1.0)
 
 
+def _source_xy(pts_world, P_all, idx, scale):
+    xy, _ = camera.project_points(pts_world, P_all[idx])
+    return xy * scale
+
+
 def source_variance_ref(pts_world: torch.Tensor, feats: torch.Tensor,
                         src_idx: torch.Tensor, src_mask: torch.Tensor,
-                        P_all: torch.Tensor,
-                        img_size: Tuple[int, int]) -> torch.Tensor:
+                        P_all: torch.Tensor, img_size: Tuple[int, int],
+                        with_mean: bool = False):
     """pts_world [R, P, 3]; feats [N, Hf, Wf, C]; src_idx/src_mask [R, S];
     P_all [N, 3, 4] (full-image pixel units). Returns var [R, P, C] fp32:
-    E[f^2] - E[f]^2 over the real sources, with cnt = max(sum(mask), 1)."""
+    E[f^2] - E[f]^2 over the real sources, with cnt = max(sum(mask), 1);
+    with `with_mean`, (var, mean) as the JAX package's `_source_variance`
+    returns them."""
     R, P, _ = pts_world.shape
     S = src_idx.shape[1]
     C = feats.shape[-1]
@@ -40,13 +52,112 @@ def source_variance_ref(pts_world: torch.Tensor, feats: torch.Tensor,
     acc_sq = torch.zeros_like(acc)
     for s in range(S):
         idx = src_idx[:, s]
-        xy, _ = camera.project_points(pts_world, P_all[idx])
-        f = bilinear_sample_batched(feats[idx], xy * scale)
+        f = bilinear_sample_batched(feats[idx],
+                                    _source_xy(pts_world, P_all, idx, scale))
         m = mask[:, s, None, None]
         acc = acc + f * m
         acc_sq = acc_sq + f * f * m
     mean = acc / cnt
-    return acc_sq / cnt - mean * mean
+    var = acc_sq / cnt - mean * mean
+    return (var, mean) if with_mean else var
+
+
+def source_variance_backward_ref(grad: torch.Tensor, mean: torch.Tensor,
+                                 pts_world: torch.Tensor, feats: torch.Tensor,
+                                 src_idx: torch.Tensor, src_mask: torch.Tensor,
+                                 P_all: torch.Tensor,
+                                 img_size: Tuple[int, int]) -> torch.Tensor:
+    """d loss / d feats [N, Hf, Wf, C] from grad = d loss / d var and the
+    forward's mean (both [R, P, C]): each source sample f_s takes
+    g * 2 m_s (f_s - mean) / cnt, spread over its four bilinear taps with
+    the forward's weights (taps off the map take nothing). A point whose
+    projection is not finite (NaN variance in the forward) gives nothing."""
+    R, P, _ = pts_world.shape
+    N, Hf, Wf, C = feats.shape
+    S = src_idx.shape[1]
+    sx, sy = _feature_scale(feats, img_size)
+    scale = torch.tensor([sx, sy], dtype=torch.float32, device=feats.device)
+    mask = src_mask.to(torch.float32)
+    cnt = mask.sum(dim=1).clamp(min=1.0)
+    out = torch.zeros((N * Hf * Wf, C), dtype=torch.float32,
+                      device=feats.device)
+    for s in range(S):
+        idx = src_idx[:, s]
+        xy = _source_xy(pts_world, P_all, idx, scale)
+        f = bilinear_sample_batched(feats[idx], xy)
+        d = grad * (2.0 * mask[:, s] / cnt)[:, None, None] * (f - mean)
+        x, y = xy[..., 0], xy[..., 1]
+        x0f, okx, x0 = _floor_in(x, Wf - 1)
+        y0f, oky, y0 = _floor_in(y, Hf - 1)
+        wx, wy = x - x0f, y - y0f
+        ok = okx & oky & torch.isfinite(x) & torch.isfinite(y) \
+            & (mask[:, s] != 0)[:, None]
+        base = idx[:, None] * (Hf * Wf)
+        for xi, yi, wgt in ((x0, y0, (1 - wx) * (1 - wy)),
+                            (x0 + 1, y0, wx * (1 - wy)),
+                            (x0, y0 + 1, (1 - wx) * wy),
+                            (x0 + 1, y0 + 1, wx * wy)):
+            inb = ok & (xi >= 0) & (xi <= Wf - 1) & (yi >= 0) & (yi <= Hf - 1)
+            rows = base + yi.clamp(0, Hf - 1) * Wf + xi.clamp(0, Wf - 1)
+            val = torch.where(inb[..., None], d * wgt[..., None],
+                              torch.zeros_like(d))
+            out.index_add_(0, rows.reshape(-1), val.reshape(-1, C))
+    return out.reshape(N, Hf, Wf, C)
+
+
+def _check_args(pts_world, feats, src_idx, src_mask, P_all, name):
+    R, P, _ = pts_world.shape
+    N, Hf, Wf, C = feats.shape
+    S = src_idx.shape[1]
+    if C % 4:
+        raise ValueError(f"{name}: C={C} must be a multiple of 4")
+    check(pts_world, "pts_world", torch.float32, (R, P, 3))
+    check(feats, "feats", torch.float32, (N, Hf, Wf, C))
+    check(src_idx, "src_idx", torch.int64, (R, S))
+    check(P_all, "P_all", torch.float32, (N, 3, 4))
+    check(src_mask, "src_mask", src_mask.dtype, (R, S), contiguous=False)
+    return R, P, S, N, Hf, Wf, C
+
+
+def _source_variance(pts_world, feats, src_idx, src_mask, P_all, img_size,
+                     with_mean):
+    if on_cpu(pts_world, feats, src_idx, src_mask, P_all):
+        return source_variance_ref(pts_world, feats, src_idx, src_mask,
+                                   P_all, img_size, with_mean)
+    R, P, S, N, Hf, Wf, C = _check_args(pts_world, feats, src_idx, src_mask,
+                                        P_all, "source_variance")
+    src_w = src_mask.to(torch.float32).contiguous()
+    sx, sy = _feature_scale(feats, img_size)
+    out = torch.empty((R, P, C), dtype=torch.float32, device=feats.device)
+    mean = torch.empty_like(out) if with_mean else None
+    launch("tdv_source_variance", feats.device, feats.data_ptr(),
+           pts_world.data_ptr(), src_idx.data_ptr(), src_w.data_ptr(),
+           P_all.data_ptr(), out.data_ptr(),
+           mean.data_ptr() if with_mean else None, R, P, S, Hf, Wf, C, sx, sy)
+    source_variance.launches += 1
+    return (out, mean) if with_mean else out
+
+
+class SourceVarianceFn(torch.autograd.Function):
+    """`source_variance` with its hand backward: the forward keeps the
+    per-point mean for `source_variance_backward`."""
+
+    @staticmethod
+    def forward(ctx, pts_world, feats, src_idx, src_mask, P_all, img_size):
+        var, mean = _source_variance(pts_world, feats, src_idx, src_mask,
+                                     P_all, img_size, True)
+        ctx.save_for_backward(pts_world, feats, src_idx, src_mask, P_all,
+                              mean)
+        ctx.img_size = img_size
+        return var
+
+    @staticmethod
+    def backward(ctx, grad):
+        pts_world, feats, src_idx, src_mask, P_all, mean = ctx.saved_tensors
+        g = source_variance_backward(grad.contiguous(), mean, pts_world,
+                                     feats, src_idx, src_mask, P_all,
+                                     ctx.img_size)
+        return None, g, None, None, None, None
 
 
 def source_variance(pts_world: torch.Tensor, feats: torch.Tensor,
@@ -54,28 +165,47 @@ def source_variance(pts_world: torch.Tensor, feats: torch.Tensor,
                     P_all: torch.Tensor,
                     img_size: Tuple[int, int]) -> torch.Tensor:
     """Same contract as `source_variance_ref`; launches the CUDA kernel for
-    CUDA tensors."""
-    if on_cpu(pts_world, feats, src_idx, src_mask, P_all):
-        return source_variance_ref(pts_world, feats, src_idx, src_mask,
-                                   P_all, img_size)
-    R, P, _ = pts_world.shape
-    N, Hf, Wf, C = feats.shape
-    S = src_idx.shape[1]
-    if C % 4:
-        raise ValueError(f"source_variance: C={C} must be a multiple of 4")
-    check(pts_world, "pts_world", torch.float32, (R, P, 3))
-    check(feats, "feats", torch.float32, (N, Hf, Wf, C))
-    check(src_idx, "src_idx", torch.int64, (R, S))
-    check(P_all, "P_all", torch.float32, (N, 3, 4))
-    check(src_mask, "src_mask", src_mask.dtype, (R, S), contiguous=False)
-    src_w = src_mask.to(torch.float32).contiguous()
-    sx, sy = _feature_scale(feats, img_size)
-    out = torch.empty((R, P, C), dtype=torch.float32, device=feats.device)
-    launch("tdv_source_variance", feats.device, feats.data_ptr(),
-           pts_world.data_ptr(), src_idx.data_ptr(), src_w.data_ptr(),
-           P_all.data_ptr(), out.data_ptr(), R, P, S, Hf, Wf, C, sx, sy)
-    source_variance.launches += 1
-    return out
+    CUDA tensors. Differentiable in `feats` only: the JAX package stops the
+    gradient of every point set it samples at, so a call where the points
+    or projections require grad raises rather than drop their gradient."""
+    if wants_grad(pts_world, P_all):
+        raise NotImplementedError(
+            "source_variance: no gradient with respect to the points or the "
+            "projections (the JAX package stops it); detach them")
+    if wants_grad(feats):
+        return SourceVarianceFn.apply(pts_world, feats, src_idx, src_mask,
+                                      P_all, img_size)
+    return _source_variance(pts_world, feats, src_idx, src_mask, P_all,
+                            img_size, False)
 
 
 source_variance.launches = 0
+
+
+def source_variance_backward(grad: torch.Tensor, mean: torch.Tensor,
+                             pts_world: torch.Tensor, feats: torch.Tensor,
+                             src_idx: torch.Tensor, src_mask: torch.Tensor,
+                             P_all: torch.Tensor,
+                             img_size: Tuple[int, int]) -> torch.Tensor:
+    """Same contract as `source_variance_backward_ref`; launches the CUDA
+    kernel for CUDA tensors."""
+    if on_cpu(grad, mean, pts_world, feats, src_idx, src_mask, P_all):
+        return source_variance_backward_ref(grad, mean, pts_world, feats,
+                                            src_idx, src_mask, P_all,
+                                            img_size)
+    R, P, S, N, Hf, Wf, C = _check_args(pts_world, feats, src_idx, src_mask,
+                                        P_all, "source_variance_backward")
+    check(grad, "grad", torch.float32, (R, P, C))
+    check(mean, "mean", torch.float32, (R, P, C))
+    src_w = src_mask.to(torch.float32).contiguous()
+    sx, sy = _feature_scale(feats, img_size)
+    out = torch.zeros_like(feats)
+    launch("tdv_source_variance_backward", feats.device, grad.data_ptr(),
+           mean.data_ptr(), feats.data_ptr(), pts_world.data_ptr(),
+           src_idx.data_ptr(), src_w.data_ptr(), P_all.data_ptr(),
+           out.data_ptr(), R, P, S, Hf, Wf, C, sx, sy)
+    source_variance_backward.launches += 1
+    return out
+
+
+source_variance_backward.launches = 0

@@ -26,7 +26,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu
+from tdvnet_torch.kernels._launch import (check, launch, no_backward,
+                                          on_cpu)
 
 SCAN_TILE = 1024          # cells per block of the kernel's prefix sum
 
@@ -160,6 +161,7 @@ def voxelize(pts: torch.Tensor, pt_scene: torch.Tensor,
     if on_cpu(pts, pt_scene, pt_valid):
         return voxelize_ref(pts, pt_scene, pt_valid, edge_len, grid_size,
                             max_anchors, n_scenes, origins)
+    no_backward("voxelize", pts, origins)
     P = pts.shape[0]
     gx, gy, gz = grid_size
     n_all = n_scenes * gx * gy * gz
@@ -216,6 +218,7 @@ def scatter_anchors_to_dense(anchor_feats: torch.Tensor, vg: VoxelGrid,
     if on_cpu(anchor_feats, vg.anchor_idx3, vg.anchor_scene, vg.anchor_valid):
         return scatter_anchors_to_dense_ref(anchor_feats, vg, grid_size,
                                             n_scenes)
+    no_backward("scatter_anchors_to_dense", anchor_feats)
     gx, gy, gz = grid_size
     A, C = anchor_feats.shape
     if C % 4:

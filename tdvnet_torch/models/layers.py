@@ -1,5 +1,5 @@
-"""Shared conv blocks (NCHW / NCDHW inside) and masked GroupNorm (port of
-`tdvnet/models/layers.py`).
+"""Shared conv blocks (NCHW / NCDHW inside), BatchNorm with flax's
+training rules and masked GroupNorm (port of `tdvnet/models/layers.py`).
 
 Submodule names mirror the flax parameter tree (`Conv_0`, `BatchNorm_0`,
 ...), so each checkpoint key maps one to one onto a state-dict key.
@@ -15,11 +15,46 @@ import torch.nn.functional as F
 from tdvnet_torch.kernels.groupnorm import masked_group_norm
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
-_BN = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
+
+
+class _FlaxBatchNorm:
+    """BatchNorm with flax's train-mode rules. The output normalises with
+    the batch mean and the biased batch variance, as torch's does, but the
+    running variance averages the biased variance too (torch averages the
+    unbiased one). The running statistics move by `momentum` (torch's
+    0.1 is flax's 0.9, the weight of the old statistic). In eval mode it is
+    torch's BatchNorm."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            dims = [0, *range(2, x.dim())]
+            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return y
+
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    pass
+
+
+_BN = {1: BatchNorm1d, 2: BatchNorm2d, 3: BatchNorm3d}
 
 
 def batch_norm(nd: int, features: int) -> nn.Module:
-    # flax BatchNorm momentum 0.9 (weight of the old statistic) is torch's 0.1
     return _BN[nd](features, eps=1e-5, momentum=0.1)
 
 

@@ -1,16 +1,23 @@
 """ThreeDVNet: initial MVS depth, scene-level volumetric modelling, iterative
 PointFlow refinement and multi-scale guided upsampling (port of
-`tdvnet/models/threedvnet.py`, inference only).
+`tdvnet/models/threedvnet.py`).
 
   initial depth   `initial_depth`           cost volume, CostRegNet, soft-argmax
   point cloud     `build_scene_pointcloud`  back-projection + source variance
   scene volume    `model_scene`             voxelize, PointNet, scene U-Net
   refinement      `run_pointflow`           hypotheses, scene sampling, decoder
   upsampling      `upsample`                3 PropagationNets
+
+`forward` is the training loss (the JAX package's `__call__`): deep
+supervision with the masked MAE at every stage and a lambda weight on the
+refinement passes. Inference is `infer_stages` / `infer_depth`. Where the
+JAX package stops the gradient of a point set (the scene cloud's variance
+and voxelization, the hypothesis points), the port detaches it.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -18,6 +25,7 @@ import torch.nn as nn
 from tdvnet_torch.config import (DepthConfig, GridConfig, ModelConfig,
                                  set_fp32_numerics)
 from tdvnet_torch.data.batch import FrameBatch
+from tdvnet_torch.eval.metrics2d import calc_2d_depth_metrics, mae_loss
 from tdvnet_torch.models.hypothesis import HypothesisDecoder, sample_scales
 from tdvnet_torch.models.mvsnet import MVSNet
 from tdvnet_torch.models.pointnet import PointNet
@@ -43,6 +51,18 @@ def hypothesis_points(depth_pred: torch.Tensor, K: torch.Tensor,
     ivals = torch.arange(-n, n + 1, dtype=torch.float32, device=dev)
     dh = depth_pred.reshape(R, 1, P) + ivals[None, :, None] * offset
     return center[:, None, None, :] + ray_world[:, None, :, :] * dh[..., None]
+
+
+@contextlib.contextmanager
+def _module_mode(module: nn.Module, training: bool):
+    """Train or eval mode for `module` inside the block, restored after."""
+    before = [(m, m.training) for m in module.modules()]
+    module.train(training)
+    try:
+        yield
+    finally:
+        for m, mode in before:
+            m.training = mode
 
 
 class ThreeDVNet(nn.Module):
@@ -81,8 +101,8 @@ class ThreeDVNet(nn.Module):
                                       batch.rotmats[ri], batch.tvecs[ri],
                                       self.cfg.img_size)
         feats = costvolume.hypothesis_point_variance(
-            pts, feats_quarter, batch.src_idx, batch.src_mask, batch.rotmats,
-            batch.tvecs, batch.K, self.cfg.img_size)
+            pts.detach(), feats_quarter, batch.src_idx, batch.src_mask,
+            batch.rotmats, batch.tvecs, batch.K, self.cfg.img_size)
         return pts, feats
 
     def scene_dense(self, depth_pred, feats_quarter, batch: FrameBatch,
@@ -98,7 +118,7 @@ class ThreeDVNet(nn.Module):
         pts_flat = pts.reshape(-1, 3)
         pt_scene = batch.ref_scene.repeat_interleave(P)
         pt_valid = batch.ref_mask.repeat_interleave(P)
-        vg = vox.voxelize(pts_flat, pt_scene, pt_valid, g.edge_len,
+        vg = vox.voxelize(pts_flat.detach(), pt_scene, pt_valid, g.edge_len,
                           g.grid_size, g.max_anchors, B)
         centers = torch.cat([vg.anchor_center,
                              vg.anchor_center.new_zeros((1, 3))])
@@ -142,7 +162,7 @@ class ThreeDVNet(nn.Module):
         ri = batch.ref_idx
         pts_hyp = hypothesis_points(depth_pred, batch.K[ri], batch.rotmats[ri],
                                     batch.tvecs[ri], self.cfg.img_size,
-                                    offset, n)                   # [R, H, P, 3]
+                                    offset, n).detach()          # [R, H, P, 3]
         ivals = torch.arange(-n, n + 1, dtype=torch.float32,
                              device=depth_pred.device)
 
@@ -190,6 +210,72 @@ class ThreeDVNet(nn.Module):
         depth_pred = self.refine_half(feats_half[ref_idx], depth_pred)
         depth_pred = resize_nearest(depth_pred, images.shape[1:3])
         return self.refine_full(images[ref_idx], depth_pred)
+
+    # ------------------------------------------------------------- full model
+    def forward(self, batch: FrameBatch, offsets: Sequence[float],
+                n_iters: int, lam=1.0,
+                depth_cfg: Optional[DepthConfig] = None,
+                grid_cfg: Optional[GridConfig] = None,
+                with_metrics: bool = True,
+                backbone_train: Optional[bool] = None) -> Dict:
+        """The training loss and its per-stage metrics (the JAX package's
+        `__call__`): {"loss", "loss_2d" (the initial depth's), "initial",
+        "ref" (one entry per refinement pass), "quarter", "half", "final",
+        "depth_pred" [R, H, W], and "scene_stats" when n_iters >= 1}. Train
+        or eval mode is the module's (`model.train()`), and picks the
+        depth hypotheses of `depth_train` or `depth_test`.
+        `backbone_train=False` keeps the backbone's BatchNorm in eval mode
+        for the call, the reference's non-finetune regime; None follows the
+        module's mode. The batch moves to the model's device."""
+        set_fp32_numerics()
+        c = self.cfg
+        train = self.training
+        dc = depth_cfg or (c.depth_train if train else c.depth_test)
+        batch = batch.to(next(self.parameters()).device)
+        w_ref = batch.ref_mask.to(torch.float32)
+        gt = batch.depth_gt
+        bb_train = train if backbone_train is None else backbone_train
+
+        def supervise(pred):
+            gt_s = resize_nearest(gt, pred.shape[-2:])
+            loss = mae_loss(pred, gt_s, dc.depth_interval, w_ref)
+            mets = {}
+            if with_metrics:
+                with torch.no_grad():
+                    mets = calc_2d_depth_metrics(pred.detach(), gt_s, w_ref)
+            mets["loss_2d"] = loss
+            return loss, mets
+
+        with _module_mode(self.mvsnet.backbone, train and bb_train):
+            feats_half, feats_quarter, _ = self.extract_features(batch.images)
+        depth_pred = self.initial_depth(batch, dc, feats_quarter)
+        out: Dict = {"ref": []}
+        loss, out["initial"] = supervise(depth_pred)
+        out["loss_2d"] = loss
+        total = loss
+        for _ in range(n_iters):
+            scales, origins, out["scene_stats"] = self.model_scene(
+                depth_pred, feats_quarter, batch, grid_cfg)
+            for off in offsets:
+                depth_pred = depth_pred + self.run_pointflow(
+                    scales, origins, depth_pred, feats_quarter, batch,
+                    float(off), 3, grid_cfg)
+                l_off, mets = supervise(depth_pred)
+                total = total + lam * l_off
+                out["ref"].append(mets)
+
+        ri = batch.ref_idx
+        stages = (("quarter", self.refine_quarter, feats_quarter),
+                  ("half", self.refine_half, feats_half),
+                  ("final", self.refine_full, batch.images))
+        for key, net, guide in stages:
+            depth_pred = net(guide[ri],
+                             resize_nearest(depth_pred, guide.shape[1:3]))
+            l_s, out[key] = supervise(depth_pred)
+            total = total + l_s
+        out["loss"] = total
+        out["depth_pred"] = depth_pred
+        return out
 
     @torch.inference_mode()
     def infer_stages(self, batch: FrameBatch,

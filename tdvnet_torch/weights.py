@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's flax variables -> the port's state dict.
+"""Weight bridge between the JAX package's flax variables and the port's
+state dict, both ways (`from_flax_variables`, `to_flax_variables`).
 
 The torch modules carry the flax submodule names, so each flax leaf maps to
 one state-dict entry and only its layout rule differs:
@@ -94,6 +95,47 @@ def from_flax_variables(variables: dict) -> Dict[str, torch.Tensor]:
     if unknown:
         raise KeyError(f"unknown flax collections {sorted(unknown)}")
     return sd
+
+
+def _flax_leaf(key: str, t: torch.Tensor):
+    """(collection, flax path, array) of one state-dict entry: the inverse
+    of `_leaf`."""
+    *mods, name = key.split(".")
+    arr = t.detach().cpu().numpy()
+    if name in ("running_mean", "running_var"):
+        return "batch_stats", (*mods, name[len("running_"):]), arr
+    if name == "bias":
+        return "params", (*mods, "bias"), arr
+    if name != "weight":
+        raise KeyError(f"no flax leaf for the tensor {key}")
+    if arr.ndim == 1:                       # a norm's scale
+        return "params", (*mods, "scale"), arr
+    nd = arr.ndim
+    if any(m.startswith(_UP_CONVS) for m in mods):
+        arr = np.transpose(arr, (*range(2, nd), 0, 1))
+        arr = np.flip(arr, axis=tuple(range(nd - 2)))
+    else:
+        arr = np.transpose(arr, (*range(2, nd), 1, 0))
+    return "params", (*mods, "kernel"), arr
+
+
+def to_flax_variables(module) -> dict:
+    """A module's (or a state dict's) tensors as flax variables
+    {"params": ..., "batch_stats": ...} of fp32 numpy arrays: the inverse of
+    `from_flax_variables` (BatchNorm's `num_batches_tracked` has no flax
+    leaf and is left out)."""
+    sd = module.state_dict() if isinstance(module, torch.nn.Module) \
+        else module
+    out = {"params": {}, "batch_stats": {}}
+    for key, t in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        collection, path, arr = _flax_leaf(key, t)
+        node = out[collection]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(arr, np.float32)
+    return {c: tree for c, tree in out.items() if tree}
 
 
 def load_flax_into(module: torch.nn.Module, variables: dict) -> None:

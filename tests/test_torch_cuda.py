@@ -413,3 +413,276 @@ def test_imageio_and_synthetic_dataset_need_no_cv2(tmp_path):
     cv, cf, _ = ply.read_ply(f"{d_cpu}/gt_mesh.ply")
     assert len(gf) > 0 and abs(len(gv) - len(cv)) <= 0.005 * len(cv)
     assert "cv2" not in sys.modules
+
+
+# ------------------------------------------------------------- training
+BACKWARD_KERNELS = ("source_variance_backward", "softargmax_depth_backward",
+                    "propagation_blend_backward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", BACKWARD_KERNELS)
+def test_backward_kernel_matches_twin_at_train_shapes(kernel):
+    """Each backward kernel against its twin at the shapes the full-width
+    n_iters=0 train step gives it (`chip_smoke.train_cases`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+
+    cases = [c for c in chip_smoke.train_cases(torch.device("cuda"))
+             if c.kernel == kernel]
+    assert cases
+    for case in cases:
+        err, ok = chip_smoke.check_case(case)
+        assert ok, f"{kernel} {case.label}: max |d| {err:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(6, 7), (1, 5), (2, 1), (33, 40)])
+def test_backward_kernels_match_twins_at_small_and_edge_shapes(hw):
+    """The three backward kernels at small shapes, maps of one row or one
+    column included (where several taps clamp onto one pixel), with the
+    logits as a permuted view as PropagationNet hands them over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch import kernels as K
+    from tdvnet_torch.kernels.propagation import propagation_blend_ref
+    from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
+
+    H, W = hw
+    g = torch.Generator().manual_seed(H * 100 + W)
+    r = lambda *s: torch.randn(*s, generator=g)
+    logits = r(3, 9, H, W).cuda().permute(0, 2, 3, 1)
+    depth = (1 + 3 * torch.rand(3, H, W, generator=g)).cuda()
+    gout = r(3, H, W).cuda()
+    out = propagation_blend_ref(logits, depth)
+    got = K.propagation_blend_backward(gout, logits, depth, out)
+    want = K.propagation_blend_backward(gout.cpu(), logits.cpu(),
+                                        depth.cpu(), out.cpu())
+    assert got[0].stride() == logits.stride()
+    for a, b in zip(got, want):
+        assert torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    cost = (r(3, 8, H, W) * 3).cuda()
+    dv = torch.linspace(0.5, 1.0, 8).cuda()
+    d = softargmax_depth_ref(cost, dv)
+    got = K.softargmax_depth_backward(gout, cost, dv, d)
+    want = K.softargmax_depth_backward(gout.cpu(), cost.cpu(), dv.cpu(),
+                                       d.cpu())
+    assert torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def _variance_args(device, R=3, P=500, N=5, Hf=16, Wf=20, C=8, seed=0):
+    from tdvnet_torch.ops import camera
+
+    g = torch.Generator().manual_seed(seed)
+    K = torch.tensor([[40.0, 0, 40], [0, 40, 32], [0, 0, 1]]).expand(N, 3, 3)
+    rot = torch.eye(3).expand(N, 3, 3)
+    tv = torch.stack([torch.tensor([0.1 * i, 0.0, 0.0]) for i in range(N)])
+    P_all = camera.projection_matrix(K, rot, tv).contiguous()
+    pts = torch.randn(R, P, 3, generator=g) * 0.8 + torch.tensor([0, 0, 2.0])
+    feats = torch.randn(N, Hf, Wf, C, generator=g)
+    src_idx = torch.tensor([[0, 1, 2], [1, 2, 3], [2, 3, 4]])[:R]
+    src_mask = torch.tensor([[True, True, True], [True, True, False],
+                             [True, False, True]])[:R]
+    grad = torch.randn(R, P, C, generator=g)
+    return [x.to(device) for x in (pts, feats, src_idx, src_mask, P_all,
+                                   grad)]
+
+
+@pytest.mark.cuda
+def test_source_variance_backward_kernel_matches_twin_small():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch import kernels as K
+    from tdvnet_torch.kernels.variance import source_variance_ref
+
+    pts, feats, sidx, smask, P_all, grad = _variance_args("cuda")
+    img = (64, 80)
+    _, mean = source_variance_ref(pts, feats, sidx, smask, P_all, img,
+                                  with_mean=True)
+    got = K.source_variance_backward(grad, mean, pts, feats, sidx, smask,
+                                     P_all, img)
+    want = K.source_variance_backward(*(x.cpu() for x in (
+        grad, mean, pts, feats, sidx, smask, P_all)), img)
+    # atomics sum in a run-dependent order
+    assert torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    # the forward's mean output equals the twin's
+    f = feats.clone().requires_grad_()
+    K.source_variance(pts, f, sidx, smask, P_all, img).backward(grad)
+    assert torch.allclose(f.grad.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_or_differentiate_when_inputs_require_grad():
+    """On the card a wrapper without a hand backward raises for an input
+    that requires grad (its launch returns no grad_fn); the three with one
+    differentiate; under inference_mode every wrapper runs as before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch import kernels as K
+    from tdvnet_torch.kernels.fusion import camera_table
+    from tdvnet_torch.kernels.voxelize import VoxelGrid
+
+    dev = torch.device("cuda")
+    rg = lambda x: x.clone().requires_grad_()
+    pts, feats, sidx, smask, P_all, grad = _variance_args(dev)
+    y = torch.randn(50, 8, device=dev)
+    seg = torch.randint(0, 6, (50,), device=dev)
+    valid = torch.ones(50, dtype=torch.bool, device=dev)
+    pooled = torch.randn(6, 8, device=dev)
+    x = torch.randn(1, 8, 4, 4, 4, device=dev)
+    mask = torch.ones(1, 1, 4, 4, 4, device=dev)
+    w, b = torch.ones(8, device=dev), torch.zeros(8, device=dev)
+    grid = torch.randn(1, 4, 4, 4, 8, device=dev)
+    q = torch.rand(1, 10, 3, device=dev)
+    c0 = torch.zeros(1, 3, device=dev)
+    out = torch.zeros(1, 10, 8, device=dev)
+    depths = torch.rand(2, 6, 7, device=dev) + 1
+    colors = torch.rand(2, 6, 7, 3, device=dev)
+    cams = camera_table(torch.tensor([[5.0, 0, 3], [0, 5, 3], [0, 0, 1]])
+                        .expand(2, 3, 3), torch.eye(3).expand(2, 3, 3),
+                        torch.tensor([[0.0, 0, 0], [0.1, 0, 0]])).to(dev)
+    raising = {
+        "segment_max": lambda: K.segment_max(rg(y), seg, valid, 6),
+        "gather_concat": lambda: K.gather_concat(rg(y), pooled, seg),
+        "masked_group_norm": lambda: K.masked_group_norm(rg(x), mask, 4, w,
+                                                         b),
+        "trilinear_sample": lambda: K.trilinear_sample(rg(grid), q, c0, 0.5,
+                                                       out, 0),
+        "patch_fan_variance": lambda: K.patch_fan_variance(
+            pts[:, None].expand(3, 3, 500, 3).contiguous(), rg(feats), sidx,
+            smask, P_all, (64, 80)),
+        "voxelize": lambda: K.voxelize_points(
+            rg(pts.reshape(-1, 3)), torch.zeros(1500, dtype=torch.long,
+                                                device=dev),
+            torch.ones(1500, dtype=torch.bool, device=dev), 0.1, (8, 8, 8),
+            64, 1),
+        "tsdf_integrate": lambda: K.tsdf_integrate(
+            rg(depths), colors, P_all[:2], torch.zeros(3), (4, 4, 4), 0.1),
+        "consistency_fuse": lambda: K.consistency_fuse(
+            rg(depths), depths, cams, torch.tensor([0, 1], device=dev),
+            0.01, 1),
+    }
+    for name, call in raising.items():
+        with pytest.raises(NotImplementedError, match=name):
+            call()
+    vg = K.voxelize_points(pts.reshape(-1, 3), torch.zeros(
+        1500, dtype=torch.long, device=dev), torch.ones(
+        1500, dtype=torch.bool, device=dev), 0.1, (8, 8, 8), 64, 1)
+    assert isinstance(vg, VoxelGrid)
+    with pytest.raises(NotImplementedError, match="scatter_anchors"):
+        K.scatter_anchors_to_dense(rg(torch.randn(64, 8, device=dev)), vg,
+                                   (8, 8, 8), 1)
+    scale = torch.ones(1, 8, device=dev).requires_grad_()
+    with pytest.raises(NotImplementedError, match="trilinear_sample_i8"):
+        K.trilinear_sample_i8(torch.zeros(1, 4, 4, 4, 8, dtype=torch.int8,
+                                          device=dev), scale, q, c0, 0.5,
+                              torch.zeros(1, 10, 8, dtype=torch.bfloat16,
+                                          device=dev), 0)
+    with pytest.raises(NotImplementedError, match="points"):
+        K.source_variance(rg(pts), feats, sidx, smask, P_all, (64, 80))
+    # the three with a hand backward carry a grad_fn and count both launches
+    K.reset_launch_counts()
+    v = K.source_variance(pts, rg(feats), sidx, smask, P_all, (64, 80))
+    d = K.softargmax_depth(rg(torch.randn(2, 8, 4, 4, device=dev)),
+                           torch.linspace(0.5, 1, 8, device=dev))
+    p = K.propagation_blend(rg(torch.randn(2, 4, 5, 9, device=dev)),
+                            rg(torch.rand(2, 4, 5, device=dev)))
+    for t in (v, d, p):
+        assert t.grad_fn is not None
+    (v.sum() + d.sum() + p.sum()).backward()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    for k in ("source_variance", "softargmax_depth", "propagation_blend"):
+        assert counts[k] == counts[k + "_backward"] == 1, k
+    # without grad mode nothing raises
+    with torch.inference_mode():
+        for call in raising.values():
+            call()
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu():
+    """One tiny n_iters=0 train step from the same weights on the card and
+    on the CPU: loss, every gradient and the parameters after Adam."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import copy
+
+    from tdvnet_torch.config import tiny_test_config
+    from tdvnet_torch.data import batch as B, synthetic
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+    from tdvnet_torch.models.threedvnet import ThreeDVNet
+    from tdvnet_torch.train import loop as L
+
+    cfg = tiny_test_config()
+    bc = cfg.batch
+    batch = B.collate_scenes(
+        [synthetic.make_batch_scene(bc.n_views, bc.img_size,
+                                    bc.depth_img_size, seed=0)],
+        bc.n_views, bc.n_ref, bc.n_src_on_either_side)
+    torch.manual_seed(0)
+    cpu = ThreeDVNet(cfg.model)
+    card = copy.deepcopy(cpu).cuda()
+    out = {}
+    for name, m in (("cpu", cpu), ("cuda", card)):
+        st = L.TrainState(m, L.make_optimizer(cfg, m, 1))
+        reset_launch_counts()
+        with torch.backends.mkldnn.flags(enabled=False):
+            _, mets = L.make_train_step(m, cfg, 0)(st, batch, 0.0)
+        out[name] = (float(mets["loss"]), {
+            k: p.grad.double().cpu() for k, p in m.named_parameters()
+            if p.grad is not None}, launch_counts())
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    counts = out["cuda"][2]
+    assert counts["source_variance_backward"] == 1
+    assert counts["softargmax_depth_backward"] == 1
+    assert counts["propagation_blend_backward"] == 3
+    worst = {}
+    for k, a in out["cuda"][1].items():
+        b = out["cpu"][1][k]
+        worst[k] = float((a - b).norm() / b.norm().clamp(min=1e-12))
+    worst.pop("mvsnet.cost_reg.Conv_0.bias")      # zero in exact arithmetic
+    bad = {k: v for k, v in worst.items() if v > 1e-3}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+def test_refinement_training_raises_on_the_card():
+    """n_iters >= 1 needs the backward of the scene kernels, which the port
+    does not have yet: the step raises instead of dropping gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.config import tiny_test_config
+    from tdvnet_torch.data import batch as B, synthetic
+    from tdvnet_torch.train import loop as L
+
+    cfg = tiny_test_config()
+    bc = cfg.batch
+    batch = B.collate_scenes(
+        [synthetic.make_batch_scene(bc.n_views, bc.img_size,
+                                    bc.depth_img_size, seed=0)],
+        bc.n_views, bc.n_ref, bc.n_src_on_either_side)
+    st = L.create_state(cfg, 1, "cuda")
+    with pytest.raises(NotImplementedError, match="backward not ported"):
+        L.make_train_step(st.model, cfg, 1)(st, batch, 0.5)
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_twins():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels.probes import (batched_dot, batched_dot_ref,
+                                             take_along_axis,
+                                             take_along_axis_ref)
+    from tdvnet_torch.tools import probe_batched_dot, probe_gather
+    from tdvnet_torch.tools.timing import bf16_ulp_ok
+
+    W, F = probe_batched_dot.make_inputs(torch.device("cuda"), 4, 5)
+    assert bf16_ulp_ok(batched_dot(W, F), batched_dot_ref(W, F))
+    for name, axis, vals, idx in probe_gather.make_inputs():
+        v, i = torch.from_numpy(vals).cuda(), torch.from_numpy(idx).cuda()
+        assert torch.equal(take_along_axis(v, i, axis),
+                           take_along_axis_ref(v, i, axis)), name
+    with pytest.raises(IndexError):
+        take_along_axis(v, i + 10 ** 6, 0)

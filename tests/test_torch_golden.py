@@ -35,6 +35,22 @@ the `EvalConfig` fields are recorded beside them (a few minutes on the CPU):
 
     python tests/test_torch_golden.py --write-eval3d
 
+A fifth holds training: three n_iters=0 steps of the JAX package's
+`make_train_step` (default `TrainConfig`, the non-finetune regime with the
+backbone's BatchNorm frozen) from the synth48 weights on the batch of the
+first golden: the loss and loss_2d of each step, step 1's gradient norm per
+module and the full gradient of three leaves (the gradient read from the
+optimizer's first moment, mu = (1 - b1) g after one Adam update), and one
+CostRegNet BatchNorm's running statistics after the steps (a few minutes
+and ~6 GB on the CPU):
+
+    python tests/test_torch_golden.py --write-train
+
+`--train-bn-error` prints how far JAX's fp32 batch statistics of
+CostRegNet's first BatchNorm lie from float64 ones in that step (the
+golden's own error, which `chip_smoke.py` phase 9b measures against a
+float64 rerun on the card).
+
 The tier-1 tests below only check that the recorded settings are the ones
 `chip_smoke.py` drives.
 """
@@ -52,6 +68,8 @@ SCENE_GOLDEN = os.path.join(ROOT, "tests", "data",
                             "torch_golden_scene_synth48.npz")
 FAST_SCENE_GOLDEN = os.path.join(ROOT, "tests", "data",
                                  "torch_golden_fastscene_synth48.npz")
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                            "torch_golden_train_synth48.npz")
 WEIGHTS = os.path.join(ROOT, "weights", "3dvnet_synth48.npz")
 SCENE_VIEWS, SCENE_SEED = 24, 11
 
@@ -282,6 +300,152 @@ def write_eval3d_golden():
     print(json.dumps(record))
 
 
+def _train_record(train_cfg):
+    keys = ("lr", "lr_step", "lr_gamma", "finetune", "offsets",
+            "lambda_ramp_epochs")
+    return json.loads(json.dumps({k: getattr(train_cfg, k) for k in keys}))
+
+
+def write_train_golden():
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    sys.path.insert(0, ROOT)
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import optax
+
+    from chip_smoke import (GOLDEN_SEEDS, TRAIN_BN, TRAIN_LEAVES,
+                            TRAIN_MODULES, TRAIN_STEPS)
+    from tdvnet.config import BatchConfig, Config, ModelConfig
+    from tdvnet.data import batch as B, synthetic
+    from tdvnet.models.threedvnet import ThreeDVNet
+    from tdvnet.train import loop as L
+    from tdvnet.train.checkpoints import load_npz
+    from tdvnet_torch.weights import from_flax_variables
+
+    mc = ModelConfig(warp_mode="gather")
+    bc = BatchConfig()
+    cfg = Config(model=mc, batch=bc)
+    scenes = [synthetic.make_batch_scene(bc.n_views, bc.img_size,
+                                         bc.depth_img_size, seed=s,
+                                         n_src_on_either_side=bc.n_src_on_either_side)
+              for s in GOLDEN_SEEDS]
+    fb = B.collate_scenes(scenes, bc.n_views, bc.n_ref,
+                          bc.n_src_on_either_side)
+    variables, epoch = load_npz(WEIGHTS)
+    model = ThreeDVNet(mc)
+    state = L.TrainState.create(
+        apply_fn=model.apply, params=variables["params"],
+        tx=L.make_tx(cfg, variables["params"], 1),
+        batch_stats=variables["batch_stats"])
+    step = L.make_train_step(model, cfg, 0, donate=False)
+    lam = L.lambda_for_epoch(cfg, 0)
+    losses, losses_2d = [], []
+    for i in range(TRAIN_STEPS):
+        state, mets = step(state, fb, jnp.float32(lam))
+        losses.append(float(mets["loss"]))
+        losses_2d.append(float(mets["loss_2d"]))
+        print(f"step {i}: loss {losses[-1]} loss_2d {losses_2d[-1]}",
+              flush=True)
+        if i == 0:
+            inner = state.opt_state.inner_states["train"].inner_state
+            adam = next(x for x in jax.tree.leaves(
+                inner, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+                if isinstance(x, optax.ScaleByAdamState))
+            grads = jax.tree.map(
+                lambda m: np.zeros(1, np.float32)
+                if isinstance(m, optax.MaskedNode) else
+                np.asarray(m) / np.float32(1 - 0.9), adam.mu,
+                is_leaf=lambda x: isinstance(x, optax.MaskedNode))
+            # the frozen backbone BatchNorm leaves hold a zero placeholder
+            sd = from_flax_variables({"params": grads})
+            norms = {m: float(np.sqrt(sum(
+                float((v.double() ** 2).sum()) for k, v in sd.items()
+                if k.startswith(m + "."))))
+                for m in TRAIN_MODULES}
+            leaves = {k: sd[k].numpy() for k in TRAIN_LEAVES}
+    stats = from_flax_variables({"batch_stats": jax.tree.map(
+        np.asarray, state.batch_stats)})
+    record = {
+        "config": _config_record(mc, bc),
+        "train": _train_record(cfg.train),
+        "seeds": list(GOLDEN_SEEDS),
+        "weights": os.path.relpath(WEIGHTS, ROOT),
+        "weights_sha256": file_sha256(WEIGHTS),
+        "weights_epoch": int(epoch),
+        "warp_mode": "gather",
+        "n_iters": 0,
+        "lam": lam,
+        "steps": TRAIN_STEPS,
+        "loss": losses,
+        "loss_2d": losses_2d,
+        "grad_norms": norms,
+        "bn": TRAIN_BN,
+    }
+    os.makedirs(os.path.dirname(TRAIN_GOLDEN), exist_ok=True)
+    np.savez_compressed(
+        TRAIN_GOLDEN, record=np.array(json.dumps(record)),
+        bn_running_mean=stats[TRAIN_BN + ".running_mean"].numpy(),
+        bn_running_var=stats[TRAIN_BN + ".running_var"].numpy(),
+        **{"grad:" + k: v for k, v in leaves.items()})
+    print(json.dumps(record))
+
+
+def train_bn_error():
+    """How far the JAX package's fp32 batch statistics of CostRegNet's first
+    BatchNorm lie from float64 ones in the golden's first step: the same
+    cost volume and convolution, then flax's `_compute_stats` against numpy
+    in float64 over the 4.2M elements per channel."""
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    sys.path.insert(0, ROOT)
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from flax.linen.normalization import _compute_stats
+
+    from chip_smoke import GOLDEN_SEEDS
+    from tdvnet.config import BatchConfig, ModelConfig
+    from tdvnet.data import batch as B, synthetic
+    from tdvnet.models.threedvnet import ThreeDVNet
+    from tdvnet.ops import costvolume
+    from tdvnet.train.checkpoints import load_npz
+
+    mc = ModelConfig(warp_mode="gather")
+    bc = BatchConfig()
+    scenes = [synthetic.make_batch_scene(bc.n_views, bc.img_size,
+                                         bc.depth_img_size, seed=s,
+                                         n_src_on_either_side=bc.n_src_on_either_side)
+              for s in GOLDEN_SEEDS]
+    fb = B.collate_scenes(scenes, bc.n_views, bc.n_ref,
+                          bc.n_src_on_either_side)
+    variables, _ = load_npz(WEIGHTS)
+
+    def cost_volume(m, b):
+        _, quarter, _ = m.extract_features(b.images, False)
+        dc = m.cfg.depth_train
+        return costvolume.plane_sweep_cost_volume(
+            quarter, b.rotmats, b.tvecs, b.K, b.ref_idx, b.src_idx,
+            b.src_mask, dc.depth_start, dc.depth_interval, dc.n_intervals,
+            m.cfg.img_size, dc.size)
+
+    var = jax.jit(lambda v, b: ThreeDVNet(mc).apply(
+        v, b, method=cost_volume))(variables, fb)
+    kernel = variables["params"]["mvsnet"]["cost_reg"]["ConvBnRelu_0"][
+        "Conv_0"]["kernel"]
+    y = jax.lax.conv_general_dilated(
+        var, jnp.asarray(kernel), (1, 1, 1), ((1, 1),) * 3,
+        dimension_numbers=("NDHWC", "DHWIO", "NDHWC"))
+    mean, fvar = jax.jit(lambda y: _compute_stats(y, (0, 1, 2, 3), None))(y)
+    y64 = np.asarray(y, np.float64)
+    m64, v64 = y64.mean(axis=(0, 1, 2, 3)), y64.var(axis=(0, 1, 2, 3))
+    print(json.dumps({
+        "elements_per_channel": int(y64.size // y64.shape[-1]),
+        "var_rel_err": (np.abs(np.asarray(fvar) - v64) / v64).tolist(),
+        "mean_err_in_std": (np.abs(np.asarray(mean) - m64)
+                            / np.sqrt(v64)).tolist(),
+        "mean_sq_over_var": (m64 ** 2 / v64).tolist()}))
+
+
 def read_record(path=GOLDEN):
     with np.load(path) as z:
         return json.loads(str(z["record"]))
@@ -363,6 +527,33 @@ def test_fast_scene_golden_matches_chip_smoke_settings():
     assert 0.0 < rec["tail"] < 1.0
 
 
+def test_train_golden_matches_chip_smoke_settings():
+    import chip_smoke
+    from tdvnet_torch.config import BatchConfig, ModelConfig, TrainConfig
+
+    rec = read_record(TRAIN_GOLDEN)
+    assert rec["config"] == _config_record(ModelConfig(), BatchConfig())
+    assert rec["train"] == _train_record(TrainConfig())
+    assert tuple(rec["seeds"]) == tuple(chip_smoke.GOLDEN_SEEDS)
+    assert rec["weights_sha256"] == file_sha256(WEIGHTS)
+    assert (rec["warp_mode"], rec["n_iters"], rec["lam"]) == \
+        ("gather", 0, 0.0)
+    assert rec["steps"] == chip_smoke.TRAIN_STEPS == len(rec["loss"]) \
+        == len(rec["loss_2d"])
+    assert sorted(rec["grad_norms"]) == sorted(chip_smoke.TRAIN_MODULES)
+    # n_iters=0: the scene stages take no gradient
+    for m in ("pointnet", "scene_unet", "decoder"):
+        assert rec["grad_norms"][m] == 0.0
+    assert rec["bn"] == chip_smoke.TRAIN_BN
+    with np.load(TRAIN_GOLDEN) as z:
+        leaves = sorted(k[len("grad:"):] for k in z.files
+                        if k.startswith("grad:"))
+        assert z["bn_running_var"].shape == \
+            (ModelConfig().cost_base_channels,)
+    assert leaves == sorted(chip_smoke.TRAIN_LEAVES)
+    assert os.path.getsize(TRAIN_GOLDEN) < 1 << 20
+
+
 def test_eval3d_golden_matches_chip_smoke_settings():
     import chip_smoke
     from tdvnet_torch.config import EvalConfig
@@ -393,9 +584,13 @@ if __name__ == "__main__":
     else:
         if "--write-eval3d" in sys.argv:
             write_eval3d_golden()
+        elif "--write-train" in sys.argv:
+            write_train_golden()
+        elif "--train-bn-error" in sys.argv:
+            train_bn_error()
         elif "--write" in sys.argv:
             write_golden()
         else:
             sys.exit("usage: python tests/test_torch_golden.py --write | "
                      "--write-scene [n_views] | --write-fast-scene [n_views]"
-                     " | --write-eval3d")
+                     " | --write-eval3d | --write-train | --train-bn-error")
