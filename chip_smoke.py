@@ -36,14 +36,25 @@ Phases (any failure exits non-zero):
      `harness.main` with the model's fast-path `pred_fn` over three scenes,
      per-stage shares, and a second call that reuses every cached file; (c)
      one scene's evaluation traced by stage span;
-  9. training, n_iters=0 (`train.loop.make_train_step`, the non-finetune
-     regime, from the synth48 weights on the golden batch): (a) the three
-     backward kernels against their twins at the step's shapes; (b) three
-     steps against the JAX golden `tests/data/torch_golden_train_synth48.npz`
-     (losses, step 1's gradient norms per module and three gradient
-     leaves, a CostRegNet BatchNorm's running statistics, launch counts);
-     (c) warm steps timed, ref-frames/s trained, peak memory; (d) one step
-     traced by span (train_forward, train_backward, train_optimizer);
+  9. training (`train.loop.make_train_step`, the non-finetune regime,
+     from the synth48 weights on the golden batch): (a) the backward
+     kernels against their twins at the train steps' shapes (n_iters=0:
+     the cost volume's variance, the soft-argmax, the propagation blends;
+     n_iters=1: the variance at the scene cloud and the hypotheses, the
+     dense scatter, the pools and concat-backs, the masked GroupNorm, the
+     scene sampling), and the source variance's kernel and fp32 twin
+     against its twin in float64; (b) three n_iters=0 steps and three
+     n_iters=1 steps (at the epoch-5 lambda) each against a float64 referee
+     on the card and against its JAX golden
+     (`tests/data/torch_golden_train_synth48.npz`,
+     `tests/data/torch_golden_train_refine_synth48.npz`: losses, step 1's
+     gradient norms per module and gradient leaves, BatchNorm running
+     statistics, launch counts), with three faulty controls that the limits
+     must see; (b') one n_iters=2 step against the referee; (c) warm steps
+     at n_iters 0, 1 and 2 timed, ref-frames/s trained, peak memory; (d)
+     one n_iters=0 and one n_iters=1 step traced by span (train_forward,
+     train_backward, train_optimizer); (e) `fit` with the default
+     TrainConfig (n_iters=1 at epoch 0) for one epoch of two batches;
  10. the probe tools (`tdvnet_torch.tools.probe_batched_dot`,
      `probe_gather`): every case against its twin, timed beside the
      library call.
@@ -136,6 +147,18 @@ TRAIN_LEAVES = ("mvsnet.fpn.smooth1.weight",
                 "mvsnet.cost_reg.ConvBnRelu_0.Conv_0.weight",
                 "refine_full.ConvBnRelu_3.Conv_0.weight")
 TRAIN_BN = "mvsnet.cost_reg.ConvBnRelu_0.BatchNorm_0"
+# the n_iters=1 steps (phase 9b): the same batch, weights and step count,
+# at the epoch-5 lambda (epoch 0's is 0, which would zero every refinement
+# loss term), held to their own JAX golden; it adds one gradient leaf of
+# each scene stage and the decoder's first BatchNorm
+TRAIN_REFINE_GOLDEN = os.path.join(ROOT, "tests", "data",
+                                   "torch_golden_train_refine_synth48.npz")
+TRAIN_REFINE_EPOCH = 5
+TRAIN_REFINE_LEAVES = TRAIN_LEAVES + (
+    "pointnet.fc_pos.weight",
+    "scene_unet.SparseResidual3d_0.MaskedConv3d_0.Conv_0.weight",
+    "decoder.Conv_0.weight")
+TRAIN_REFINE_BNS = (TRAIN_BN, "decoder.BatchNorm_0")
 # limits against the float64 referee (each step's loss at the port's own
 # parameters): losses relative per step; gradient norms and leaves
 # relative (L2 for a leaf); running statistics relative to their largest;
@@ -152,9 +175,11 @@ ADAM_EPS = 1e-8
 # holds every element
 TRAIN_NOISE_SHARE = 0.1
 # the last cost conv's bias shifts every plane's cost alike, which the
-# soft-argmax does not see: its gradient is zero in exact arithmetic, and
-# both sides' are rounding noise
-ZERO_GRAD = "mvsnet.cost_reg.Conv_0.bias"
+# soft-argmax does not see, and the decoder's last conv bias (trained at
+# n_iters >= 1) shifts every hypothesis's score alike, which its softmax
+# does not see: their gradients are zero in exact arithmetic, and both
+# sides' are rounding noise
+ZERO_GRADS = ("mvsnet.cost_reg.Conv_0.bias", "decoder.Conv_3.bias")
 # limits against the JAX golden, per step for the losses and per quantity
 # for step 1's gradients ("" for the rest), each 1.3x to 2.5x the golden's
 # own error: its fp32 step 1 is 9.9e-4 off a float64 rerun at the same
@@ -167,6 +192,52 @@ GOLDEN_LOSS_REL = (2.5e-3, 5e-3, 4e-3)
 GOLDEN_GRAD_REL = {"": 4e-3, "mvsnet.cost_reg": 1.5e-2,
                    "mvsnet.fpn.smooth1.weight": 1e-2,
                    "mvsnet.cost_reg.ConvBnRelu_0.Conv_0.weight": 1e-2}
+# the n_iters=1 steps against their JAX golden: each limit 1.8x to 2.3x
+# the golden's own distance from the float64 referee at step 1 (read on
+# the H100 80GB HBM3 at 700 W, beside each), and for steps 2 and 3 and the
+# running statistics after them the port's distance from the golden (the
+# two trajectories part after one Adam step). JAX's masked GroupNorm takes its
+# variance in one pass in fp32, which puts its scene stages and everything
+# upstream of them 5e-3 to 5e-2 off (PERF.md, section 6)
+GOLDEN_REFINE_LOSS_REL = (6e-3,      # 3.27e-3
+                          8e-3,      # 3.91e-3
+                          1.3e-2)    # 6.55e-3
+GOLDEN_REFINE_GRAD_REL = {
+    "": 4e-3,
+    "mvsnet.backbone": 1e-2,         # 4.87e-3
+    "mvsnet.fpn": 4e-3,              # 1.76e-3
+    "mvsnet.cost_reg": 2.5e-2,       # 1.24e-2
+    "pointnet": 1.3e-2,              # 6.52e-3
+    "scene_unet": 5e-2,              # 2.55e-2
+    "decoder": 3e-2,                 # 1.46e-2
+    "refine_quarter": 4e-3,          # 1.73e-3
+    "refine_half": 1.6e-2,           # 8.07e-3
+    "refine_full": 1.6e-2,           # 8.27e-3
+    "decoder.Conv_0.weight": 5e-2,   # 2.71e-2
+    "mvsnet.cost_reg.ConvBnRelu_0.Conv_0.weight": 2e-2,   # 1.09e-2
+    "mvsnet.fpn.smooth1.weight": 3e-2,                    # 1.63e-2
+    "pointnet.fc_pos.weight": 0.1,                        # 5.10e-2
+    "refine_full.ConvBnRelu_3.Conv_0.weight": 7e-2,       # 3.56e-2
+    "scene_unet.SparseResidual3d_0.MaskedConv3d_0.Conv_0.weight": 7e-2}
+# the decoder's first BatchNorm after the three steps, 2.99e-3 off
+GOLDEN_REFINE_STATS_REL = 6e-3
+# the n_iters >= 1 steps against the float64 referee: TRAIN_GRAD_REL, but
+# for the quantities behind the PointNet's max pools. The fp32 step's
+# initial depth differs run to run (1e-6 in the loss) and from float64's;
+# the PointNet amplifies its points' noise (1.8e-6 m) to 3.4e-3 in its
+# activations, and 167 to 301 of a pool's 5.6M (row, channel) maxima then
+# sit on another row than in float64, which routes their gradient
+# elsewhere. Readings of two runs on the H100 80GB HBM3 at 700 W
+# (n_iters=1; n_iters=2 lower; PERF.md, section 6):
+REFEREE_REFINE_GRAD_REL = {
+    "": TRAIN_GRAD_REL,
+    "pointnet": 4e-3,                                   # 1.2e-4, 1.3e-3
+    "pointnet.fc_pos.weight": 8e-3,                     # 3.8e-3, 2.8e-3
+    "scene_unet.SparseResidual3d_0.MaskedConv3d_0.Conv_0.weight": 3e-3,
+    #                                                     1.4e-3, 9.2e-4
+    "mvsnet.fpn.smooth1.weight": 2e-3}                  # 7.5e-4, 8.1e-4
+# the epoch whose lambda the n_iters=2 step trains at: the switch epoch
+TRAIN_LATE_EPOCH = 20
 # controls: faults that the limits above must see. A loss-composition
 # fault (the full-resolution stage's term counted 1% more), an optimizer
 # fault (step 1's lr 1% off) and a BatchNorm fault (flax's momentum 0.9
@@ -174,11 +245,19 @@ GOLDEN_GRAD_REL = {"": 4e-3, "mvsnet.cost_reg": 1.5e-2,
 CONTROL_STAGE_WEIGHT = 1.01
 CONTROL_LR = 1.01
 # backward kernels against their twins, relative to the twin's largest
-# magnitude; the variance backward's as its forward's: the kernel's
-# projection rounds apart from the twin's matmul (a tap's weight moves by
-# an ulp of the coordinate), and its atomics sum in a run-dependent order
+# magnitude; the variance backward's wider: the kernel's projection rounds
+# apart from the twin's matmul (a tap's weight moves by an ulp of the
+# coordinate), and its atomics sum in a run-dependent order. Against the
+# twin in float64 with float64 geometry the kernel is as close as the fp32
+# twin (1.4e-5 to 3.4e-5 of the largest, both); kernel and twin read
+# 2.4e-5 (cost volume), 4.1e-5 (scene cloud) and 2.3e-5 (hypotheses) apart
+# on the H100 80GB HBM3 at 700 W (PERF.md, section 6)
 BACKWARD_TOL = 1e-5
-VARIANCE_BACKWARD_TOL = 1e-4
+VARIANCE_BACKWARD_TOL = 6e-5
+# a backward kernel whose sums run on atomics in a run-dependent order
+# against a twin whose sums do too (index_add_ on the card), where many
+# terms meet in one element
+ATOMIC_BACKWARD_TOL = 1e-4
 
 # kernel -> (source, the TPU op it replaces, its wrappers in
 # tdvnet_torch.kernels.WRAPPERS)
@@ -222,6 +301,20 @@ KERNEL_META = {
         "tdvnet_torch/csrc/propagation_blend_backward.cu",
         "tdvnet/kernels/depthops_pallas.py:83 (2df7997^, VJP)",
         ("propagation_blend_backward",)),
+    "scatter_dense_backward": (
+        "tdvnet_torch/csrc/scatter_dense_backward.cu",
+        "tdvnet/ops/voxelize.py:124 (VJP)",
+        ("scatter_anchors_to_dense_backward",)),
+    "segment_max_backward": (
+        "tdvnet_torch/csrc/segment_max_backward.cu",
+        "tdvnet/models/pointnet.py:19 (VJP)",
+        ("segment_max_backward", "gather_concat_backward")),
+    "masked_group_norm_backward": (
+        "tdvnet_torch/csrc/masked_group_norm_backward.cu",
+        "tdvnet/models/layers.py:106 (VJP)", ("masked_group_norm_backward",)),
+    "trilinear_sample_backward": (
+        "tdvnet_torch/csrc/trilinear_sample_backward.cu",
+        "tdvnet/ops/sampling.py:199 (VJP)", ("trilinear_sample_backward",)),
     "batched_dot": ("tdvnet_torch/csrc/batched_dot.cu",
                     "tools/probe_mosaic_batched_dot.py:119",
                     ("batched_dot",)),
@@ -272,17 +365,30 @@ def expected_launches(offsets_list, n_chunks, unet_res, fast_patch=False,
             "masked_group_norm": gn * n_iters,
             "source_variance_backward": 0, "softargmax_depth_backward": 0,
             "propagation_blend_backward": 0, "batched_dot": 0,
-            "take_along_axis": 0}
+            "take_along_axis": 0, "scatter_anchors_to_dense_backward": 0,
+            "segment_max_backward": 0, "gather_concat_backward": 0,
+            "masked_group_norm_backward": 0, "trilinear_sample_backward": 0}
 
 
-def train_expected_launches(n_steps):
-    """Launches per wrapper in `n_steps` n_iters=0 train steps: per step
-    the forward's cost volume, soft-argmax and three propagation blends,
-    and the backward of each."""
+def train_expected_launches(n_steps, n_iters=0, n_offsets=0, unet_res=()):
+    """Launches per wrapper in `n_steps` train steps at `n_iters`, counted
+    from the code: per step the forward's cost volume, soft-argmax and three
+    propagation blends; per refinement iteration one scene cloud variance,
+    one voxelize, one scatter, four pools, three concat-backs and the
+    U-Net's GroupNorms; per offset pass one hypothesis variance and three
+    scale samplings. Every one of them but the voxelize has its backward's
+    launch too (voxelization takes no gradient)."""
     out = {w: 0 for w in expected_launches((), 1, ())}
-    for k, n in (("source_variance", 1), ("softargmax_depth", 1),
-                 ("propagation_blend", 3)):
+    gn = sum(a + b for a, b in group_norm_calls(unet_res))
+    forward = {"source_variance": 1 + n_iters * (1 + n_offsets),
+               "softargmax_depth": 1, "propagation_blend": 3,
+               "scatter_anchors_to_dense": n_iters,
+               "segment_max": 4 * n_iters, "gather_concat": 3 * n_iters,
+               "masked_group_norm": gn * n_iters,
+               "trilinear_sample": 3 * n_iters * n_offsets}
+    for k, n in forward.items():
         out[k] = out[k + "_backward"] = n * n_steps
+    out["voxelize"] = n_iters * n_steps
     return out
 
 
@@ -340,13 +446,17 @@ def scene_golden_record(path=SCENE_GOLDEN):
 
 
 # the kernels whose main path is the fast whole-scene path, one scene's 3D
-# evaluation, the n_iters=0 train step or the probe tools; the others' is
-# infer_depth
+# evaluation, the n_iters=0 train step ("train"), the n_iters=1 train step
+# ("train1") or the probe tools; the others' is infer_depth
 MAIN_PATHS = {"trilinear_sample_i8": "fast", "patch_fan_variance": "fast",
               "tsdf_integrate": "eval3d", "consistency_fuse": "eval3d",
               "source_variance_backward": "train",
               "softargmax_depth_backward": "train",
               "propagation_blend_backward": "train",
+              "scatter_dense_backward": "train1",
+              "segment_max_backward": "train1",
+              "masked_group_norm_backward": "train1",
+              "trilinear_sample_backward": "train1",
               "batched_dot": "probe", "take_along_axis": "probe"}
 
 
@@ -824,7 +934,9 @@ def check_case(case):
                     f"{float(b.flatten()[i])} at flat index {i}")
             ok &= not bool(bad.any())
         else:
-            ok &= d <= case.tol * max(1.0, float(b.abs().max()))
+            scale = max(1.0, float(b.abs().max()))
+            ok &= d <= case.tol * scale
+            case.rel_err = max(getattr(case, "rel_err", 0.0), d / scale)
     return err, bool(ok)
 
 
@@ -839,8 +951,11 @@ def kernel_phase(device, cases=None):
         plain = time_ms(case.ref, iters=3, warmup=1)
         lib = time_ms(case.library) if case.library else None
         tol = getattr(case.tol, "__name__", case.tol)
+        rel = getattr(case, "rel_err", None)
         log(f"  {case.kernel:18s} {case.label:48s} max|d|={err:.3e} "
-            f"{'ok' if good else 'FAIL (tol %s)' % tol} "
+            + (f"({rel:.2e} of the twin's largest) " if rel is not None
+               else "")
+            + f"{'ok' if good else 'FAIL (tol %s)' % tol} "
             f"kernel={ms:.4f} ms plain={plain:.4f} ms "
             f"library={'%.4f ms' % lib if lib is not None else '-'} "
             f"bound={case.bound_ms:.4f} ms "
@@ -865,7 +980,8 @@ def kernel_phase(device, cases=None):
         k["calls"].append({"shape": case.label, "path": case.path,
                            "per_infer": case.per_infer,
                            "ms": ms, "plain_ms": plain, "library_ms": lib,
-                           "bound_ms": case.bound_ms, "max_abs_err": err})
+                           "bound_ms": case.bound_ms, "max_abs_err": err,
+                           "rel_err": rel})
     return ok, per_kernel
 
 
@@ -1253,21 +1369,376 @@ def train_cases(device, seed=1):
     return cases
 
 
+def train_refine_cases(device, seed=2):
+    """The backward kernels that n_iters >= 1 adds, at the shapes the
+    full-width n_iters=1 step gives them (per step: one scene modelling,
+    three offset passes), on seeded random inputs: the variance's backward
+    at the scene cloud and the hypotheses (K2), the dense scatter's, the
+    pools' and concat-backs', the masked GroupNorm's at the three U-Net
+    levels and both tails, and the three scales' sampling."""
+    import torch
+    import torch.nn.functional as F
+
+    from tdvnet_torch.config import ModelConfig, TrainConfig
+    from tdvnet_torch.kernels import (gather_concat_backward,
+                                      masked_group_norm_backward,
+                                      scatter_anchors_to_dense_backward,
+                                      segment_max, segment_max_backward,
+                                      source_variance_backward,
+                                      trilinear_sample_backward)
+    from tdvnet_torch.kernels import groupnorm, voxelize as vox
+    from tdvnet_torch.kernels.segmax import (gather_concat_backward_ref,
+                                             segment_max_backward_ref)
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_backward_ref
+    from tdvnet_torch.kernels.variance import (source_variance_backward_ref,
+                                               source_variance_ref)
+    from tdvnet_torch.ops import camera
+
+    cfg = ModelConfig()
+    dc, g = cfg.depth_train, cfg.grid
+    n_off = len(TrainConfig().offsets)
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(device)
+    b = golden_batch(GOLDEN_SEEDS).to(device)
+    R, S = b.src_idx.shape
+    N, B = b.n_imgs, b.n_scenes
+    H, W = cfg.img_size
+    f = cfg.feat_dim
+    ri = b.ref_idx
+    active = float(b.src_mask.sum())
+    hw = f"{dc.size[0]}*{dc.size[1]}"
+    P_ref = dc.size[0] * dc.size[1]
+    cases = []
+
+    # K2: the variance's backward at the scene cloud (one point per pixel)
+    # and the hypotheses (seven), on plane-sweep points of those counts
+    feats = rnd(N, H // 4, W // 4, f).contiguous()
+    P_all = camera.projection_matrix(b.K, b.rotmats, b.tvecs).contiguous()
+    for label, planes, per_step in ((f"scene cloud [{R},{hw},{f}]", 1, 1),
+                                    (f"hypotheses [{R},7*{hw},{f}]", 7,
+                                     n_off)):
+        interval = dc.depth_interval * (dc.n_intervals - 1) / max(planes - 1,
+                                                                   1)
+        pts = camera.plane_sweep_points(
+            dc.depth_start, interval, planes, b.rotmats[ri], b.tvecs[ri],
+            b.K[ri], cfg.img_size, dc.size).contiguous()
+        P = pts.shape[1]
+        _, mean = source_variance_ref(pts, feats, b.src_idx, b.src_mask,
+                                      P_all, cfg.img_size, with_mean=True)
+        args = (rnd(R, P, f), mean, pts, feats, b.src_idx, b.src_mask, P_all,
+                cfg.img_size)
+        cases.append(Case(
+            "source_variance_backward", label, per_step,
+            lambda a=args: source_variance_backward(*a),
+            lambda a=args: source_variance_backward_ref(*a),
+            VARIANCE_BACKWARD_TOL,
+            4 * (2 * R * P * f + 2 * feats.numel() + pts.numel()
+                 + P_all.numel() + R * S * 3),
+            (active / R) * R * P * (24 + 19 * f), path="train1"))
+
+    # the scene modelling of the step: the scene cloud's points voxelized
+    # into the batch grid (seeded points in a box a little larger than it)
+    P = R * P_ref
+    edge = g.edge_len
+    span = torch.tensor([d * edge * 1.02 for d in g.grid_size])
+    pts = (torch.rand(P, 3, generator=gen) * span).to(device).contiguous()
+    scene = torch.arange(P, device=device) * B // P
+    valid = (torch.rand(P, generator=gen) > 0.1).to(device)
+    vg = vox.voxelize(pts, scene, valid, edge, g.grid_size, g.max_anchors, B)
+    A = g.max_anchors
+    n_valid = int(vg.anchor_valid.sum())
+    C = 2 * f
+    gd = rnd(B, *g.grid_size, C)
+    flat = vox._anchor_cells(vg, g.grid_size)[vg.anchor_valid]
+    sargs = (gd, vg, g.grid_size, B)
+    cases.append(Case(
+        "scatter_dense_backward",
+        f"[{B},{g.grid_size[0]}^3,{C}] -> [{A},{C}] ({n_valid} valid)", 1,
+        lambda a=sargs: scatter_anchors_to_dense_backward(*a),
+        lambda a=sargs: vox.scatter_anchors_to_dense_backward_ref(*a),
+        0.0, n_valid * 4 * C + A * (24 + 8 + 1) + A * 4 * C, 0,
+        library=lambda a=(gd, C, flat): a[0].view(-1, a[1])[a[2]],
+        path="train1"))
+
+    C = 4 * f                                  # the PointNet's hidden width
+    n_seg = A + 1
+    y = rnd(P, C)
+    p2a, pv = vg.point2anchor, vg.point_valid
+    pooled = segment_max(y, p2a, pv, n_seg)
+    margs = (rnd(n_seg, C), y, p2a, pv, pooled)
+    cases.append(Case(
+        "segment_max_backward", f"pool [{n_seg},{C}] -> [{P},{C}]", 4,
+        lambda a=margs: segment_max_backward(*a),
+        lambda a=margs: segment_max_backward_ref(*a), BACKWARD_TOL,
+        P * (4 * C + 8 + 1) + 2 * min(P, n_seg) * 4 * C + P * 4 * C, P * C,
+        path="train1"))
+    # its segment sum runs on atomics in a run-dependent order, as the twin's
+    # index_add_ on the card does; here the dump slot sums the ~27k points
+    # that overflow the anchors (1.95e-3 absolute in a sum of that size)
+    cargs = (rnd(P, 2 * C), y, pooled, p2a, True)
+    cases.append(Case(
+        "segment_max_backward", f"concat-back [{P},{2 * C}] -> [{P},{C}] + "
+        f"[{n_seg},{C}]", 3,
+        lambda a=cargs: gather_concat_backward(*a),
+        lambda a=cargs: gather_concat_backward_ref(*a), ATOMIC_BACKWARD_TOL,
+        P * (8 * C + 4 * C + 8) + min(P, n_seg) * 4 * C * 2 + P * 4 * C,
+        P * 2 * C, path="train1"))
+
+    # the masked GroupNorm's backward at the three U-Net levels, both tails,
+    # on the forward kernel's own output and statistics
+    some = lambda t: tuple(x for x in t if x is not None)
+    for lvl, ((n_relu, n_skip), C, G) in enumerate(
+            zip(group_norm_calls(cfg.unet_res), cfg.unet_dims,
+                cfg.unet_groups)):
+        dims = tuple(d >> lvl for d in g.grid_size)
+        V = dims[0] * dims[1] * dims[2]
+        mask = (torch.rand(B, 1, *dims, generator=gen) > 0.85).float()
+        mask[-1, :, dims[0] // 2:] = 0          # scenes differ in their count
+        mask = mask.to(device)
+        x = (rnd(B, C, *dims) * 2 + 1) * mask
+        w, bias = rnd(C), rnd(C)
+        for tail, count, skip in (("relu", n_relu, None),
+                                  ("skip", n_skip, rnd(B, C, *dims) * mask)):
+            out, stats = groupnorm._masked_group_norm(
+                x, mask, G, w, bias, 1e-5, skip is None, skip)
+            kw = {"relu": skip is None, "skip": skip is not None}
+            a = (rnd(B, C, *dims), x, mask, G, w, out, stats, 1e-5)
+            n_out = 2 if tail == "skip" else 1
+            cases.append(Case(
+                "masked_group_norm_backward",
+                f"{tail} [{B},{C},{dims[0]}^3] G={G}", count,
+                lambda a=a, kw=kw: some(masked_group_norm_backward(*a, **kw)),
+                lambda a=a, kw=kw: some(
+                    groupnorm.masked_group_norm_backward_ref(
+                        *a[:6], a[7], **kw)),
+                BACKWARD_TOL,
+                4 * (B * C * V * (3 + n_out) + B * V + 3 * C + B * G * 4),
+                B * C * V * 16, path="train1"))
+
+    # the three scales' sampling backward at the hypotheses of one offset
+    # pass (queries over the grid and a margin around it)
+    Q = (R // B) * 7 * P_ref
+    extent = g.grid_size[0] * edge
+    origins = rnd(B, 3) * 0.1
+    center0 = (origins + 0.5 * edge).contiguous()
+    pts_q = (origins[:, None, :] - 0.3
+             + torch.rand(B, Q, 3, generator=gen).to(device) * (extent + 0.6)
+             ).contiguous()
+    for stride, C in zip((1, 2, 4), cfg.unet_dims):
+        dims = tuple(d // stride for d in g.grid_size)
+        cell = stride * edge
+        shape = (B, *dims, C)
+        gq = rnd(B, Q, C)
+        qn = (pts_q - center0[:, None, :]) / cell
+        lim = torch.tensor([d - 1 for d in dims], device=device,
+                           dtype=torch.float32)
+        gs_grid = (qn / lim * 2 - 1).flip(-1).reshape(B, Q, 1, 1, 3)
+        gs_in = torch.zeros(B, C, *dims, device=device, requires_grad=True)
+        gs_g = gq.permute(0, 2, 1).reshape(B, C, Q, 1, 1)
+        targs = (gq, pts_q, center0, cell, shape)
+        cases.append(Case(
+            "trilinear_sample_backward",
+            f"scale s={stride} [{B},{Q},{C}] -> [{B},{dims[0]}^3,{C}]",
+            3 * n_off,
+            lambda a=targs: trilinear_sample_backward(*a),
+            lambda a=targs: trilinear_sample_backward_ref(*a),
+            BACKWARD_TOL,
+            4 * (B * Q * C + pts_q.numel() + center0.numel()
+                 + B * dims[0] * dims[1] * dims[2] * C),
+            B * Q * (30 + 16 * C),
+            library=lambda a=(gs_in, gs_grid, gs_g): torch.autograd.grad(
+                F.grid_sample(a[0], a[1], mode="bilinear",
+                              padding_mode="zeros", align_corners=True),
+                a[0], a[2]),
+            path="train1"))
+    return cases
+
+
+def variance_reading(device, seed=3):
+    """Where the source variance's kernel and its fp32 twin sit against the
+    twin in float64 (the same fp32 cameras and points, the features and
+    incoming gradients widened), forward and backward, at the cost volume
+    and at the two K2 shapes of training; and where all three sit against
+    the twin in float64 with float64 geometry (projections not rounded to
+    fp32). For the kernel's worst element, where it sits:
+    forward, its point's depth in each source camera and whether a tap of
+    its footprint falls off the map; backward, whether the feature pixel
+    lies on the map's border and the smallest depth in that camera of the
+    points whose footprint covers it. Returns (ok: every reading finite,
+    the readings)."""
+    import torch
+
+    from tdvnet_torch.config import ModelConfig
+    from tdvnet_torch.kernels import source_variance_backward
+    from tdvnet_torch.kernels.variance import (_feature_scale,
+                                               source_variance_backward_ref,
+                                               source_variance_ref)
+    from tdvnet_torch.kernels.variance import _source_variance
+    from tdvnet_torch.ops import camera
+
+    cfg = ModelConfig()
+    dc = cfg.depth_train
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(device)
+    b = golden_batch(GOLDEN_SEEDS).to(device)
+    R, S = b.src_idx.shape
+    N = b.n_imgs
+    H, W = cfg.img_size
+    f = cfg.feat_dim
+    ri = b.ref_idx
+    feats = rnd(N, H // 4, W // 4, f).contiguous()
+    Hf, Wf = feats.shape[1:3]
+    P_all = camera.projection_matrix(b.K, b.rotmats, b.tvecs).contiguous()
+    sx, sy = _feature_scale(feats, cfg.img_size)
+    img = cfg.img_size
+    out, ok = {}, True
+
+    def depth_in(pts, n):
+        """Camera depth z and feature-grid coordinates of pts [P, 3] in
+        camera n (fp64 arithmetic on the fp32 inputs)."""
+        M = P_all[n].double()
+        xyz = pts.double() @ M[:, :3].T + M[:, 3]
+        den = xyz[:, 2].abs() + 1e-8
+        return xyz[:, 2], xyz[:, 0] / den * sx, xyz[:, 1] / den * sy
+
+    for label, planes in ((f"cost volume D={dc.n_intervals}",
+                           dc.n_intervals), ("scene cloud", 1),
+                          ("hypotheses x7", 7)):
+        interval = dc.depth_interval * (dc.n_intervals - 1) / max(planes - 1,
+                                                                  1)
+        pts = camera.plane_sweep_points(
+            dc.depth_start, interval, planes, b.rotmats[ri], b.tvecs[ri],
+            b.K[ri], img, dc.size).contiguous()
+        P = pts.shape[1]
+        g = rnd(R, P, f)
+        a32 = (pts, feats, b.src_idx, b.src_mask, P_all, img)
+        a64 = (pts, feats.double(), b.src_idx, b.src_mask, P_all, img)
+        ag = (pts.double(), feats.double(), b.src_idx, b.src_mask,
+              P_all.double(), img)
+        k_var, k_mean = _source_variance(*a32, True)
+        t_var, t_mean = source_variance_ref(*a32, with_mean=True)
+        d_var, d_mean = source_variance_ref(*a64, with_mean=True)
+        g_var, g_mean = source_variance_ref(*ag, with_mean=True)
+        k_bw = source_variance_backward(g, k_mean, *a32)
+        t_bw = source_variance_backward_ref(g, t_mean, *a32)
+        d_bw = source_variance_backward_ref(g.double(), d_mean, *a64)
+        g_bw = source_variance_backward_ref(g.double(), g_mean, *ag)
+        torch.cuda.synchronize()
+        rec = {}
+        for what, k, t, d, gg in (("forward", k_var, t_var, d_var, g_var),
+                                  ("backward", k_bw, t_bw, d_bw, g_bw)):
+            # a point whose projection is not finite is NaN on every side
+            fin = torch.isfinite(d)
+            top = float(d[fin].abs().max())
+            errs = {}
+            for side, x, ref in (("kernel", k, d), ("twin32", t, d),
+                                 ("twin64_geometry64", gg, d),
+                                 ("kernel_vs_geometry64", k, gg),
+                                 ("twin32_vs_geometry64", t, gg)):
+                diff = torch.where(fin, (x.double() - ref).abs(),
+                                   torch.zeros_like(d))
+                errs[side] = (float(diff.max()), float(diff.max()) / top,
+                              int(diff.argmax()))
+            ok &= all(math.isfinite(e[0]) for e in errs.values())
+            worst = errs["kernel"][2]
+            where = {}
+            if what == "forward":
+                r, p = divmod(worst // f, P)
+                for s in range(S):
+                    if not bool(b.src_mask[r, s]):
+                        continue
+                    n = int(b.src_idx[r, s])
+                    z, x, y = depth_in(pts[r, p:p + 1], n)
+                    x0, y0 = float(torch.floor(x)), float(torch.floor(y))
+                    where[f"source {n}"] = {
+                        "z": float(z), "x": float(x), "y": float(y),
+                        "tap_off_map": x0 < 0 or x0 + 1 > Wf - 1 or y0 < 0
+                        or y0 + 1 > Hf - 1}
+            else:
+                n, rest = divmod(worst // f, Hf * Wf)
+                yy, xx = divmod(rest, Wf)
+                zs = []
+                for r in range(R):
+                    for s in range(S):
+                        if int(b.src_idx[r, s]) != n or not bool(
+                                b.src_mask[r, s]):
+                            continue
+                        z, x, y = depth_in(pts[r], n)
+                        cover = ((torch.floor(x) - xx).abs() <= 1) & \
+                            (torch.floor(x) <= xx) & \
+                            ((torch.floor(y) - yy).abs() <= 1) & \
+                            (torch.floor(y) <= yy)
+                        if bool(cover.any()):
+                            zs.append(float(z[cover].abs().min()))
+                where = {"image": n, "pixel": [yy, xx],
+                         "on_border": yy in (0, Hf - 1) or xx in (0, Wf - 1),
+                         "min_depth_of_covering_points":
+                             min(zs) if zs else None}
+            rec[what] = {"max_abs_f64": top, "errors": {
+                side: {"max_abs": e[0], "rel_to_max": e[1]}
+                for side, e in errs.items()}, "worst_kernel_element": where}
+            log(f"  {label:22s} {what:8s} |f64| max {top:.4e}: kernel "
+                f"{errs['kernel'][0]:.3e} ({errs['kernel'][1]:.2e}), twin32 "
+                f"{errs['twin32'][0]:.3e} ({errs['twin32'][1]:.2e}), twin64 "
+                f"with f64 geometry {errs['twin64_geometry64'][0]:.3e} "
+                f"({errs['twin64_geometry64'][1]:.2e}); against that: "
+                f"kernel {errs['kernel_vs_geometry64'][0]:.3e} "
+                f"({errs['kernel_vs_geometry64'][1]:.2e}), twin32 "
+                f"{errs['twin32_vs_geometry64'][0]:.3e} "
+                f"({errs['twin32_vs_geometry64'][1]:.2e}); the kernel's "
+                f"worst {json.dumps(where)}")
+        out[label] = rec
+        del k_bw, t_bw, d_bw, g_bw
+    torch.cuda.empty_cache()
+    return bool(ok), out
+
+
 def _rel(got, want):
     return abs(got - want) / max(abs(want), 1e-30)
 
 
-def train_steps_record(state, step, batch, lam, before_step=None):
-    """Run TRAIN_STEPS steps (calling `before_step(i, model)` before step i);
-    the losses of each, step 1's gradient norm per module of TRAIN_MODULES
-    and its TRAIN_LEAVES gradients (float64 numpy), TRAIN_BN's running
-    statistics after the steps, and the steps' host ms (to a synchronise
-    on the loss)."""
+class TrainRun:
+    """What one n_iters regime of phase 9b reads and how its golden is
+    held: the JAX golden's file, the epoch whose lambda it trains at, the
+    gradient leaves and BatchNorms it records, its limits (per step for the
+    losses, per quantity for the gradients) and the float64 referee's
+    gradient limits (per quantity)."""
+
+    def __init__(self, n_iters, golden, epoch, leaves, bns, loss_rel,
+                 grad_rel, referee_grad_rel, steps=TRAIN_STEPS,
+                 stats_rel=TRAIN_STATS_REL):
+        self.n_iters, self.golden, self.epoch = n_iters, golden, epoch
+        self.leaves, self.bns = leaves, bns
+        self.loss_rel, self.grad_rel = loss_rel, grad_rel
+        self.referee_grad_rel = referee_grad_rel
+        self.steps = steps
+        self.stats_rel = stats_rel
+
+
+TRAIN_RUNS = (
+    TrainRun(0, TRAIN_GOLDEN, 0, TRAIN_LEAVES, (TRAIN_BN,), GOLDEN_LOSS_REL,
+             GOLDEN_GRAD_REL, TRAIN_GRAD_REL),
+    TrainRun(1, TRAIN_REFINE_GOLDEN, TRAIN_REFINE_EPOCH, TRAIN_REFINE_LEAVES,
+             TRAIN_REFINE_BNS, GOLDEN_REFINE_LOSS_REL, GOLDEN_REFINE_GRAD_REL,
+             REFEREE_REFINE_GRAD_REL, stats_rel=GOLDEN_REFINE_STATS_REL),
+    # n_iters_late from the switch epoch on; one step, the referee alone
+    TrainRun(2, None, TRAIN_LATE_EPOCH, TRAIN_REFINE_LEAVES, TRAIN_REFINE_BNS,
+             None, None, REFEREE_REFINE_GRAD_REL, steps=1))
+
+
+def train_steps_record(state, step, batch, lam, run, before_step=None,
+                       after_step=None):
+    """Run `run.steps` steps (calling `before_step(i, model)` before step
+    i, and `after_step(i, model)` after it); the losses of each, step 1's
+    gradient norm per module of
+    TRAIN_MODULES and its gradients of `run.leaves` (float64 numpy), the
+    running statistics of `run.bns` after the steps, and the steps' host ms
+    (to a synchronise on the loss)."""
     import numpy as np
 
     model = state.model
     rec = {"loss": [], "loss_2d": [], "ms": []}
-    for i in range(TRAIN_STEPS):
+    for i in range(run.steps):
         if before_step is not None:
             before_step(i, model)
         t0 = time.perf_counter()
@@ -1276,51 +1747,72 @@ def train_steps_record(state, step, batch, lam, before_step=None):
         rec["ms"].append(1e3 * (time.perf_counter() - t0))
         rec["loss_2d"].append(float(mets["loss_2d"]))
         if i == 0:
-            rec.update(_grad_record(model))
-    rec["bn"] = _bn_record(model)
+            rec.update(_grad_record(model, run.leaves))
+        if after_step is not None:
+            after_step(i, model)
+    rec["bns"] = _bns_record(model, run.bns)
     if not np.isfinite(rec["loss"]).all():
         raise RuntimeError(f"non-finite training loss {rec['loss']}")
     return rec
 
 
-def _grad_record(model):
+def _grad_record(model, leaves):
     grads = {k: p.grad for k, p in model.named_parameters()
              if p.grad is not None}
     return {"grad_norms": {m: math.sqrt(sum(
         float((g.double() ** 2).sum()) for k, g in grads.items()
         if k.startswith(m + "."))) for m in TRAIN_MODULES},
-        "leaves": {k: grads[k].double().cpu().numpy() for k in TRAIN_LEAVES}}
+        "leaves": {k: grads[k].double().cpu().numpy() for k in leaves}}
 
 
-def _bn_record(model):
-    bn = model.get_submodule(TRAIN_BN)
-    return {"running_mean": bn.running_mean.double().cpu().numpy(),
-            "running_var": bn.running_var.double().cpu().numpy()}
+def _bn_record(model, bn=TRAIN_BN):
+    bn = model.get_submodule(bn)
+    # a copy: a later forward updates the statistics in place
+    return {"running_mean": bn.running_mean.double().cpu().numpy().copy(),
+            "running_var": bn.running_var.double().cpu().numpy().copy()}
 
 
-def train_golden_record():
-    """The JAX golden in the layout of `train_steps_record`."""
+def _bns_record(model, bns):
+    return {b: _bn_record(model, b) for b in bns}
+
+
+def train_golden_record(run):
+    """The JAX golden of `run` in the layout of `train_steps_record`."""
     import numpy as np
 
-    with np.load(TRAIN_GOLDEN) as z:
+    with np.load(run.golden) as z:
         rec = json.loads(str(z["record"]))
         rec["leaves"] = {k[len("grad:"):]: z[k].astype(np.float64)
                          for k in z.files if k.startswith("grad:")}
-        rec["bn"] = {"running_mean": z["bn_running_mean"].astype(np.float64),
-                     "running_var": z["bn_running_var"].astype(np.float64)}
-    if tuple(rec["seeds"]) != GOLDEN_SEEDS or rec["steps"] != TRAIN_STEPS:
+        if run.n_iters == 0:
+            rec["bns"] = {TRAIN_BN: {
+                "running_mean": z["bn_running_mean"].astype(np.float64),
+                "running_var": z["bn_running_var"].astype(np.float64)}}
+        else:
+            rec["bns"] = {b: {k: z[f"bn:{b}.{k}"].astype(np.float64)
+                              for k in ("running_mean", "running_var")}
+                          for b in run.bns}
+    if tuple(rec["seeds"]) != GOLDEN_SEEDS or rec["steps"] != run.steps \
+            or rec["n_iters"] != run.n_iters:
         raise RuntimeError(f"train golden settings {rec['seeds']}, "
-                           f"{rec['steps']} steps differ from the script's")
+                           f"{rec['steps']} steps, n_iters {rec['n_iters']} "
+                           f"differ from the script's")
+    if sorted(rec["leaves"]) != sorted(run.leaves):
+        raise RuntimeError(f"train golden leaves {sorted(rec['leaves'])}")
     return rec
 
 
 def _limit(lim, key):
     """A limit given as one number, per step (a tuple) or per quantity (a
-    dict whose "" entry covers the rest)."""
+    dict: the key's own entry, else that of the longest module holding it,
+    else the "" entry)."""
     if isinstance(lim, tuple):
         return lim[key]
     if isinstance(lim, dict):
-        return lim.get(key, lim[""])
+        if key in lim:
+            return lim[key]
+        owners = [m for m in lim if m and key.startswith(m + ".")]
+        return lim[max(owners, key=len)] if owners else lim[""]
     return lim
 
 
@@ -1329,12 +1821,14 @@ def _verdict(e, lim):
 
 
 def compare_train_records(got, want, name, loss_rel, grad_rel, stats_rel,
-                          steps=TRAIN_STEPS):
+                          steps, n_steps=TRAIN_STEPS):
     """Log `got` against `want` and return whether every quantity is within
     its limit: the losses of the first `steps` steps relative, gradient
-    norms relative (a zero norm must stay zero), leaves in relative L2, and
-    after all TRAIN_STEPS steps the running statistics (`compare_bn`). A
-    limit is a number, per step or per quantity (`_limit`)."""
+    norms relative (a zero norm must stay zero), the leaves both records
+    hold in relative L2, and, when `steps` covers all `n_steps` the runs
+    took, the running statistics of every BatchNorm both hold
+    (`compare_bn`). A limit is a number, per step or per quantity
+    (`_limit`)."""
     import numpy as np
 
     ok = True
@@ -1352,21 +1846,25 @@ def compare_train_records(got, want, name, loss_rel, grad_rel, stats_rel,
         log(f"  grad norm {m:18s} {g:.6e} vs {name} {w:.6e}: rel {e:.2e} "
             f"{_verdict(e, _limit(grad_rel, m))}")
         ok &= e <= _limit(grad_rel, m)
-    for k in TRAIN_LEAVES:
+    for k in sorted(set(got["leaves"]) & set(want["leaves"])):
         g, w = got["leaves"][k], want["leaves"][k]
         e = float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
         log(f"  grad {k:44s} rel L2 {e:.2e} vs {name} "
             f"{_verdict(e, _limit(grad_rel, k))}")
         ok &= e <= _limit(grad_rel, k)
-    if steps < TRAIN_STEPS:
+    if steps < n_steps:
         return bool(ok)
-    return bool(ok) & compare_bn(got["bn"], want["bn"], name, stats_rel)
+    for b in sorted(set(got.get("bns", {})) & set(want.get("bns", {}))):
+        ok &= compare_bn(got["bns"][b], want["bns"][b], name, stats_rel, b,
+                         n_steps)
+    return bool(ok)
 
 
-def compare_bn(got, want, name, stats_rel):
-    """TRAIN_BN's running statistics after TRAIN_STEPS steps: the mean in
-    units of the spread (a mean near zero has no scale of its own), the
-    variance relative to its largest."""
+def compare_bn(got, want, name, stats_rel, bn=TRAIN_BN,
+               n_steps=TRAIN_STEPS):
+    """A BatchNorm's running statistics after the steps: the mean in units
+    of the spread (a mean near zero has no scale of its own), the variance
+    relative to its largest."""
     import numpy as np
 
     scale = {"running_mean": np.sqrt(want["running_var"]).max(),
@@ -1374,26 +1872,27 @@ def compare_bn(got, want, name, stats_rel):
     ok = True
     for k in ("running_mean", "running_var"):
         e = float(np.abs(got[k] - want[k]).max() / max(scale[k], 1e-30))
-        log(f"  {TRAIN_BN}.{k} after {TRAIN_STEPS} steps: rel {e:.2e} vs "
+        log(f"  {bn}.{k} after {n_steps} steps: rel {e:.2e} vs "
             f"{name} {_verdict(e, stats_rel)}")
         ok &= e <= stats_rel
     return bool(ok)
 
 
-def update_check(p0, p1, grads, lr, name, noise=True):
+def update_check(p0, p1, grads, lr, name, noise=True,
+                 grad_rel=TRAIN_GRAD_REL):
     """Log and return the worst ratio, over the trained parameters, of the
     port's first Adam update (p0 -> p1) off a float64 one from `grads`
     (optax's first step, whose bias corrections cancel: p0 - lr * g / (|g|
     + eps)) to its limit: TRAIN_UPDATE_REL * lr plus one fp32 ulp of the
     parameter. With `noise` (gradients other than the port's own), an
-    element whose gradient is rounding noise (nonzero and |g| at most
-    TRAIN_GRAD_REL of its leaf's largest, or in ZERO_GRAD) moves in a
+    element whose gradient is rounding noise (nonzero and |g| at most the
+    leaf's limit in `grad_rel` of its largest, or in ZERO_GRADS) moves in a
     direction the noise picks: it is held only to move by at most lr (plus
     the same margin). Returns that ratio (at most 1 passes) and the share
     of such elements."""
     import torch
 
-    worst, worst_lr, n_noise, n_all = 0.0, 0.0, 0, 0
+    worst, worst_lr, n_noise, n_all, worst_leaf = 0.0, 0.0, 0, 0, None
     for k, a in p0.items():
         g, a = grads[k].double(), a.double()
         b = p1[k].double()
@@ -1405,62 +1904,88 @@ def update_check(p0, p1, grads, lr, name, noise=True):
         mag = g.abs()
         if not noise:
             loud = torch.ones_like(mag, dtype=torch.bool)
-        elif k == ZERO_GRAD:
+        elif k in ZERO_GRADS:
             loud = torch.zeros_like(mag, dtype=torch.bool)
         else:
-            loud = (mag > TRAIN_GRAD_REL * mag.max()) | (mag == 0)
+            loud = (mag > _limit(grad_rel, k) * mag.max()) | (mag == 0)
         d = (b - want).abs()
         ratio = torch.where(loud, d / margin, (b - a).abs() / (lr + margin))
-        worst = max(worst, float(ratio.max()))
+        if float(ratio.max()) > worst:
+            worst, worst_leaf = float(ratio.max()), k
         if bool(loud.any()):
             worst_lr = max(worst_lr, float(d[loud].max()) / lr)
         n_noise += int((~loud).sum())
         n_all += g.numel()
     share = n_noise / max(n_all, 1)
     log(f"  step 1's update vs {name}: worst {worst_lr:.2e} lr off, "
-        f"{worst:.2e} of its limit {'ok' if worst <= 1.0 else 'FAIL'}"
-        + (f"; {n_noise} of {n_all} elements ({share:.2%}, at most "
-           f"{TRAIN_NOISE_SHARE:.0%}) with noise-level gradients held to "
-           f"move by at most lr" if noise else ""))
+        f"{worst:.2e} of its limit (in {worst_leaf}) "
+        f"{'ok' if worst <= 1.0 else 'FAIL'}"
+        + (f"; {n_noise} of {n_all} elements ({share:.2%}) with noise-level "
+           f"gradients held to move by at most lr" if noise else ""))
     return worst, share
 
 
 @contextlib.contextmanager
 def float64_twins():
-    """Within the block the n_iters=0 path's three kernel call sites run
-    their plain twins, which keep float64 and which autograd differentiates:
-    the float64 reference run on the card."""
+    """Within the block every kernel call site of the training path runs
+    its plain twin, which keeps float64 and which autograd differentiates:
+    the float64 reference run on the card. The geometry stays as the
+    port's: the points are taken in fp32 where they meet the fp32 cameras
+    (the variance's projections) and the grid (voxelization, which would
+    otherwise move a point on a cell face into another cell and change the
+    graph; scene sampling), as the port's fp32 run computes them."""
+    import tdvnet_torch.models.hypothesis as hypothesis
+    import tdvnet_torch.models.layers as layers
     import tdvnet_torch.models.mvsnet as mvsnet
+    import tdvnet_torch.models.pointnet as pointnet
     import tdvnet_torch.models.upsampling as upsampling
     import tdvnet_torch.ops.costvolume as costvolume
+    import tdvnet_torch.ops.voxelize as vox
+    from tdvnet_torch.kernels.groupnorm import masked_group_norm_ref
     from tdvnet_torch.kernels.propagation import propagation_blend_ref
+    from tdvnet_torch.kernels.segmax import gather_concat_ref, segment_max_ref
     from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_ref
     from tdvnet_torch.kernels.variance import source_variance_ref
+    from tdvnet_torch.kernels.voxelize import (scatter_anchors_to_dense_ref,
+                                               voxelize_ref)
 
-    saved = (mvsnet.softargmax_depth, upsampling.propagation_blend,
-             costvolume.source_variance)
-    mvsnet.softargmax_depth = softargmax_depth_ref
-    upsampling.propagation_blend = propagation_blend_ref
-    costvolume.source_variance = source_variance_ref
+    fp32 = lambda x: x.detach().float().contiguous()
+    swaps = (
+        (mvsnet, "softargmax_depth", softargmax_depth_ref),
+        (upsampling, "propagation_blend", propagation_blend_ref),
+        (costvolume, "source_variance",
+         lambda pts, *a: source_variance_ref(fp32(pts), *a)),
+        (vox, "voxelize", lambda pts, *a: voxelize_ref(fp32(pts), *a)),
+        (vox, "scatter_anchors_to_dense", scatter_anchors_to_dense_ref),
+        (pointnet, "segment_max", segment_max_ref),
+        (pointnet, "gather_concat", gather_concat_ref),
+        (layers, "masked_group_norm", masked_group_norm_ref),
+        (hypothesis, "trilinear_sample_scale",
+         lambda grid, pts, *a: trilinear_sample_ref(grid, fp32(pts), *a)))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (mvsnet.softargmax_depth, upsampling.propagation_blend,
-         costvolume.source_variance) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 class Float64Referee:
     """Before each of the port's steps, the same parameters, buffers and
-    batch in float64 through the twins (the cameras and projections stay
-    fp32, as in the port's run): the loss the step should compute, at step
-    1 its gradients and the faulty loss of the composition control, after
-    the last step the BatchNorm statistics. Each step starts from the
-    port's own state, so fp32 noise that Adam's sign-like first updates
-    amplify does not compound into the reference. It also keeps the port's
-    trained parameters before and after step 1 and TRAIN_BN's statistics
-    before each step, for `update_check` and the BatchNorm control."""
+    batch in float64 through the twins (the cameras, the projections and
+    the points where they meet the grid stay fp32, as in the port's run;
+    `float64_twins`): the loss the step should compute, at step 1 its
+    gradients and the faulty loss of the composition control, after the
+    last step the BatchNorm statistics. Each step starts from the port's
+    own state, so fp32 noise that Adam's sign-like first updates amplify
+    does not compound into the reference. It also keeps the port's trained
+    parameters before and after step 1 and TRAIN_BN's statistics before
+    each step, for `update_check` and the BatchNorm control."""
 
-    def __init__(self, cfg, batch, lam, device):
+    def __init__(self, cfg, batch, lam, device, run):
         import dataclasses
 
         from tdvnet_torch.models.threedvnet import ThreeDVNet
@@ -1473,6 +1998,7 @@ class Float64Referee:
             batch, images=batch.images.double(),
             depth_gt=batch.depth_gt.double())
         self.lam = lam
+        self.run = run
         self.offsets = list(cfg.train.offsets)
         self.bb_train = bool(cfg.train.finetune)
         self.record = {"loss": [], "loss_2d": []}
@@ -1484,7 +2010,7 @@ class Float64Referee:
         for p in m.parameters():
             p.grad = None
         with float64_twins():
-            return m(self.batch, self.offsets, 0, self.lam,
+            return m(self.batch, self.offsets, self.run.n_iters, self.lam,
                      with_metrics=False, backbone_train=self.bb_train)
 
     def __call__(self, i, model):
@@ -1492,27 +2018,22 @@ class Float64Referee:
 
         t0 = time.perf_counter()
         m = self.model
-        trained = {k: p.detach().clone() for k, p in model.named_parameters()
-                   if p.requires_grad}
         if i == 0:
-            self.p0 = trained
-        elif i == 1:
-            # step 2 has not zeroed step 1's gradients yet
-            self.p1 = trained
-            self.port_grads = {k: p.grad.detach().clone()
-                               for k, p in model.named_parameters()
-                               if k in trained}
+            self.p0 = {k: p.detach().clone()
+                       for k, p in model.named_parameters()
+                       if p.requires_grad}
         self.bn_before.append(_bn_record(model))
         m.load_state_dict(model.state_dict())
         m.train()
         out = self._forward()
         self.record["loss"].append(out["loss"].item())
         self.record["loss_2d"].append(out["loss_2d"].item())
-        self.record["bn"] = _bn_record(m)
+        # this forward's update of the running statistics is the step's
+        self.record["bns"] = _bns_record(m, self.run.bns)
         if i == 0:
             with float64_twins():
                 out["loss"].backward()
-            self.record.update(_grad_record(m))
+            self.record.update(_grad_record(m, self.run.leaves))
             self.grads = {k: torch.zeros_like(p) if p.grad is None
                           else p.grad for k, p in m.named_parameters()
                           if k in self.p0}
@@ -1525,8 +2046,18 @@ class Float64Referee:
                 loss.backward()
             self.control = {"loss": [loss.item()],
                             "loss_2d": [out["loss_2d"].item()],
-                            **_grad_record(m)}
+                            **_grad_record(m, self.run.leaves)}
+        del out
         self.seconds += time.perf_counter() - t0
+
+    def after(self, i, model):
+        """After the port's step i: step 1's parameters and gradients."""
+        if i == 0:
+            self.p1 = {k: p.detach().clone()
+                       for k, p in model.named_parameters() if k in self.p0}
+            self.port_grads = {k: p.grad.detach().clone()
+                               for k, p in model.named_parameters()
+                               if k in self.p0}
 
 
 def bn_control(before, after, momentum=0.9):
@@ -1546,26 +2077,30 @@ def bn_control(before, after, momentum=0.9):
     return rec
 
 
-def train_golden_phase(state, step, batch, lam, cfg, device):
-    """TRAIN_STEPS steps of the port from the synth48 weights, against the
-    float64 referee and the JAX golden, then the controls; returns (ok,
-    launch counts of those steps, the steps' host ms)."""
+def train_golden_phase(state, step, batch, lam, cfg, device, run):
+    """`run.steps` steps of the port from the synth48 weights at
+    `run.n_iters`, against the float64 referee and (where `run` has one)
+    the JAX golden, then the controls; returns (ok, launch counts of those
+    steps, the steps' host ms)."""
     import torch
 
     from tdvnet_torch.kernels import launch_counts, reset_launch_counts
 
-    golden = train_golden_record()
-    referee = Float64Referee(cfg, batch, lam, device)
+    golden = train_golden_record(run) if run.golden else None
+    referee = Float64Referee(cfg, batch, lam, device, run)
     torch.cuda.synchronize()
     reset_launch_counts()
-    got = train_steps_record(state, step, batch, lam, before_step=referee)
+    got = train_steps_record(state, step, batch, lam, run,
+                             before_step=referee, after_step=referee.after)
     counts = launch_counts()
-    log(f"  float64 referee: {referee.seconds:.1f} s over the "
-        f"{TRAIN_STEPS} steps")
+    n = run.steps
+    cmp = lambda a, b, name, loss_rel, grad_rel, steps=n, \
+        stats_rel=TRAIN_STATS_REL: compare_train_records(
+            a, b, name, loss_rel, grad_rel, stats_rel, steps, n)
+    log(f"  float64 referee: {referee.seconds:.1f} s over the {n} steps")
     log("  the port (fp32) against the float64 referee:")
-    ok = compare_train_records(got, referee.record, "float64",
-                               TRAIN_LOSS_REL, TRAIN_GRAD_REL,
-                               TRAIN_STATS_REL)
+    ok = cmp(got, referee.record, "float64", TRAIN_LOSS_REL,
+             run.referee_grad_rel)
     # the optimizer alone: Adam in float64 from the port's own gradients,
     # every element; then from the referee's, every element whose gradient
     # is above rounding noise (each leaf's gradient in sign and size)
@@ -1575,30 +2110,42 @@ def train_golden_phase(state, step, batch, lam, cfg, device):
     ok &= worst <= 1.0
     worst, share = update_check(referee.p0, referee.p1, referee.grads,
                                 referee.lr, "float64 Adam of the float64 "
-                                "gradients")
-    ok &= worst <= 1.0 and share <= TRAIN_NOISE_SHARE
-    log("  the port (fp32) against the JAX golden (fp32):")
-    ok &= compare_train_records(got, golden, "JAX", GOLDEN_LOSS_REL,
-                                GOLDEN_GRAD_REL, TRAIN_STATS_REL)
-    log("  the JAX golden against the float64 referee at step 1 (the same "
-        "parameters; later steps follow another trajectory):")
-    compare_train_records(golden, referee.record, "float64",
-                          GOLDEN_LOSS_REL, GOLDEN_GRAD_REL, TRAIN_STATS_REL,
-                          steps=1)
-    expected = train_expected_launches(TRAIN_STEPS)
+                                "gradients", grad_rel=run.referee_grad_rel)
+    if run.n_iters == 0:
+        ok &= worst <= 1.0 and share <= TRAIN_NOISE_SHARE
+    else:
+        # a reading only: behind the PointNet's max pools and the scene
+        # U-Net an element at a thousandth of its leaf's largest gradient
+        # carries the fp32 forward's noise, so its sign is no test; the
+        # update from the port's own gradients above holds every element
+        log("  (a reading at n_iters >= 1, not a gate)")
+    if golden is not None:
+        log("  the port (fp32) against the JAX golden (fp32):")
+        ok &= cmp(got, golden, "JAX", run.loss_rel, run.grad_rel,
+                  stats_rel=run.stats_rel)
+        log("  the JAX golden against the float64 referee at step 1 (the "
+            "same parameters; later steps follow another trajectory):")
+        cmp(golden, referee.record, "float64", run.loss_rel, run.grad_rel,
+            steps=1)
+    expected = train_expected_launches(n, run.n_iters,
+                                       len(cfg.train.offsets),
+                                       cfg.model.unet_res)
     log(f"  launches in those steps: {json.dumps(counts)} (expected "
         f"{json.dumps(expected)})")
     ok &= counts == expected
     # each control must fail the limits that stand for it: a FAIL below is
     # the limit seeing the fault
-    log(f"  control: the final stage's loss term x{CONTROL_STAGE_WEIGHT} "
-        f"(float64) against the float64 referee and the JAX golden:")
-    seen = {"composition vs float64": not compare_train_records(
-        referee.control, referee.record, "float64", TRAIN_LOSS_REL,
-        TRAIN_GRAD_REL, TRAIN_STATS_REL, steps=1)}
-    seen["composition vs JAX"] = not compare_train_records(
-        referee.control, golden, "JAX", GOLDEN_LOSS_REL, GOLDEN_GRAD_REL,
-        TRAIN_STATS_REL, steps=1)
+    refs = [("float64", referee.record, TRAIN_LOSS_REL,
+             run.referee_grad_rel, TRAIN_STATS_REL)]
+    if golden is not None:
+        refs.append(("JAX", golden, run.loss_rel, run.grad_rel,
+                     run.stats_rel))
+    seen = {}
+    for name, want, loss_rel, grad_rel, _ in refs:
+        log(f"  control: the final stage's loss term x{CONTROL_STAGE_WEIGHT}"
+            f" (float64) against the {name} reference:")
+        seen[f"composition vs {name}"] = not cmp(
+            referee.control, want, name, loss_rel, grad_rel, steps=1)
     log(f"  control: the port's update against a float64 Adam update at "
         f"lr x{CONTROL_LR}:")
     seen["optimizer"] = update_check(
@@ -1607,17 +2154,18 @@ def train_golden_phase(state, step, batch, lam, cfg, device):
         noise=False)[0] > 1.0
     log("  control: the BatchNorm updates weighted the other way round "
         "(momentum 0.9 as torch's):")
-    swapped = bn_control(referee.bn_before, got["bn"])
-    seen["batchnorm vs float64"] = not compare_bn(
-        swapped, referee.record["bn"], "float64", TRAIN_STATS_REL)
-    seen["batchnorm vs JAX"] = not compare_bn(
-        swapped, golden["bn"], "JAX", TRAIN_STATS_REL)
+    swapped = bn_control(referee.bn_before, got["bns"][TRAIN_BN])
+    for name, want, _, _, stats_rel in refs:
+        seen[f"batchnorm vs {name}"] = not compare_bn(
+            swapped, want["bns"][TRAIN_BN], name, stats_rel, TRAIN_BN, n)
     log(f"  controls seen by their limits: {json.dumps(seen)}")
     ok &= all(seen.values())
+    del referee
+    torch.cuda.empty_cache()
     return bool(ok), counts, got["ms"]
 
 
-def train_time_phase(state, step, batch, lam, card):
+def train_time_phase(state, step, batch, lam, card, n_iters):
     """TRAIN_TIMED warm steps, each timed on the host clock to a
     synchronise; peak device memory over them."""
     import numpy as np
@@ -1635,16 +2183,64 @@ def train_time_phase(state, step, batch, lam, card):
             raise RuntimeError("non-finite training loss")
     peak = torch.cuda.max_memory_allocated()
     med = float(np.median(times))
-    log(f"  warm train step median {med:.1f} ms (min {min(times):.1f}, max "
-        f"{max(times):.1f}); {1e3 * batch.n_refs / med:.2f} ref-frames/s "
-        f"trained; peak memory {peak / 2**30:.2f} GiB [{card}]")
-    return {"step_ms": times, "median_ms": med,
+    log(f"  warm n_iters={n_iters} train step median {med:.1f} ms (min "
+        f"{min(times):.1f}, max {max(times):.1f}); "
+        f"{1e3 * batch.n_refs / med:.2f} ref-frames/s trained; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    return {"n_iters": n_iters, "step_ms": times, "median_ms": med,
             "ref_frames_per_s": 1e3 * batch.n_refs / med, "peak_bytes": peak}
 
 
+def fit_phase(device, card):
+    """Phase 9e: `fit` with the default TrainConfig (n_iters_early = 1 at
+    epoch 0) for one epoch over two in-memory golden batches, validated on
+    one, from the regime's own initialisation: the steps must train the
+    scene stages on the card (every backward wrapper launched) and log
+    finite losses."""
+    import tempfile
+
+    import numpy as np
+
+    from tdvnet_torch.config import Config
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+    from tdvnet_torch.train import loop as L
+
+    cfg = Config()
+    batches = [golden_batch(GOLDEN_SEEDS), golden_batch(
+        (2 * SERVE_SEEDS[0], 2 * SERVE_SEEDS[0] + 1))]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tdvnet_fit_") as root:
+        _, state = L.fit(cfg, batches, lambda: batches[:1], n_epochs=1,
+                         log_dir=os.path.join(root, "runs"),
+                         ckpt_dir=os.path.join(root, "ckpt"), device=device)
+        with open(os.path.join(root, "runs", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    train = [r["train/loss"] for r in recs if "train/loss" in r]
+    val = [r["val/loss"] for r in recs if "val/loss" in r]
+    backward = {k: v for k, v in counts.items() if k.endswith("_backward")}
+    ok = (L.n_iters_for_epoch(cfg, 0) == cfg.train.n_iters_early == 1
+          and state.optimizer.count == len(batches) and len(train) >= 1
+          and np.isfinite(train + val).all() and len(val) == 1
+          and all(v > 0 for v in backward.values()))
+    log(f"  fit, default TrainConfig (n_iters={L.n_iters_for_epoch(cfg, 0)}"
+        f", lambda {L.lambda_for_epoch(cfg, 0)}), one epoch of "
+        f"{len(batches)} batches: {seconds:.1f} s, optimizer steps "
+        f"{state.optimizer.count}, train losses {train}, val loss {val}; "
+        f"backward launches {json.dumps(backward)} "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    del state
+    return ok, {"seconds": seconds, "train_loss": train, "val_loss": val,
+                "launches": counts}
+
+
 def train_phase(device, card):
-    """Phase 9: the backward kernels against their twins, three golden
-    steps, warm timing and a trace of one step."""
+    """Phase 9: the backward kernels against their twins and the variance
+    reading; golden steps at n_iters 0 and 1 and a referee step at n_iters
+    2, each timed warm; traces of an n_iters 0 and 1 step; `fit` with the
+    default TrainConfig. Returns the phases' verdicts and readings."""
     import torch
 
     from tdvnet_torch.config import Config
@@ -1652,30 +2248,47 @@ def train_phase(device, card):
     from tdvnet_torch.weights import load_threedvnet
 
     log("phase 9a: backward kernels against their twins at the train "
-        "step's shapes")
-    k_ok, per_kernel = kernel_phase(device, train_cases(device))
-    log("phase 9b: n_iters=0 train steps against a float64 referee and "
-        "the JAX golden")
+        "steps' shapes")
+    k_ok, per_kernel = kernel_phase(
+        device, train_cases(device) + train_refine_cases(device))
+    log("phase 9a: the source variance, kernel and fp32 twin against the "
+        "twin in float64")
+    v_ok, reading = variance_reading(device)
     cfg = Config()
-    lam = L.lambda_for_epoch(cfg, 0)
     batch = golden_batch(GOLDEN_SEEDS).to(device)
-    model = load_threedvnet(WEIGHTS, device=device)
-    state = L.TrainState(model, L.make_optimizer(cfg, model, 1))
-    step = L.make_train_step(model, cfg, 0)
-    g_ok, counts, first_ms = train_golden_phase(state, step, batch, lam, cfg,
-                                                device)
-    log(f"  the first {TRAIN_STEPS} steps (cold): "
-        f"{', '.join('%.1f ms' % t for t in first_ms)}")
+    out = {"kernels_ok": k_ok and v_ok, "per_kernel": per_kernel,
+           "variance_reading": reading, "ok": {}, "counts": {},
+           "timing": {}, "trace": {}}
+    for run in TRAIN_RUNS:
+        lam = L.lambda_for_epoch(cfg, run.epoch)
+        tag = "9b" if run.n_iters < 2 else "9b'"
+        log(f"phase {tag}: n_iters={run.n_iters} train steps (lambda {lam}, "
+            f"epoch {run.epoch}'s) against a float64 referee"
+            + (" and the JAX golden" if run.golden else ""))
+        model = load_threedvnet(WEIGHTS, device=device)
+        state = L.TrainState(model, L.make_optimizer(cfg, model, 1))
+        step = L.make_train_step(model, cfg, run.n_iters)
+        ok, counts, first_ms = train_golden_phase(state, step, batch, lam,
+                                                  cfg, device, run)
+        out["ok"][run.n_iters], out["counts"][run.n_iters] = ok, counts
+        log(f"  the first {run.steps} steps (cold): "
+            f"{', '.join('%.1f ms' % t for t in first_ms)}")
+        torch.cuda.empty_cache()
+        log(f"phase 9c: warm n_iters={run.n_iters} train steps")
+        timing = train_time_phase(state, step, batch, lam, card, run.n_iters)
+        timing["first_step_ms"] = first_ms
+        out["timing"][run.n_iters] = timing
+        if run.n_iters < 2:
+            log(f"phase 9d: trace of one n_iters={run.n_iters} train step")
+            out["trace"][run.n_iters] = profile_phase(
+                lambda: step(state, batch, lam),
+                f"n_iters={run.n_iters} train step", card, prefix="train_")
+        del state, model, step
+        torch.cuda.empty_cache()
+    log("phase 9e: fit with the default TrainConfig")
+    out["fit_ok"], out["fit"] = fit_phase(device, card)
     torch.cuda.empty_cache()
-    log("phase 9c: warm train steps")
-    timing = train_time_phase(state, step, batch, lam, card)
-    timing["first_step_ms"] = first_ms
-    log("phase 9d: trace of one train step")
-    trace = profile_phase(lambda: step(state, batch, lam), "train step",
-                          card, prefix="train_")
-    del state, model
-    torch.cuda.empty_cache()
-    return k_ok, g_ok, per_kernel, counts, timing, trace
+    return out
 
 
 def probe_phase(device):
@@ -2046,9 +2659,13 @@ def main():
 
     del model, inf, fast
     torch.cuda.empty_cache()
-    tk_ok, tg_ok, train_kernels, train_counts, train_timing, train_trace = \
-        train_phase(device, card)
-    per_kernel.update(train_kernels)
+    train = train_phase(device, card)
+    for name, k in train["per_kernel"].items():
+        if name in per_kernel:          # a forward's training shapes
+            per_kernel[name]["paths"].update(k["paths"])
+            per_kernel[name]["calls"] += k["calls"]
+        else:
+            per_kernel[name] = k
 
     log("phase 10: probes")
     p_ok, probe_kernels, probe_counts, probes = probe_phase(device)
@@ -2063,7 +2680,8 @@ def main():
                                                       scene_trace),
             "fast": (fast_counts, fast_trace),
             "eval3d": (eval3d_counts, eval3d_trace),
-            "train": (train_counts, train_trace),
+            "train": (train["counts"][0], train["trace"][0]),
+            "train1": (train["counts"][1], train["trace"][1]),
             "probe": (probe_counts, None)}
     sums = lambda t: t and {x: t[x] for x in (
         "ms", "plain_ms", "bound_ms", "library_ms")}
@@ -2089,6 +2707,7 @@ def main():
             "fast_scene_launches": launches["fast"],
             "eval3d_launches": launches["eval3d"],
             "train_launches": launches["train"],
+            "train1_launches": launches["train1"],
             "scene": sums(k["paths"].get("scene")),
             "scene_trace_ms": traced["scene"],
             "fast_scene_trace_ms": traced["fast"],
@@ -2100,13 +2719,20 @@ def main():
                     "fast_scene_stream": fast_stream,
                     "fast_scene_trace": fast_trace,
                     "eval3d_stream": eval3d_stream,
-                    "eval3d_trace": eval3d_trace, "train": train_timing,
-                    "train_trace": train_trace, "probes": probes}))
+                    "eval3d_trace": eval3d_trace,
+                    "train": train["timing"], "train_trace": train["trace"],
+                    "train_launches": train["counts"],
+                    "variance_reading": train["variance_reading"],
+                    "fit": train["fit"], "probes": probes}))
     phases = {"kernels": k_ok, "full path": f_ok, "scene golden": g_ok,
               "scene stream": s_ok, "fast scene golden": fg_ok,
               "fast scene stream": fs_ok, "eval3d golden": e_ok,
-              "eval3d stream": es_ok, "backward kernels": tk_ok,
-              "train golden": tg_ok, "probes": p_ok}
+              "eval3d stream": es_ok,
+              "backward kernels": train["kernels_ok"],
+              "train n_iters=0": train["ok"][0],
+              "train n_iters=1": train["ok"][1],
+              "train n_iters=2": train["ok"][2], "fit": train["fit_ok"],
+              "probes": p_ok}
     if not all(phases.values()):
         log(f"FAILED: {json.dumps(phases)}")
         return 1

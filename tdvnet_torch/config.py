@@ -69,6 +69,10 @@ class ModelConfig:
             raise ValueError(
                 f"warp_mode={self.warp_mode!r}: the port has only the exact "
                 f"gather warp")
+        if self.dtype != torch.float32:
+            raise NotImplementedError(
+                f"ModelConfig.dtype={self.dtype!r}: the port computes in "
+                f"fp32 only so far")
 
     @property
     def n_hyp(self) -> int:

@@ -14,13 +14,20 @@
 //
 // Design, NCDHW so that a channel is contiguous over the V voxels:
 //   stats     grid (chunks of V, B*G): a block sums x*m, x*x*m and m over
-//             its chunk for the group's channels, mask read once per voxel;
-//             block partials go to a [B*G, chunks, 3] scratch;
+//             its chunk for the group's channels in float64, mask read once
+//             per voxel; block partials go to a [B*G, chunks, 3] float64
+//             scratch. The reference's one-pass formula (below) loses up to
+//             ~1e-3 of the variance in fp32 where a group's mean is large
+//             against its spread, and the scene stages' gradients with it;
+//             float64 sums keep it exact to fp32 at no extra pass (the
+//             kernel is bound by its fp32 reads, not by the adds);
 //   finalize  one warp per (b, g) adds the partials in a fixed order (the
-//             result repeats from run to run; no float atomics), then
-//             count = sum(m) * C/G clamped to 1, mean = s1 / count,
-//             var = s2 / count - mean^2 clamped at 0 (the reference's
-//             formula, kept for its rounding), rstd = rsqrt(var + eps);
+//             result repeats from run to run; no float atomics), then in
+//             float64 count = sum(m) * C/G clamped to 1, mean = s1 / count,
+//             var = s2 / count - mean^2 clamped at 0, rstd = 1 / sqrt(var +
+//             eps), each rounded once to fp32;
+//             stats[b, g] = (mean, rstd, count, 1 if var >= 0 else 0),
+//             which masked_group_norm_backward.cu reads;
 //   apply     one thread per 4 voxels of a channel (16-byte accesses) when
 //             V is a multiple of 4, else per voxel:
 //             y = ((x - mean) * rstd * w[c] + b[c]) * m, then by mode
@@ -34,7 +41,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(kFull, v, d);
   return v;
@@ -42,21 +50,21 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __global__ void masked_group_norm_stats_kernel(
     const float* __restrict__ x, const float* __restrict__ mask,
-    float* __restrict__ partial, int C, int G, long long V, int chunk,
+    double* __restrict__ partial, int C, int G, long long V, int chunk,
     int n_chunks) {
-  __shared__ float smem[3][kThreads / 32];
+  __shared__ double smem[3][kThreads / 32];
   const int cg = C / G;
   const int b = blockIdx.y / G, g = blockIdx.y % G;
   const long long v0 = (long long)blockIdx.x * chunk;
   const long long v1 = v0 + chunk < V ? v0 + chunk : V;
   const float* m = mask + (long long)b * V;
   const float* xg = x + ((long long)b * C + (long long)g * cg) * V;
-  float s1 = 0.f, s2 = 0.f, cnt = 0.f;
+  double s1 = 0.0, s2 = 0.0, cnt = 0.0;
   for (long long v = v0 + threadIdx.x; v < v1; v += kThreads) {
-    const float mv = m[v];
+    const double mv = m[v];
     cnt += mv;
     for (int c = 0; c < cg; ++c) {
-      const float xv = xg[(long long)c * V + v];
+      const double xv = xg[(long long)c * V + v];
       s1 += xv * mv;
       s2 += xv * xv * mv;
     }
@@ -72,7 +80,7 @@ __global__ void masked_group_norm_stats_kernel(
   }
   __syncthreads();
   if (threadIdx.x < 3) {
-    float t = 0.f;
+    double t = 0.0;
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) t += smem[threadIdx.x][w];
     partial[((long long)blockIdx.y * n_chunks + blockIdx.x) * 3 +
@@ -80,15 +88,15 @@ __global__ void masked_group_norm_stats_kernel(
   }
 }
 
-// one warp per (b, g): stats[bg] = (mean, rstd)
+// one warp per (b, g): stats[bg] = (mean, rstd, count, var >= 0)
 __global__ void masked_group_norm_finalize_kernel(
-    const float* __restrict__ partial, float* __restrict__ stats, int C,
+    const double* __restrict__ partial, float* __restrict__ stats, int C,
     int G, int n_chunks, float eps) {
   const int bg = blockIdx.x;
   const int lane = threadIdx.x;
-  float s1 = 0.f, s2 = 0.f, cnt = 0.f;
+  double s1 = 0.0, s2 = 0.0, cnt = 0.0;
   for (int i = lane; i < n_chunks; i += 32) {
-    const float* p = partial + ((long long)bg * n_chunks + i) * 3;
+    const double* p = partial + ((long long)bg * n_chunks + i) * 3;
     s1 += p[0];
     s2 += p[1];
     cnt += p[2];
@@ -97,12 +105,13 @@ __global__ void masked_group_norm_finalize_kernel(
   s2 = warp_sum(s2);
   cnt = warp_sum(cnt);
   if (lane == 0) {
-    const float n = fmaxf(__fmul_rn(cnt, (float)(C / G)), 1.f);
-    const float mean = __fdiv_rn(s1, n);
-    const float var =
-        __fsub_rn(__fdiv_rn(s2, n), __fmul_rn(mean, mean));
-    stats[bg * 2 + 0] = mean;
-    stats[bg * 2 + 1] = rsqrtf(__fadd_rn(fmaxf(var, 0.f), eps));
+    const double n = fmax(cnt * (double)(C / G), 1.0);
+    const double mean = s1 / n;
+    const double var = s2 / n - mean * mean;
+    stats[bg * 4 + 0] = (float)mean;
+    stats[bg * 4 + 1] = (float)(1.0 / sqrt(fmax(var, 0.0) + (double)eps));
+    stats[bg * 4 + 2] = (float)n;
+    stats[bg * 4 + 3] = var >= 0.0 ? 1.f : 0.f;
   }
 }
 
@@ -131,7 +140,7 @@ __global__ void masked_group_norm_apply_kernel(
   const long long bc = t / vq;
   const int c = (int)(bc % C), b = (int)(bc / C);
   const int bg = b * G + c / (C / G);
-  const float mean = stats[bg * 2], rstd = stats[bg * 2 + 1];
+  const float mean = stats[bg * 4], rstd = stats[bg * 4 + 1];
   const float w = weight[c], bi = bias[c];
   const long long xi = bc * V + v, mi = (long long)b * V + v;
   if (VEC == 4) {
@@ -153,11 +162,11 @@ __global__ void masked_group_norm_apply_kernel(
 
 }  // namespace
 
-// x, out, skip [B, C, V]; mask [B, V]; partial [B*G, n_chunks, 3];
-// stats [B*G, 2]; n_chunks = ceil(V / chunk). skip is read only in mode 2.
+// x, out, skip [B, C, V]; mask [B, V]; partial [B*G, n_chunks, 3] float64;
+// stats [B*G, 4]; n_chunks = ceil(V / chunk). skip is read only in mode 2.
 extern "C" int tdv_masked_group_norm(
     const float* x, const float* mask, const float* weight,
-    const float* bias, const float* skip, float* out, float* partial,
+    const float* bias, const float* skip, float* out, double* partial,
     float* stats, int B, int C, int G, long long V, float eps, int mode,
     int chunk, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

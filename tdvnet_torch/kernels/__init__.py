@@ -3,27 +3,36 @@
 Each wrapper checks its arguments, launches its kernel on the current
 stream for CUDA tensors (building the library at first use, see `build`),
 runs its plain twin `*_ref` for CPU tensors, and counts its launches in
-`<wrapper>.launches`. Three forwards have a hand backward, a wrapper of its
-own here (`*_backward`), reached through a `torch.autograd.Function` when
-autograd records the call; on CUDA tensors every other wrapper raises
-`NotImplementedError` when an input requires grad, since its launch returns
-a tensor without a `grad_fn`.
+`<wrapper>.launches`. The forwards that training reaches (the source
+variance, the soft-argmax, the propagation blend, the dense scatter, the
+PointNet's pool and concat-back, the masked GroupNorm and the fp32 scene
+sampling) have a hand backward, a wrapper of its own here (`*_backward`),
+reached through a `torch.autograd.Function` when autograd records the
+call; on CUDA tensors every other wrapper (the fast path's, 3D
+evaluation's, voxelization, the probes) raises `NotImplementedError` when an
+input requires grad, since its launch returns a tensor without a
+`grad_fn`.
 """
 from tdvnet_torch.kernels.fusion import consistency_fuse
-from tdvnet_torch.kernels.groupnorm import masked_group_norm
+from tdvnet_torch.kernels.groupnorm import (masked_group_norm,
+                                            masked_group_norm_backward)
 from tdvnet_torch.kernels.patchfan import patch_fan_variance
 from tdvnet_torch.kernels.probes import batched_dot, take_along_axis
 from tdvnet_torch.kernels.propagation import (propagation_blend,
                                               propagation_blend_backward)
-from tdvnet_torch.kernels.segmax import gather_concat, segment_max
+from tdvnet_torch.kernels.segmax import (gather_concat,
+                                         gather_concat_backward, segment_max,
+                                         segment_max_backward)
 from tdvnet_torch.kernels.softargmax import (softargmax_depth,
                                              softargmax_depth_backward)
 from tdvnet_torch.kernels.variance import (source_variance,
                                            source_variance_backward)
 from tdvnet_torch.kernels.trilinear import (trilinear_sample,
+                                            trilinear_sample_backward,
                                             trilinear_sample_i8)
 from tdvnet_torch.kernels.tsdf import tsdf_integrate
-from tdvnet_torch.kernels.voxelize import scatter_anchors_to_dense
+from tdvnet_torch.kernels.voxelize import (
+    scatter_anchors_to_dense, scatter_anchors_to_dense_backward)
 # under another name, so that `kernels.voxelize` stays the module
 from tdvnet_torch.kernels.voxelize import voxelize as voxelize_points
 
@@ -46,6 +55,11 @@ WRAPPERS = {
     "propagation_blend_backward": propagation_blend_backward,
     "batched_dot": batched_dot,
     "take_along_axis": take_along_axis,
+    "scatter_anchors_to_dense_backward": scatter_anchors_to_dense_backward,
+    "segment_max_backward": segment_max_backward,
+    "gather_concat_backward": gather_concat_backward,
+    "masked_group_norm_backward": masked_group_norm_backward,
+    "trilinear_sample_backward": trilinear_sample_backward,
 }
 
 

@@ -57,6 +57,13 @@ SIGNATURES = {
     "tdv_masked_group_norm": [_P] * 8 + [_I, _I, _I, _L, _F, _I, _I, _P],
     "tdv_tsdf_integrate": [_P] * 9 + [_I] * 6 + [_F] * 5 + [_P],
     "tdv_consistency_fuse": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    "tdv_scatter_dense_backward": [_P] * 5 + [_I] * 5 + [_P],
+    "tdv_segment_max_backward": [_P] * 7 + [_L, _I, _L, _P],
+    "tdv_gather_concat_backward": [_P] * 6 + [_L, _I, _L, _I, _P],
+    "tdv_masked_group_norm_backward": [_P] * 13 + [_I, _I, _I, _L, _I, _I,
+                                                   _P],
+    "tdv_trilinear_sample_backward": [_P] * 4 + [_I, _L, _I, _I, _I, _I, _F,
+                                                 _P],
 }
 
 

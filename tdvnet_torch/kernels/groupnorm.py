@@ -1,8 +1,13 @@
-"""Masked GroupNorm with the scene U-Net's ReLU / residual tails (K5).
+"""Masked GroupNorm with the scene U-Net's ReLU / residual tails (K5), and
+its gradient.
 
-Kernel: `csrc/masked_group_norm.cu` (see its header for the TPU op it
-replaces, its bound and its design). `masked_group_norm_ref` is the plain
-PyTorch twin; the wrapper runs it only for CPU tensors.
+Kernels: `csrc/masked_group_norm.cu` and `csrc/masked_group_norm_backward.cu`
+(see their headers for the TPU op they replace, their bounds and their
+designs). `masked_group_norm_ref` and `masked_group_norm_backward_ref` are
+the plain PyTorch twins; the wrappers run them only for CPU tensors. When
+autograd records a call (grad mode on and an input requiring grad), it
+goes through `MaskedGroupNormFn`, which keeps the forward's statistics and
+output for `masked_group_norm_backward`.
 """
 from __future__ import annotations
 
@@ -11,10 +16,31 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from tdvnet_torch.kernels._launch import (check, launch, no_backward,
-                                          on_cpu)
+from tdvnet_torch.kernels._launch import check, launch, on_cpu, wants_grad
 
 CHUNK = 4096              # voxels per block of the statistics pass
+
+
+def _group_stats(x, mask, num_groups):
+    """x as [B, G, C/G, V] in its working type (fp32, or float64), and per
+    (batch, group) the mean, the variance (before its clamp) and the count
+    over the active voxels, all three in float64. The sums run in float64:
+    E[x^2] - E[x]^2 in fp32 (the JAX package's form) loses up to ~1e-3 of
+    the variance where a group's mean is large against its spread, which
+    costs the scene stages' gradients that much; in float64 the formula is
+    exact to fp32."""
+    B, C = x.shape[:2]
+    G = num_groups
+    xg = x.reshape(B, G, C // G, -1).to(torch.promote_types(x.dtype,
+                                                            torch.float32))
+    x64 = xg.to(torch.float64)
+    m = mask.reshape(B, 1, 1, -1).to(torch.float64)
+    cnt = (m.sum(dim=(2, 3)) * (C // G)).clamp(min=1.0)        # [B, 1]
+    s1 = (x64 * m).sum(dim=(2, 3))                             # [B, G]
+    s2 = (x64 * x64 * m).sum(dim=(2, 3))
+    mean = s1 / cnt
+    var = s2 / cnt - mean * mean
+    return xg, mean, var, cnt
 
 
 def masked_group_norm_ref(x: torch.Tensor, mask: torch.Tensor,
@@ -32,16 +58,10 @@ def masked_group_norm_ref(x: torch.Tensor, mask: torch.Tensor,
     `relu`, or `relu(y + skip) * mask` with a `skip` of x's shape.
     """
     B, C = x.shape[:2]
-    G = num_groups
-    xg = x.reshape(B, G, C // G, -1).to(torch.float32)        # [B, G, c, V]
-    m = mask.reshape(B, 1, 1, -1).to(torch.float32)
-    cnt = (m.sum(dim=(2, 3)) * (C // G)).clamp(min=1.0)        # [B, 1]
-    s1 = (xg * m).sum(dim=(2, 3))                              # [B, G]
-    s2 = (xg * xg * m).sum(dim=(2, 3))
-    mean = s1 / cnt
-    var = s2 / cnt - mean * mean
-    xn = (xg - mean[..., None, None]) * torch.rsqrt(
-        var.clamp(min=0.0) + eps)[..., None, None]
+    xg, mean, var, _ = _group_stats(x, mask, num_groups)
+    rstd = torch.rsqrt(var.clamp(min=0.0) + eps)
+    xn = (xg - mean.to(xg.dtype)[..., None, None]) \
+        * rstd.to(xg.dtype)[..., None, None]
     xn = xn.reshape(x.shape).to(x.dtype)
     shape = (1, C) + (1,) * (x.dim() - 2)
     y = (xn * weight.reshape(shape) + bias.reshape(shape)) * mask
@@ -50,15 +70,44 @@ def masked_group_norm_ref(x: torch.Tensor, mask: torch.Tensor,
     return F.relu(y) * mask if relu else y
 
 
-def masked_group_norm(x: torch.Tensor, mask: torch.Tensor, num_groups: int,
-                      weight: torch.Tensor, bias: torch.Tensor,
-                      eps: float = 1e-5, relu: bool = False,
-                      skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-    tensors = (x, mask, weight, bias) + (() if skip is None else (skip,))
-    if on_cpu(*tensors):
-        return masked_group_norm_ref(x, mask, num_groups, weight, bias, eps,
-                                     relu, skip)
-    no_backward("masked_group_norm", *tensors)
+def masked_group_norm_backward_ref(grad: torch.Tensor, x: torch.Tensor,
+                                   mask: torch.Tensor, num_groups: int,
+                                   weight: torch.Tensor, out: torch.Tensor,
+                                   eps: float = 1e-5, relu: bool = False,
+                                   skip: bool = False):
+    """(d x, d weight, d bias, d skip or None) of `masked_group_norm_ref`
+    from grad = d loss / d out and the forward's output `out` (which shows
+    where the ReLU passed), the statistics recomputed from x and the mask
+    in {0, 1}; `skip` says the call had a skip. With g' = grad * mask (and
+    where out > 0 under a ReLU tail), per (batch, group) with xn the
+    normalised input and n the count:
+    d x = rstd (w g' - m (sum w g' + xn sum w g' xn [var >= 0]) / n),
+    d weight = sum g' xn, d bias = sum g', d skip = g'."""
+    B, C = x.shape[:2]
+    G = num_groups
+    xg, mean, var, cnt = _group_stats(x, mask, G)
+    wt = xg.dtype
+    rstd = torch.rsqrt(var.clamp(min=0.0) + eps).to(wt)[..., None, None]
+    xn = (xg - mean.to(wt)[..., None, None]) * rstd            # [B, G, c, V]
+    cnt = cnt.to(wt)
+    m = mask.reshape(B, 1, 1, -1).to(xg.dtype)
+    g = grad.reshape(xg.shape).to(xg.dtype) * m
+    if relu or skip:
+        g = torch.where(out.reshape(xg.shape) > 0, g, torch.zeros_like(g))
+    w = weight.reshape(1, G, C // G, 1).to(xg.dtype)
+    d_weight = (g * xn).sum(dim=(0, 3)).reshape(C)
+    d_bias = g.sum(dim=(0, 3)).reshape(C)
+    a = (w * g).sum(dim=(2, 3)) / cnt                           # [B, G]
+    bx = (w * g * xn).sum(dim=(2, 3))
+    bx = torch.where(var >= 0, bx, torch.zeros_like(bx)) / cnt
+    dx = rstd * (w * g - m * (a[..., None, None] + xn * bx[..., None, None]))
+    return (dx.reshape(x.shape), d_weight, d_bias,
+            g.reshape(x.shape) if skip else None)
+
+
+def _masked_group_norm(x, mask, num_groups, weight, bias, eps, relu, skip):
+    """The forward launch; returns (out, stats [B*G, 4]: mean, rstd, count,
+    var >= 0)."""
     B, C = x.shape[:2]
     G = num_groups
     if C % G:
@@ -76,9 +125,9 @@ def masked_group_norm(x: torch.Tensor, mask: torch.Tensor, num_groups: int,
     dev = x.device
     out = torch.empty_like(x)
     n_chunks = -(-V // CHUNK)
-    partial = torch.empty((B * G, n_chunks, 3), dtype=torch.float32,
+    partial = torch.empty((B * G, n_chunks, 3), dtype=torch.float64,
                           device=dev)
-    stats = torch.empty((B * G, 2), dtype=torch.float32, device=dev)
+    stats = torch.empty((B * G, 4), dtype=torch.float32, device=dev)
     mode = 2 if skip is not None else int(relu)
     launch("tdv_masked_group_norm", dev, x.data_ptr(), mask.data_ptr(),
            weight.data_ptr(), bias.data_ptr(),
@@ -86,7 +135,94 @@ def masked_group_norm(x: torch.Tensor, mask: torch.Tensor, num_groups: int,
            partial.data_ptr(), stats.data_ptr(), B, C, G, V, float(eps), mode,
            CHUNK)
     masked_group_norm.launches += 1
-    return out
+    return out, stats
+
+
+class MaskedGroupNormFn(torch.autograd.Function):
+    """`masked_group_norm` with its hand backward; the forward's statistics
+    and output are kept for it (the output shows where the ReLU passed)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, weight, bias, skip, num_groups, eps, relu):
+        out, stats = _masked_group_norm(x, mask, num_groups, weight, bias,
+                                        eps, relu, skip)
+        ctx.save_for_backward(x, mask, weight, out, stats)
+        ctx.num_groups, ctx.eps, ctx.relu = num_groups, eps, relu
+        ctx.has_skip = skip is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, mask, weight, out, stats = ctx.saved_tensors
+        dx, dw, db, ds = masked_group_norm_backward(
+            grad.contiguous(), x, mask, ctx.num_groups, weight, out, stats,
+            ctx.eps, ctx.relu, ctx.has_skip)
+        return dx, None, dw, db, ds, None, None, None
+
+
+def masked_group_norm(x: torch.Tensor, mask: torch.Tensor, num_groups: int,
+                      weight: torch.Tensor, bias: torch.Tensor,
+                      eps: float = 1e-5, relu: bool = False,
+                      skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    tensors = (x, mask, weight, bias) + (() if skip is None else (skip,))
+    if on_cpu(*tensors):
+        return masked_group_norm_ref(x, mask, num_groups, weight, bias, eps,
+                                     relu, skip)
+    if wants_grad(mask):
+        raise NotImplementedError(
+            "masked_group_norm: no gradient with respect to the mask (the "
+            "occupancy takes none); detach it")
+    if wants_grad(*tensors):
+        return MaskedGroupNormFn.apply(x, mask, weight, bias, skip,
+                                       num_groups, eps, relu)
+    return _masked_group_norm(x, mask, num_groups, weight, bias, eps, relu,
+                              skip)[0]
 
 
 masked_group_norm.launches = 0
+
+
+def masked_group_norm_backward(grad: torch.Tensor, x: torch.Tensor,
+                               mask: torch.Tensor, num_groups: int,
+                               weight: torch.Tensor, out: torch.Tensor,
+                               stats: Optional[torch.Tensor],
+                               eps: float = 1e-5, relu: bool = False,
+                               skip: bool = False):
+    """Same contract as `masked_group_norm_backward_ref`; launches the CUDA
+    kernel for CUDA tensors, which reads the forward kernel's `stats`
+    [B*G, 4] (the twin recomputes them and ignores the argument)."""
+    if on_cpu(grad, x, mask, weight, out):
+        return masked_group_norm_backward_ref(grad, x, mask, num_groups,
+                                              weight, out, eps, relu, skip)
+    B, C = x.shape[:2]
+    G = num_groups
+    dims = tuple(x.shape[2:])
+    V = 1
+    for d in dims:
+        V *= d
+    for name, tsr in (("grad", grad), ("x", x), ("out", out)):
+        check(tsr, name, torch.float32, tuple(x.shape))
+    check(mask, "mask", torch.float32, (B, 1, *dims))
+    check(weight, "weight", torch.float32, (C,))
+    check(stats, "stats", torch.float32, (B * G, 4))
+    dev = x.device
+    dx = torch.empty_like(x)
+    ds = torch.empty_like(x) if skip else None
+    dw = torch.empty((C,), dtype=torch.float32, device=dev)
+    db = torch.empty_like(dw)
+    n_chunks = -(-V // CHUNK)
+    partial = torch.empty((B * C, n_chunks, 2), dtype=torch.float32,
+                          device=dev)
+    chan = torch.empty((B * C, 2), dtype=torch.float32, device=dev)
+    coef = torch.empty((B * G, 2), dtype=torch.float32, device=dev)
+    mode = 2 if skip else int(relu)
+    launch("tdv_masked_group_norm_backward", dev, grad.data_ptr(),
+           x.data_ptr(), mask.data_ptr(), out.data_ptr(), weight.data_ptr(),
+           stats.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+           ds.data_ptr() if skip else None, partial.data_ptr(),
+           chan.data_ptr(), coef.data_ptr(), B, C, G, V, mode, CHUNK)
+    masked_group_norm_backward.launches += 1
+    return dx, dw, db, ds
+
+
+masked_group_norm_backward.launches = 0

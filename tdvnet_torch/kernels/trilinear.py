@@ -1,18 +1,24 @@
 """Trilinear sampling of a dense scene grid at world points: fp32 grids
-(K6) and the fast path's per-channel int8 grids (K6-int8).
+(K6, with its gradient for the grid) and the fast path's per-channel int8
+grids (K6-int8, inference only).
 
-Kernels: `csrc/trilinear_sample.cu` and `csrc/trilinear_sample_i8.cu` (see
-their headers for the TPU ops they replace, their bounds and their
-designs). `trilinear_sample_ref` and `trilinear_sample_i8_ref` are the
-plain PyTorch twins; the wrappers run them only for CPU tensors.
+Kernels: `csrc/trilinear_sample.cu`, `csrc/trilinear_sample_backward.cu`
+and `csrc/trilinear_sample_i8.cu` (see their headers for the TPU ops they
+replace, their bounds and their designs). `trilinear_sample_ref`,
+`trilinear_sample_backward_ref` and `trilinear_sample_i8_ref` are the plain
+PyTorch twins; the wrappers run them only for CPU tensors.
+`trilinear_sample` writes into a channel slice of a wider output, which
+autograd cannot follow: a sampling that must carry the grid's gradient
+goes through `trilinear_sample_scale`, which returns the scale's own
+[B, Q, C] from `TrilinearSampleFn` (backward: `trilinear_sample_backward`).
 """
 from __future__ import annotations
 
 import torch
 
 from tdvnet_torch.kernels._launch import (check, launch, no_backward,
-                                          on_cpu)
-from tdvnet_torch.ops.sampling import trilinear_sample_batched
+                                          on_cpu, wants_grad)
+from tdvnet_torch.ops.sampling import _floor_in, trilinear_sample_batched
 
 
 def _node_coords(pts, center0, cell, cell_offset):
@@ -32,6 +38,41 @@ def trilinear_sample_ref(grid: torch.Tensor, pts: torch.Tensor,
     outside the grid."""
     return trilinear_sample_batched(grid, _node_coords(pts, center0, cell,
                                                        0.0))
+
+
+def trilinear_sample_backward_ref(grad: torch.Tensor, pts: torch.Tensor,
+                                  center0: torch.Tensor, cell: float,
+                                  grid_shape) -> torch.Tensor:
+    """d loss / d grid [B, X, Y, Z, C] from grad = d loss / d samples
+    [B, Q, C] (`trilinear_sample_ref`'s): each point adds g * w into each of
+    its 8 taps with the forward's weights; taps outside the grid take
+    nothing, nor does a point whose coordinates are not finite. The points
+    take no gradient."""
+    B, X, Y, Z, C = grid_shape
+    dims = (X, Y, Z)
+    q = _node_coords(pts, center0, cell, 0.0)
+    f, ok, i0 = zip(*[_floor_in(q[..., a], dims[a] - 1) for a in range(3)])
+    w = [q[..., a] - f[a] for a in range(3)]
+    anchor_ok = ok[0] & ok[1] & ok[2] & torch.isfinite(q).all(dim=-1)
+    base = torch.arange(B, device=grad.device)[:, None]
+    out = torch.zeros((B * X * Y * Z, C), dtype=grad.dtype,
+                      device=grad.device)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                idx = [i0[0] + dx, i0[1] + dy, i0[2] + dz]
+                wgt = ((w[0] if dx else 1 - w[0])
+                       * (w[1] if dy else 1 - w[1])
+                       * (w[2] if dz else 1 - w[2]))
+                inb = anchor_ok
+                for a in range(3):
+                    inb = inb & (idx[a] >= 0) & (idx[a] <= dims[a] - 1)
+                xi, yi, zi = [idx[a].clamp(0, dims[a] - 1) for a in range(3)]
+                rows = ((base * X + xi) * Y + yi) * Z + zi
+                val = torch.where(inb[..., None], grad * wgt[..., None],
+                                  torch.zeros_like(grad))
+                out.index_add_(0, rows.reshape(-1), val.reshape(-1, C))
+    return out.reshape(B, X, Y, Z, C)
 
 
 def trilinear_sample_i8_ref(grid: torch.Tensor, scale: torch.Tensor,
@@ -59,13 +100,19 @@ def trilinear_sample(grid: torch.Tensor, pts: torch.Tensor,
                      center0: torch.Tensor, cell: float, out: torch.Tensor,
                      ch_off: int) -> torch.Tensor:
     """Write `trilinear_sample_ref(grid, pts, center0, cell)` into channels
-    [ch_off, ch_off + C) of `out` [B, Q, Ctot] fp32 and return `out`."""
+    [ch_off, ch_off + C) of `out` [B, Q, Ctot] fp32 and return `out`. On the
+    card the in-place write carries no gradient: a grid that requires grad
+    raises (`trilinear_sample_scale` differentiates)."""
     if on_cpu(grid, pts, center0, out):
         C = grid.shape[-1]
         out[..., ch_off:ch_off + C] = trilinear_sample_ref(grid, pts, center0,
                                                            cell)
         return out
     no_backward("trilinear_sample", grid, pts, center0)
+    return _trilinear_sample(grid, pts, center0, cell, out, ch_off)
+
+
+def _trilinear_sample(grid, pts, center0, cell, out, ch_off):
     B, X, Y, Z, C = grid.shape
     Q = pts.shape[1]
     Ctot = out.shape[-1]
@@ -82,6 +129,73 @@ def trilinear_sample(grid: torch.Tensor, pts: torch.Tensor,
 
 
 trilinear_sample.launches = 0
+
+
+class TrilinearSampleFn(torch.autograd.Function):
+    """One scale's sampling into its own [B, Q, C], with the hand backward
+    for the grid."""
+
+    @staticmethod
+    def forward(ctx, grid, pts, center0, cell):
+        B, Q = pts.shape[:2]
+        out = torch.empty((B, Q, grid.shape[-1]), dtype=torch.float32,
+                          device=grid.device)
+        _trilinear_sample(grid, pts, center0, cell, out, 0)
+        ctx.save_for_backward(pts, center0)
+        ctx.cell, ctx.grid_shape = cell, tuple(grid.shape)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        pts, center0 = ctx.saved_tensors
+        g = trilinear_sample_backward(grad.contiguous(), pts, center0,
+                                      ctx.cell, ctx.grid_shape)
+        return g, None, None, None
+
+
+def trilinear_sample_scale(grid: torch.Tensor, pts: torch.Tensor,
+                           center0: torch.Tensor,
+                           cell: float) -> torch.Tensor:
+    """`trilinear_sample_ref(grid, pts, center0, cell)` as a new [B, Q, C]
+    tensor, differentiable in the grid (the points take no gradient)."""
+    if on_cpu(grid, pts, center0):
+        return trilinear_sample_ref(grid, pts, center0, cell)
+    if wants_grad(pts, center0):
+        raise NotImplementedError(
+            "trilinear_sample: no gradient with respect to the points (the "
+            "JAX package stops it); detach them")
+    if wants_grad(grid):
+        return TrilinearSampleFn.apply(grid, pts, center0, cell)
+    out = torch.empty((*pts.shape[:2], grid.shape[-1]), dtype=torch.float32,
+                      device=grid.device)
+    return _trilinear_sample(grid, pts, center0, cell, out, 0)
+
+
+def trilinear_sample_backward(grad: torch.Tensor, pts: torch.Tensor,
+                              center0: torch.Tensor, cell: float,
+                              grid_shape) -> torch.Tensor:
+    """Same contract as `trilinear_sample_backward_ref`; launches the CUDA
+    kernel for CUDA tensors (vector atomics: the sum order changes from run
+    to run)."""
+    if on_cpu(grad, pts, center0):
+        return trilinear_sample_backward_ref(grad, pts, center0, cell,
+                                             grid_shape)
+    B, X, Y, Z, C = grid_shape
+    Q = pts.shape[1]
+    _check_slice("trilinear_sample_backward", C, C, 0)
+    check(grad, "grad", torch.float32, (B, Q, C))
+    check(pts, "pts", torch.float32, (B, Q, 3))
+    check(center0, "center0", torch.float32, (B, 3))
+    out = torch.zeros(tuple(grid_shape), dtype=torch.float32,
+                      device=grad.device)
+    launch("tdv_trilinear_sample_backward", grad.device, grad.data_ptr(),
+           pts.data_ptr(), center0.data_ptr(), out.data_ptr(), B, Q, X, Y, Z,
+           C, float(cell))
+    trilinear_sample_backward.launches += 1
+    return out
+
+
+trilinear_sample_backward.launches = 0
 
 
 def trilinear_sample_i8(grid: torch.Tensor, scale: torch.Tensor,

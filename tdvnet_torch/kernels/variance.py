@@ -79,8 +79,9 @@ def source_variance_backward_ref(grad: torch.Tensor, mean: torch.Tensor,
     scale = torch.tensor([sx, sy], dtype=torch.float32, device=feats.device)
     mask = src_mask.to(torch.float32)
     cnt = mask.sum(dim=1).clamp(min=1.0)
-    out = torch.zeros((N * Hf * Wf, C), dtype=torch.float32,
-                      device=feats.device)
+    # fp32, or float64 for a float64 reference run
+    dtype = torch.promote_types(grad.dtype, feats.dtype)
+    out = torch.zeros((N * Hf * Wf, C), dtype=dtype, device=feats.device)
     for s in range(S):
         idx = src_idx[:, s]
         xy = _source_xy(pts_world, P_all, idx, scale)

@@ -4,7 +4,11 @@ the dense scene grid (K3).
 Kernel: `csrc/voxelize.cu` (see its header for the TPU op it replaces, its
 bound and its design). `scene_origins_ref`, `voxelize_ref` and
 `scatter_anchors_to_dense_ref` are the plain PyTorch twins; the wrappers run
-them only for CPU tensors.
+them only for CPU tensors. When autograd records a scatter (grad mode on
+and the anchor features requiring grad), it goes through
+`ScatterDenseFn`, whose backward is `scatter_anchors_to_dense_backward`
+(`csrc/scatter_dense_backward.cu`, twin
+`scatter_anchors_to_dense_backward_ref`).
 
   1. quantize points into a fixed per-scene grid anchored at the masked
      bbox minimum;
@@ -27,7 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from tdvnet_torch.kernels._launch import (check, launch, no_backward,
-                                          on_cpu)
+                                          on_cpu, wants_grad)
 
 SCAN_TILE = 1024          # cells per block of the kernel's prefix sum
 
@@ -126,6 +130,14 @@ def voxelize_ref(pts: torch.Tensor, pt_scene: torch.Tensor,
                      n_out_of_grid=n_out_of_grid, n_overflow=n_overflow)
 
 
+def _anchor_cells(vg: VoxelGrid, grid_size: Tuple[int, int, int]):
+    """Each anchor's flat cell index in the [B, gx, gy, gz] key space."""
+    gx, gy, gz = grid_size
+    flat = ((vg.anchor_idx3[:, 0] * gy + vg.anchor_idx3[:, 1]) * gz
+            + vg.anchor_idx3[:, 2])
+    return vg.anchor_scene * (gx * gy * gz) + flat
+
+
 def scatter_anchors_to_dense_ref(anchor_feats: torch.Tensor, vg: VoxelGrid,
                                  grid_size: Tuple[int, int, int],
                                  n_scenes: int):
@@ -135,10 +147,9 @@ def scatter_anchors_to_dense_ref(anchor_feats: torch.Tensor, vg: VoxelGrid,
     gx, gy, gz = grid_size
     n_cells = gx * gy * gz
     C = anchor_feats.shape[-1]
-    flat = ((vg.anchor_idx3[:, 0] * gy + vg.anchor_idx3[:, 1]) * gz
-            + vg.anchor_idx3[:, 2])
-    seg = torch.where(vg.anchor_valid, vg.anchor_scene * n_cells + flat,
-                      torch.full_like(flat, n_scenes * n_cells))
+    cells = _anchor_cells(vg, grid_size)
+    seg = torch.where(vg.anchor_valid, cells,
+                      torch.full_like(cells, n_scenes * n_cells))
     feats = torch.where(vg.anchor_valid[:, None], anchor_feats,
                         torch.zeros_like(anchor_feats))
     dense = anchor_feats.new_zeros((n_scenes * n_cells + 1, C))
@@ -148,6 +159,21 @@ def scatter_anchors_to_dense_ref(anchor_feats: torch.Tensor, vg: VoxelGrid,
     dense = dense[:-1].reshape(n_scenes, gx, gy, gz, C)
     occ = occ[:-1].reshape(n_scenes, gx, gy, gz, 1)
     return dense, occ
+
+
+def scatter_anchors_to_dense_backward_ref(grad_dense: torch.Tensor,
+                                          vg: VoxelGrid,
+                                          grid_size: Tuple[int, int, int],
+                                          n_scenes: int) -> torch.Tensor:
+    """d loss / d anchor_feats [A, C] from grad_dense = d loss / d dense
+    [B, gx, gy, gz, C]: each valid anchor's cell row, zeros for an invalid
+    anchor (the scatter's dump row is sliced off). Occupancy takes no
+    gradient."""
+    C = grad_dense.shape[-1]
+    rows = grad_dense.reshape(-1, C)[
+        torch.where(vg.anchor_valid, _anchor_cells(vg, grid_size), 0)]
+    return torch.where(vg.anchor_valid[:, None], rows,
+                       torch.zeros_like(rows))
 
 
 # ------------------------------------------------------------------- wrappers
@@ -211,23 +237,20 @@ def voxelize(pts: torch.Tensor, pt_scene: torch.Tensor,
 voxelize.launches = 0
 
 
-def scatter_anchors_to_dense(anchor_feats: torch.Tensor, vg: VoxelGrid,
-                             grid_size: Tuple[int, int, int], n_scenes: int):
-    """Scatter anchor features [A, C] into a dense [B, gx, gy, gz, C] grid.
-    Returns (grid, occupancy [B, gx, gy, gz, 1])."""
-    if on_cpu(anchor_feats, vg.anchor_idx3, vg.anchor_scene, vg.anchor_valid):
-        return scatter_anchors_to_dense_ref(anchor_feats, vg, grid_size,
-                                            n_scenes)
-    no_backward("scatter_anchors_to_dense", anchor_feats)
+def _check_anchor_table(vg: VoxelGrid, A: int) -> None:
+    check(vg.anchor_idx3, "anchor_idx3", torch.int64, (A, 3))
+    check(vg.anchor_scene, "anchor_scene", torch.int64, (A,))
+    check(vg.anchor_valid, "anchor_valid", torch.bool, (A,))
+
+
+def _scatter_dense(anchor_feats, vg, grid_size, n_scenes):
     gx, gy, gz = grid_size
     A, C = anchor_feats.shape
     if C % 4:
         raise ValueError(f"scatter_anchors_to_dense: C={C} must be a "
                          f"multiple of 4")
     check(anchor_feats, "anchor_feats", torch.float32, (A, C))
-    check(vg.anchor_idx3, "anchor_idx3", torch.int64, (A, 3))
-    check(vg.anchor_scene, "anchor_scene", torch.int64, (A,))
-    check(vg.anchor_valid, "anchor_valid", torch.bool, (A,))
+    _check_anchor_table(vg, A)
     dev = anchor_feats.device
     dense = torch.zeros((n_scenes, gx, gy, gz, C), dtype=torch.float32,
                         device=dev)
@@ -241,4 +264,76 @@ def scatter_anchors_to_dense(anchor_feats: torch.Tensor, vg: VoxelGrid,
     return dense, occ
 
 
+class ScatterDenseFn(torch.autograd.Function):
+    """`scatter_anchors_to_dense` with its hand backward; the occupancy is
+    not differentiable."""
+
+    @staticmethod
+    def forward(ctx, anchor_feats, anchor_idx3, anchor_scene, anchor_valid,
+                grid_size, n_scenes):
+        vg = _anchor_table(anchor_idx3, anchor_scene, anchor_valid)
+        dense, occ = _scatter_dense(anchor_feats, vg, grid_size, n_scenes)
+        ctx.save_for_backward(anchor_idx3, anchor_scene, anchor_valid)
+        ctx.grid_size, ctx.n_scenes = grid_size, n_scenes
+        ctx.mark_non_differentiable(occ)
+        return dense, occ
+
+    @staticmethod
+    def backward(ctx, grad_dense, _grad_occ):
+        vg = _anchor_table(*ctx.saved_tensors)
+        g = scatter_anchors_to_dense_backward(grad_dense.contiguous(), vg,
+                                              ctx.grid_size, ctx.n_scenes)
+        return g, None, None, None, None, None
+
+
+def _anchor_table(anchor_idx3, anchor_scene, anchor_valid) -> VoxelGrid:
+    """A VoxelGrid holding only the anchor table, all the scatter reads."""
+    return VoxelGrid(None, anchor_idx3, anchor_scene, None, anchor_valid,
+                     None, None, None, None, None, None)
+
+
+def scatter_anchors_to_dense(anchor_feats: torch.Tensor, vg: VoxelGrid,
+                             grid_size: Tuple[int, int, int], n_scenes: int):
+    """Scatter anchor features [A, C] into a dense [B, gx, gy, gz, C] grid.
+    Returns (grid, occupancy [B, gx, gy, gz, 1]); differentiable in the
+    anchor features."""
+    if on_cpu(anchor_feats, vg.anchor_idx3, vg.anchor_scene, vg.anchor_valid):
+        return scatter_anchors_to_dense_ref(anchor_feats, vg, grid_size,
+                                            n_scenes)
+    if wants_grad(anchor_feats):
+        return ScatterDenseFn.apply(anchor_feats, vg.anchor_idx3,
+                                    vg.anchor_scene, vg.anchor_valid,
+                                    grid_size, n_scenes)
+    return _scatter_dense(anchor_feats, vg, grid_size, n_scenes)
+
+
 scatter_anchors_to_dense.launches = 0
+
+
+def scatter_anchors_to_dense_backward(grad_dense: torch.Tensor,
+                                      vg: VoxelGrid,
+                                      grid_size: Tuple[int, int, int],
+                                      n_scenes: int) -> torch.Tensor:
+    """Same contract as `scatter_anchors_to_dense_backward_ref`; launches
+    the CUDA kernel for CUDA tensors."""
+    if on_cpu(grad_dense, vg.anchor_idx3, vg.anchor_scene, vg.anchor_valid):
+        return scatter_anchors_to_dense_backward_ref(grad_dense, vg,
+                                                     grid_size, n_scenes)
+    gx, gy, gz = grid_size
+    C = grad_dense.shape[-1]
+    A = vg.anchor_idx3.shape[0]
+    if C % 4:
+        raise ValueError(f"scatter_anchors_to_dense_backward: C={C} must be "
+                         f"a multiple of 4")
+    check(grad_dense, "grad_dense", torch.float32, (n_scenes, gx, gy, gz, C))
+    _check_anchor_table(vg, A)
+    out = torch.empty((A, C), dtype=torch.float32, device=grad_dense.device)
+    launch("tdv_scatter_dense_backward", grad_dense.device,
+           grad_dense.data_ptr(), vg.anchor_idx3.data_ptr(),
+           vg.anchor_scene.data_ptr(), vg.anchor_valid.data_ptr(),
+           out.data_ptr(), A, C, gx, gy, gz)
+    scatter_anchors_to_dense_backward.launches += 1
+    return out
+
+
+scatter_anchors_to_dense_backward.launches = 0

@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tdvnet_torch.kernels import trilinear_sample, trilinear_sample_i8
+from tdvnet_torch.kernels.trilinear import trilinear_sample_scale
 from tdvnet_torch.models.layers import batch_norm
 from tdvnet_torch.ops.sampling import upsample_linear_zeropad
 
@@ -105,11 +106,23 @@ def sample_scales(scales, pts: torch.Tensor, origins: torch.Tensor,
     sits at origin + edge/2 + s*(i - o)*edge. Returns [B, Q, sum C] with
     the finest scale first, in bf16 when every grid is int8 (as the JAX
     package samples its int8 tables), else fp32; each scale's kernel launch
-    writes its own channel slice.
+    writes its own channel slice. When autograd records a grid (training),
+    each scale returns its own samples and the scales are concatenated: an
+    in-place write would drop the grids' gradients.
     """
     center0 = (origins + 0.5 * edge_len).contiguous()
     B, Q, _ = pts.shape
     fine_first = scales[::-1]
+    if torch.is_grad_enabled() and any(sc["grid"].requires_grad
+                                       for sc in fine_first):
+        if any(sc["grid"].dtype == torch.int8 or sc.get("cell_offset")
+               for sc in fine_first):
+            raise NotImplementedError("sample_scales: the fast path's "
+                                      "tables are inference only")
+        pts = pts.contiguous()
+        return torch.cat([trilinear_sample_scale(
+            sc["grid"], pts, center0, sc["stride"] * edge_len)
+            for sc in fine_first], dim=-1)
     n_ch = sum(sc["grid"].shape[-1] for sc in scales)
     int8 = [sc["grid"].dtype == torch.int8 for sc in fine_first]
     dtype = torch.bfloat16 if all(int8) else torch.float32
@@ -205,4 +218,7 @@ class HypothesisDecoder(nn.Module):
                          (self.Conv_1, self.BatchNorm_1),
                          (self.Conv_2, self.BatchNorm_2)):
             y = F.relu(bn(conv(y)))
-        return torch.softmax(self.Conv_3(y)[:, 0].to(torch.float32), dim=-1)
+        logits = self.Conv_3(y)[:, 0]
+        return torch.softmax(logits.to(torch.promote_types(logits.dtype,
+                                                           torch.float32)),
+                             dim=-1)

@@ -179,12 +179,14 @@ class ThreeDVNet(nn.Module):
                                     origins, g.edge_len)
         # as in the JAX package, the variance takes the scene features'
         # dtype before the concat (bf16 from the fast path's int8 tables)
-        # and the decoder widens its input to its own fp32
+        # and the decoder widens its input to its own fp32 (float64, the
+        # reference run on the card, stays float64)
         feats = torch.cat([scene_feats.reshape(R, H, P, -1),
                            var.reshape(R, H, P, -1).to(scene_feats.dtype)],
                           dim=-1)
         feats = feats.transpose(1, 2).reshape(R * P, H, -1)
-        probs = (decoder or self.decoder)(feats.to(torch.float32))  # [RP, H]
+        probs = (decoder or self.decoder)(                       # [RP, H]
+            feats.to(torch.promote_types(feats.dtype, torch.float32)))
         pred = (probs * (ivals * offset)[None, :]).sum(dim=-1)
         return pred.reshape(R, h, w)
 

@@ -67,12 +67,13 @@ def project_points(pts_world: torch.Tensor, P: torch.Tensor):
 def backproject_grid(depth: torch.Tensor, K: torch.Tensor,
                      rotmat: torch.Tensor, tvec: torch.Tensor,
                      img_size: Tuple[int, int]) -> torch.Tensor:
-    """Back-project per-pixel depths [N, h, w] to world points [N, h*w, 3]."""
+    """Back-project per-pixel depths [N, h, w] to world points [N, h*w, 3]
+    (in the depths' type when it is wider than the cameras')."""
     n, h, w = depth.shape
     grid = build_img_grid(img_size, (h, w), depth.device)
     rays = grid @ torch.linalg.inv(K).transpose(-1, -2)        # [N, P, 3]
     pts_cam = rays * depth.reshape(n, h * w, 1)
-    return (pts_cam - tvec[:, None, :]) @ rotmat
+    return (pts_cam - tvec[:, None, :]) @ rotmat.to(pts_cam.dtype)
 
 
 def plane_sweep_points(depth_start: float, depth_interval: float,

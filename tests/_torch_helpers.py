@@ -1,6 +1,7 @@
 """Shared helpers of the port's tests: run a flax module and its torch port
 on the same seeded numpy inputs and the same weights."""
 import dataclasses
+import math
 
 import jax
 import numpy as np
@@ -105,3 +106,47 @@ def n(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def adam_grads(opt_state, params):
+    """The gradients of a first optax Adam step, from its first moment
+    (mu = (1 - b1) g after one update); None where the leaf is frozen."""
+    import optax
+
+    inner = opt_state.inner_states["train"].inner_state
+    adam = next(s for s in jax.tree.leaves(
+        inner, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState))
+    return jax.tree.map(
+        lambda m: None if isinstance(m, optax.MaskedNode)
+        else np.asarray(m) / np.float32(0.1), adam.mu,
+        is_leaf=lambda x: isinstance(x, optax.MaskedNode))
+
+
+def init_variables(module, *args, seed=0, **kwargs):
+    """Seeded numpy variables as the JAX package's `create_state` draws
+    them, in the shapes `jax.eval_shape` reports (nothing compiled): flax's
+    LeCun-normal kernels (truncated at two sigma), zero biases, unit norm
+    scales; the running statistics then move off their init values (means
+    N(0, 0.1), variances U(0.5, 1.5)), so that frozen and updated
+    statistics both show."""
+    shapes = jax.eval_shape(
+        lambda: module.init(jax.random.PRNGKey(0), *args, **kwargs))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, sd):
+        name = path[-1].key
+        if name == "kernel":
+            std = 1 / math.sqrt(math.prod(sd.shape[:-1])) / .87962566103423978
+            v = np.clip(rng.normal(0, 1, sd.shape), -2, 2) * std
+        elif name == "scale":
+            v = np.ones(sd.shape)
+        elif name == "var":
+            v = rng.uniform(0.5, 1.5, sd.shape)
+        elif name == "mean":
+            v = rng.normal(0, 0.1, sd.shape)
+        else:                                   # bias
+            v = np.zeros(sd.shape)
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, dict(shapes))

@@ -417,20 +417,24 @@ def test_imageio_and_synthetic_dataset_need_no_cv2(tmp_path):
 
 # ------------------------------------------------------------- training
 BACKWARD_KERNELS = ("source_variance_backward", "softargmax_depth_backward",
-                    "propagation_blend_backward")
+                    "propagation_blend_backward", "scatter_dense_backward",
+                    "segment_max_backward", "masked_group_norm_backward",
+                    "trilinear_sample_backward")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", BACKWARD_KERNELS)
 def test_backward_kernel_matches_twin_at_train_shapes(kernel):
     """Each backward kernel against its twin at the shapes the full-width
-    n_iters=0 train step gives it (`chip_smoke.train_cases`)."""
+    n_iters=0 and n_iters=1 train steps give it
+    (`chip_smoke.train_cases`, `chip_smoke.train_refine_cases`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     import chip_smoke
 
-    cases = [c for c in chip_smoke.train_cases(torch.device("cuda"))
-             if c.kernel == kernel]
+    dev = torch.device("cuda")
+    cases = [c for c in chip_smoke.train_cases(dev)
+             + chip_smoke.train_refine_cases(dev) if c.kernel == kernel]
     assert cases
     for case in cases:
         err, ok = chip_smoke.check_case(case)
@@ -514,9 +518,11 @@ def test_source_variance_backward_kernel_matches_twin_small():
 
 @pytest.mark.cuda
 def test_wrappers_raise_or_differentiate_when_inputs_require_grad():
-    """On the card a wrapper without a hand backward raises for an input
-    that requires grad (its launch returns no grad_fn); the three with one
-    differentiate; under inference_mode every wrapper runs as before."""
+    """On the card a wrapper without a hand backward (the fast path's,
+    3D evaluation's, voxelization, the in-place scene sampling) raises for
+    an input that requires grad (its launch returns no grad_fn); the eight
+    with one differentiate; under inference_mode every wrapper runs as
+    before."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from tdvnet_torch import kernels as K
@@ -543,10 +549,8 @@ def test_wrappers_raise_or_differentiate_when_inputs_require_grad():
                         .expand(2, 3, 3), torch.eye(3).expand(2, 3, 3),
                         torch.tensor([[0.0, 0, 0], [0.1, 0, 0]])).to(dev)
     raising = {
-        "segment_max": lambda: K.segment_max(rg(y), seg, valid, 6),
-        "gather_concat": lambda: K.gather_concat(rg(y), pooled, seg),
-        "masked_group_norm": lambda: K.masked_group_norm(rg(x), mask, 4, w,
-                                                         b),
+        # the in-place write into a channel slice carries no gradient
+        # (training samples through `trilinear_sample_scale`)
         "trilinear_sample": lambda: K.trilinear_sample(rg(grid), q, c0, 0.5,
                                                        out, 0),
         "patch_fan_variance": lambda: K.patch_fan_variance(
@@ -570,9 +574,6 @@ def test_wrappers_raise_or_differentiate_when_inputs_require_grad():
         1500, dtype=torch.long, device=dev), torch.ones(
         1500, dtype=torch.bool, device=dev), 0.1, (8, 8, 8), 64, 1)
     assert isinstance(vg, VoxelGrid)
-    with pytest.raises(NotImplementedError, match="scatter_anchors"):
-        K.scatter_anchors_to_dense(rg(torch.randn(64, 8, device=dev)), vg,
-                                   (8, 8, 8), 1)
     scale = torch.ones(1, 8, device=dev).requires_grad_()
     with pytest.raises(NotImplementedError, match="trilinear_sample_i8"):
         K.trilinear_sample_i8(torch.zeros(1, 4, 4, 4, 8, dtype=torch.int8,
@@ -581,19 +582,32 @@ def test_wrappers_raise_or_differentiate_when_inputs_require_grad():
                                           device=dev), 0)
     with pytest.raises(NotImplementedError, match="points"):
         K.source_variance(rg(pts), feats, sidx, smask, P_all, (64, 80))
-    # the three with a hand backward carry a grad_fn and count both launches
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_scale
+
+    with pytest.raises(NotImplementedError, match="points"):
+        trilinear_sample_scale(grid, rg(q), c0, 0.5)
+    # the eight with a hand backward carry a grad_fn and count both launches
     K.reset_launch_counts()
     v = K.source_variance(pts, rg(feats), sidx, smask, P_all, (64, 80))
     d = K.softargmax_depth(rg(torch.randn(2, 8, 4, 4, device=dev)),
                            torch.linspace(0.5, 1, 8, device=dev))
     p = K.propagation_blend(rg(torch.randn(2, 4, 5, 9, device=dev)),
                             rg(torch.rand(2, 4, 5, device=dev)))
-    for t in (v, d, p):
+    sm = K.segment_max(rg(y), seg, valid, 6)
+    gc = K.gather_concat(rg(y), rg(pooled), seg, relu=True)
+    gn = K.masked_group_norm(rg(x), mask, 4, rg(w), rg(b), relu=True)
+    sc, _ = K.scatter_anchors_to_dense(rg(torch.randn(64, 8, device=dev)),
+                                       vg, (8, 8, 8), 1)
+    ts = trilinear_sample_scale(rg(grid), q, c0, 0.5)
+    made = (v, d, p, sm, gc, gn, sc, ts)
+    for t in made:
         assert t.grad_fn is not None
-    (v.sum() + d.sum() + p.sum()).backward()
+    sum(t.sum() for t in made).backward()
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    for k in ("source_variance", "softargmax_depth", "propagation_blend"):
+    for k in ("source_variance", "softargmax_depth", "propagation_blend",
+              "segment_max", "gather_concat", "masked_group_norm",
+              "scatter_anchors_to_dense", "trilinear_sample"):
         assert counts[k] == counts[k + "_backward"] == 1, k
     # without grad mode nothing raises
     with torch.inference_mode():
@@ -648,13 +662,22 @@ def test_train_step_on_the_card_matches_the_cpu():
 
 
 @pytest.mark.cuda
-def test_refinement_training_raises_on_the_card():
-    """n_iters >= 1 needs the backward of the scene kernels, which the port
-    does not have yet: the step raises instead of dropping gradients."""
+@pytest.mark.parametrize("n_iters", [1, 2])
+def test_refinement_train_step_on_the_card_matches_the_cpu(n_iters):
+    """One tiny n_iters >= 1 train step from the same weights on the card
+    and on the CPU in float64 through the twins (`chip_smoke.float64_twins`):
+    loss and every gradient, and from the launch counters every kernel of
+    the path, forward and backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import copy
+    import dataclasses
+
+    import chip_smoke
     from tdvnet_torch.config import tiny_test_config
     from tdvnet_torch.data import batch as B, synthetic
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+    from tdvnet_torch.models.threedvnet import ThreeDVNet
     from tdvnet_torch.train import loop as L
 
     cfg = tiny_test_config()
@@ -663,9 +686,103 @@ def test_refinement_training_raises_on_the_card():
         [synthetic.make_batch_scene(bc.n_views, bc.img_size,
                                     bc.depth_img_size, seed=0)],
         bc.n_views, bc.n_ref, bc.n_src_on_either_side)
-    st = L.create_state(cfg, 1, "cuda")
-    with pytest.raises(NotImplementedError, match="backward not ported"):
-        L.make_train_step(st.model, cfg, 1)(st, batch, 0.5)
+    torch.manual_seed(0)
+    f64 = ThreeDVNet(cfg.model)
+    card = copy.deepcopy(f64).cuda()
+    st = L.TrainState(card, L.make_optimizer(cfg, card, 1))
+    reset_launch_counts()
+    _, mets = L.make_train_step(card, cfg, n_iters)(st, batch, 0.5)
+    counts = launch_counts()
+    f64 = f64.double().train()
+    b64 = dataclasses.replace(batch, images=batch.images.double(),
+                              depth_gt=batch.depth_gt.double())
+    with torch.backends.mkldnn.flags(enabled=False), \
+            chip_smoke.float64_twins():
+        out = f64(b64, list(cfg.train.offsets), n_iters, 0.5,
+                  with_metrics=False, backbone_train=False)
+        out["loss"].backward()
+    want = float(out["loss"])
+    assert abs(float(mets["loss"]) - want) <= 1e-5 * abs(want)
+    assert counts == chip_smoke.train_expected_launches(
+        1, n_iters, len(cfg.train.offsets), cfg.model.unet_res)
+    # cuDNN's train-mode BatchNorm backward in the PropagationNets, whose
+    # sums cancel at this size, puts refine_half's BatchNorm and the FPN's
+    # half-scale head that guides it up to 5.4e-3 off (refine_full's
+    # 4.6e-4), where the scene stages' leaves are within 1e-4
+    loose = ("refine_", "mvsnet.fpn.lateral0.", "mvsnet.fpn.smooth0.")
+    bad = {}
+    for k, p in f64.named_parameters():
+        g = card.get_parameter(k).grad
+        # the frozen backbone BatchNorm leaves take no gradient on the card
+        if g is None or p.grad is None or k in chip_smoke.ZERO_GRADS:
+            continue
+        g = g.double().cpu()
+        e = float((g - p.grad).norm() / p.grad.norm().clamp(min=1e-12))
+        if e > (1e-2 if k.startswith(loose) else 1e-3):
+            bad[k] = e
+    assert not bad, sorted(bad.items(), key=lambda kv: -kv[1])[:10]
+
+
+@pytest.mark.cuda
+def test_scene_wrappers_give_their_twins_gradients_on_the_card():
+    """Each new hand backward through its `autograd.Function` on CUDA
+    tensors against torch.autograd of the twin on the CPU, on small
+    inputs with ties, empty segments, all three GroupNorm tails and
+    points outside the grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch import kernels as K
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_scale
+
+    g = torch.Generator().manual_seed(5)
+    r = lambda *s: torch.randn(*s, generator=g)
+
+    def both(fn, *args, grads):
+        """fn's gradients for args[i] in `grads` with CPU and CUDA
+        tensors."""
+        res = []
+        for dev in ("cpu", "cuda"):
+            a = [x.to(dev) if torch.is_tensor(x) else x for x in args]
+            a = [x.clone().requires_grad_() if i in grads else x
+                 for i, x in enumerate(a)]
+            o = fn(*a)
+            o = o[0] if isinstance(o, tuple) else o
+            w = torch.randn(o.shape, generator=torch.Generator()
+                            .manual_seed(6)).to(dev)
+            res.append(torch.autograd.grad((o * w).sum(),
+                                           [a[i] for i in grads]))
+        for x, y in zip(*res):
+            assert torch.allclose(x, y.cpu(), rtol=1e-5, atol=1e-5), fn
+
+    pts = torch.rand(300, 3, generator=g) * 1.5 - 0.1
+    vg = K.voxelize_points(pts, torch.arange(300) // 150,
+                           torch.rand(300, generator=g) > 0.1, 0.08,
+                           (16, 16, 16), 64, 2)
+    vgc = type(vg)(*[x.cuda() if torch.is_tensor(x) else x for x in vg])
+    y = r(300, 8)
+    y[:2] = y[2]                            # a tie in a shared segment
+    seg, valid = vg.point2anchor, vg.point_valid
+    both(lambda yy, s, v: K.segment_max(yy, s, v, 66), y, seg, valid,
+         grads=[0])
+    pooled = K.segment_max(y, seg, valid, 66)
+    both(lambda yy, pp, s: K.gather_concat(yy, pp, s, relu=True), y, pooled,
+         seg, grads=[0, 1])
+    both(lambda f: K.scatter_anchors_to_dense(
+        f, vgc if f.is_cuda else vg, (16, 16, 16), 2), r(64, 8), grads=[0])
+    x = r(2, 8, 3, 4, 5)
+    m = (torch.rand(2, 1, 3, 4, 5, generator=g) > 0.5).float()
+    for kw in ({}, {"relu": True}):
+        both(lambda xx, ww, bb, mm=m, kw=kw: K.masked_group_norm(
+            xx, mm.to(xx.device), 4, ww, bb, **kw), x * m, r(8), r(8),
+            grads=[0, 1, 2])
+    both(lambda xx, ww, bb, ss, mm=m: K.masked_group_norm(
+        xx, mm.to(xx.device), 4, ww, bb, skip=ss), x * m, r(8), r(8),
+        r(2, 8, 3, 4, 5) * m, grads=[0, 1, 2, 3])
+    grid = r(2, 4, 5, 6, 8)
+    q = torch.rand(2, 40, 3, generator=g) * 4 - 1    # some outside
+    c0 = r(2, 3) * 0.1
+    both(lambda gr, qq, cc: trilinear_sample_scale(gr, qq, cc, 0.5), grid,
+         q, c0, grads=[0])
 
 
 @pytest.mark.cuda

@@ -46,6 +46,15 @@ and ~6 GB on the CPU):
 
     python tests/test_torch_golden.py --write-train
 
+A sixth holds n_iters=1 training: the same three steps, batch and weights
+at the epoch-5 lambda (0.5; epoch 0's is 0, which zeroes every refinement
+loss term), with one gradient leaf more in each scene stage (PointNet,
+scene U-Net, decoder) and the decoder's first BatchNorm beside CostRegNet's
+(JAX on the CPU, ~10 minutes and ~23 GB; `--write-train` writes both
+training goldens):
+
+    python tests/test_torch_golden.py --write-train-refine
+
 `--train-bn-error` prints how far JAX's fp32 batch statistics of
 CostRegNet's first BatchNorm lie from float64 ones in that step (the
 golden's own error, which `chip_smoke.py` phase 9b measures against a
@@ -306,7 +315,10 @@ def _train_record(train_cfg):
     return json.loads(json.dumps({k: getattr(train_cfg, k) for k in keys}))
 
 
-def write_train_golden():
+def write_train_golden(refine=False):
+    """The n_iters=0 golden, or with `refine` the n_iters=1 one (its own
+    file, lambda, leaves and BatchNorms, the same batch, weights and step
+    count)."""
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, ROOT)
     import jax
@@ -315,7 +327,9 @@ def write_train_golden():
     import optax
 
     from chip_smoke import (GOLDEN_SEEDS, TRAIN_BN, TRAIN_LEAVES,
-                            TRAIN_MODULES, TRAIN_STEPS)
+                            TRAIN_MODULES, TRAIN_REFINE_BNS,
+                            TRAIN_REFINE_EPOCH, TRAIN_REFINE_GOLDEN,
+                            TRAIN_REFINE_LEAVES, TRAIN_STEPS)
     from tdvnet.config import BatchConfig, Config, ModelConfig
     from tdvnet.data import batch as B, synthetic
     from tdvnet.models.threedvnet import ThreeDVNet
@@ -326,6 +340,13 @@ def write_train_golden():
     mc = ModelConfig(warp_mode="gather")
     bc = BatchConfig()
     cfg = Config(model=mc, batch=bc)
+    if refine:
+        n_iters, epoch_lam = 1, TRAIN_REFINE_EPOCH
+        path, leaf_names, bns = (TRAIN_REFINE_GOLDEN, TRAIN_REFINE_LEAVES,
+                                 TRAIN_REFINE_BNS)
+    else:
+        n_iters, epoch_lam = 0, 0
+        path, leaf_names, bns = TRAIN_GOLDEN, TRAIN_LEAVES, (TRAIN_BN,)
     scenes = [synthetic.make_batch_scene(bc.n_views, bc.img_size,
                                          bc.depth_img_size, seed=s,
                                          n_src_on_either_side=bc.n_src_on_either_side)
@@ -338,8 +359,8 @@ def write_train_golden():
         apply_fn=model.apply, params=variables["params"],
         tx=L.make_tx(cfg, variables["params"], 1),
         batch_stats=variables["batch_stats"])
-    step = L.make_train_step(model, cfg, 0, donate=False)
-    lam = L.lambda_for_epoch(cfg, 0)
+    step = L.make_train_step(model, cfg, n_iters, donate=False)
+    lam = L.lambda_for_epoch(cfg, epoch_lam)
     losses, losses_2d = [], []
     for i in range(TRAIN_STEPS):
         state, mets = step(state, fb, jnp.float32(lam))
@@ -363,7 +384,7 @@ def write_train_golden():
                 float((v.double() ** 2).sum()) for k, v in sd.items()
                 if k.startswith(m + "."))))
                 for m in TRAIN_MODULES}
-            leaves = {k: sd[k].numpy() for k in TRAIN_LEAVES}
+            leaves = {k: sd[k].numpy() for k in leaf_names}
     stats = from_flax_variables({"batch_stats": jax.tree.map(
         np.asarray, state.batch_stats)})
     record = {
@@ -374,19 +395,24 @@ def write_train_golden():
         "weights_sha256": file_sha256(WEIGHTS),
         "weights_epoch": int(epoch),
         "warp_mode": "gather",
-        "n_iters": 0,
+        "n_iters": n_iters,
         "lam": lam,
         "steps": TRAIN_STEPS,
         "loss": losses,
         "loss_2d": losses_2d,
         "grad_norms": norms,
-        "bn": TRAIN_BN,
+        "bn": bns[0],
     }
-    os.makedirs(os.path.dirname(TRAIN_GOLDEN), exist_ok=True)
+    arrays = {"bn_running_mean": stats[bns[0] + ".running_mean"].numpy(),
+              "bn_running_var": stats[bns[0] + ".running_var"].numpy()}
+    if refine:
+        record["bns"] = list(bns)
+        for name in bns:
+            for k in ("running_mean", "running_var"):
+                arrays[f"bn:{name}.{k}"] = stats[f"{name}.{k}"].numpy()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(
-        TRAIN_GOLDEN, record=np.array(json.dumps(record)),
-        bn_running_mean=stats[TRAIN_BN + ".running_mean"].numpy(),
-        bn_running_var=stats[TRAIN_BN + ".running_var"].numpy(),
+        path, record=np.array(json.dumps(record)), **arrays,
         **{"grad:" + k: v for k, v in leaves.items()})
     print(json.dumps(record))
 
@@ -554,6 +580,36 @@ def test_train_golden_matches_chip_smoke_settings():
     assert os.path.getsize(TRAIN_GOLDEN) < 1 << 20
 
 
+def test_train_refine_golden_matches_chip_smoke_settings():
+    import chip_smoke
+    from tdvnet_torch.config import (BatchConfig, Config, ModelConfig,
+                                     TrainConfig)
+    from tdvnet_torch.train.loop import lambda_for_epoch
+
+    rec = read_record(chip_smoke.TRAIN_REFINE_GOLDEN)
+    assert rec["config"] == _config_record(ModelConfig(), BatchConfig())
+    assert rec["train"] == _train_record(TrainConfig())
+    assert tuple(rec["seeds"]) == tuple(chip_smoke.GOLDEN_SEEDS)
+    assert rec["weights_sha256"] == file_sha256(WEIGHTS)
+    lam = lambda_for_epoch(Config(), chip_smoke.TRAIN_REFINE_EPOCH)
+    assert (rec["warp_mode"], rec["n_iters"], rec["lam"]) == \
+        ("gather", 1, lam) and lam > 0
+    assert rec["steps"] == chip_smoke.TRAIN_STEPS == len(rec["loss"]) \
+        == len(rec["loss_2d"])
+    assert sorted(rec["grad_norms"]) == sorted(chip_smoke.TRAIN_MODULES)
+    # n_iters=1: the scene stages train
+    for m in ("pointnet", "scene_unet", "decoder"):
+        assert rec["grad_norms"][m] > 0.0
+    assert rec["bns"] == list(chip_smoke.TRAIN_REFINE_BNS)
+    with np.load(chip_smoke.TRAIN_REFINE_GOLDEN) as z:
+        leaves = sorted(k[len("grad:"):] for k in z.files
+                        if k.startswith("grad:"))
+        assert z["bn:decoder.BatchNorm_0.running_var"].shape == \
+            (ModelConfig().decoder_hidden,)
+    assert leaves == sorted(chip_smoke.TRAIN_REFINE_LEAVES)
+    assert os.path.getsize(chip_smoke.TRAIN_REFINE_GOLDEN) < 1 << 21
+
+
 def test_eval3d_golden_matches_chip_smoke_settings():
     import chip_smoke
     from tdvnet_torch.config import EvalConfig
@@ -584,8 +640,11 @@ if __name__ == "__main__":
     else:
         if "--write-eval3d" in sys.argv:
             write_eval3d_golden()
+        elif "--write-train-refine" in sys.argv:
+            write_train_golden(refine=True)
         elif "--write-train" in sys.argv:
             write_train_golden()
+            write_train_golden(refine=True)
         elif "--train-bn-error" in sys.argv:
             train_bn_error()
         elif "--write" in sys.argv:
@@ -593,4 +652,5 @@ if __name__ == "__main__":
         else:
             sys.exit("usage: python tests/test_torch_golden.py --write | "
                      "--write-scene [n_views] | --write-fast-scene [n_views]"
-                     " | --write-eval3d | --write-train | --train-bn-error")
+                     " | --write-eval3d | --write-train | "
+                     "--write-train-refine | --train-bn-error")

@@ -160,7 +160,39 @@ def test_wrappers_run_their_twin_on_cpu_and_count_nothing():
     fargs = (depths[:2], depths, cams, torch.tensor([0, 1]), 0.5, 1)
     for a, b in zip(K.consistency_fuse(*fargs), consistency_fuse_ref(*fargs)):
         assert torch.equal(a, b)
-    assert len(K.launch_counts()) == 18
+    # the scene kernels' backward wrappers (the other three backward
+    # wrappers are held to their twins in tests/test_torch_train.py)
+    from tdvnet_torch.kernels.groupnorm import masked_group_norm_backward_ref
+    from tdvnet_torch.kernels.segmax import (gather_concat_backward_ref,
+                                             segment_max_backward_ref)
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_backward_ref
+    from tdvnet_torch.kernels.voxelize import \
+        scatter_anchors_to_dense_backward_ref
+
+    gd = r(2, 16, 16, 16, 8)
+    assert torch.equal(
+        K.scatter_anchors_to_dense_backward(gd, va, (16, 16, 16), 2),
+        scatter_anchors_to_dense_backward_ref(gd, vb, (16, 16, 16), 2))
+    gp = r(65, 8)
+    bargs = (gp, y, va.point2anchor, va.point_valid, pa)
+    assert torch.equal(K.segment_max_backward(*bargs),
+                       segment_max_backward_ref(*bargs))
+    cargs = (r(200, 16), y, pa, va.point2anchor, True)
+    for a, b in zip(K.gather_concat_backward(*cargs),
+                    gather_concat_backward_ref(*cargs)):
+        assert torch.equal(a, b)
+    go, bias = r(2, 8, 3, 4, 5), r(8)
+    out = masked_group_norm_ref(x, m, 4, w, bias, relu=True)
+    for a, c in zip(K.masked_group_norm_backward(go, x, m, 4, w, out, None,
+                                                 relu=True),
+                    masked_group_norm_backward_ref(go, x, m, 4, w, out,
+                                                   relu=True)):
+        assert (a is None and c is None) or torch.equal(a, c)
+    gq = r(2, 9, 8)
+    assert torch.equal(
+        K.trilinear_sample_backward(gq, q, c0, 0.5, grid.shape),
+        trilinear_sample_backward_ref(gq, q, c0, 0.5, grid.shape))
+    assert len(K.launch_counts()) == 23
     assert all(v == 0 for v in K.launch_counts().values())
 
 

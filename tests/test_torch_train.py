@@ -11,7 +11,6 @@ export read back by the JAX package. The backward kernels themselves are
 held to these twins on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
-import math
 import os
 
 import jax
@@ -20,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import both_batches, jax_tiny_config, n, t
+from _torch_helpers import (adam_grads as _adam_grads, both_batches,
+                            init_variables as _init_variables,
+                            jax_tiny_config, n, t)
 from _torch_helpers import torch_one_thread  # noqa: F401 (autouse)
 
 # relative L2 of a gradient leaf (fp32 sums in another order on each side)
@@ -192,50 +193,6 @@ def test_propagation_backward_ref_matches_autograd_and_jax(hw):
 
 
 # ------------------------------------------------------------ the train step
-def _adam_grads(opt_state, params):
-    """The gradients of a first optax Adam step, from its first moment
-    (mu = (1 - b1) g after one update); None where the leaf is frozen."""
-    import optax
-
-    inner = opt_state.inner_states["train"].inner_state
-    adam = next(s for s in jax.tree.leaves(
-        inner, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
-        if isinstance(s, optax.ScaleByAdamState))
-    return jax.tree.map(
-        lambda m: None if isinstance(m, optax.MaskedNode)
-        else np.asarray(m) / np.float32(0.1), adam.mu,
-        is_leaf=lambda x: isinstance(x, optax.MaskedNode))
-
-
-def _init_variables(module, *args, seed=0, **kwargs):
-    """Seeded numpy variables as the JAX package's `create_state` draws
-    them, in the shapes `jax.eval_shape` reports (nothing compiled): flax's
-    LeCun-normal kernels (truncated at two sigma), zero biases, unit norm
-    scales; the running statistics then move off their init values (means
-    N(0, 0.1), variances U(0.5, 1.5)), so that frozen and updated
-    statistics both show."""
-    shapes = jax.eval_shape(
-        lambda: module.init(jax.random.PRNGKey(0), *args, **kwargs))
-    rng = np.random.default_rng(seed)
-
-    def fill(path, sd):
-        name = path[-1].key
-        if name == "kernel":
-            std = 1 / math.sqrt(math.prod(sd.shape[:-1])) / .87962566103423978
-            v = np.clip(rng.normal(0, 1, sd.shape), -2, 2) * std
-        elif name == "scale":
-            v = np.ones(sd.shape)
-        elif name == "var":
-            v = rng.uniform(0.5, 1.5, sd.shape)
-        elif name == "mean":
-            v = rng.normal(0, 0.1, sd.shape)
-        else:                                   # bias
-            v = np.zeros(sd.shape)
-        return v.astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(fill, dict(shapes))
-
-
 @pytest.fixture(scope="module")
 def one_step():
     """One n_iters=0 train step of both packages from the same initial
@@ -408,6 +365,21 @@ def test_train_config_refuses_what_the_port_lacks():
                {"grad_accum_steps": 2}):
         with pytest.raises(NotImplementedError):
             TrainConfig(**kw)
+
+
+def test_model_config_refuses_a_dtype_the_port_lacks():
+    """JAX's eval CLI sets `ModelConfig.dtype` to bf16 for `--bf16`; the
+    port computes in fp32 only, so it refuses rather than ignore it."""
+    import dataclasses
+
+    from tdvnet_torch.config import ModelConfig, tiny_test_config
+
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+        with pytest.raises(NotImplementedError, match="dtype"):
+            ModelConfig(dtype=dtype)
+        with pytest.raises(NotImplementedError, match="dtype"):
+            dataclasses.replace(tiny_test_config().model, dtype=dtype)
+    assert ModelConfig(dtype=torch.float32).dtype == torch.float32
 
 
 def _datasets(root, n_scenes, hw, n_ref):
