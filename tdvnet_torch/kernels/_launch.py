@@ -9,11 +9,17 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the wrapper then runs its
     plain twin); False when all lie on one CUDA device. Anything else
     raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+    # the common case first, without building a device object per tensor
+    index = tensors[0].get_device()
+    if index >= 0 and all(t.is_cuda and t.get_device() == index
+                          for t in tensors):
         return False
+    first = tensors[0].device
+    if all(t.device == first for t in tensors[1:]):
+        if first.type == "cpu":
+            return True
+        if first.type == "cuda":
+            return False
     raise ValueError(f"tensors must all be on the CPU or on one CUDA device, "
                      f"got {[str(t.device) for t in tensors]}")
 
@@ -57,11 +63,19 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
 
 def launch(fn_name: str, device: torch.device, *args) -> None:
     """Call one C entry point of the kernel library on `device`'s current
-    stream and raise if the launch was refused."""
+    stream and raise if the launch was refused. At the probes' sizes this
+    host path is a call's whole time, so it stays short: the raw stream
+    handle, and a device switch only when `device` is not the current
+    one."""
     from tdvnet_torch.kernels.build import library
 
     fn = getattr(library(), fn_name)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")

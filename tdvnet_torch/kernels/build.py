@@ -48,7 +48,7 @@ SIGNATURES = {
     "tdv_softargmax_depth_backward": [_P] * 5 + [_I, _I, _L, _P],
     "tdv_propagation_blend_backward": [_P] * 7 + [_I] * 3 + [_L] * 8 + [_P],
     "tdv_batched_dot": [_P] * 3 + [_L, _I, _I, _I, _P],
-    "tdv_take_along_axis": [_P] * 3 + [_I] * 5 + [_P],
+    "tdv_take_along_axis": [_P] * 3 + [_I] * 6 + [_P],
     "tdv_scene_origins": [_P, _P, _P, _P, _P, _L, _I, _P],
     "tdv_voxelize": [_P] * 14 + [_L, _I, _I, _I, _I, _F, _I, _P],
     "tdv_scatter_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

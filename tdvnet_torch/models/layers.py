@@ -23,14 +23,17 @@ class _FlaxBatchNorm:
     running variance averages the biased variance too (torch averages the
     unbiased one). The running statistics move by `momentum` (torch's
     0.1 is flax's 0.9, the weight of the old statistic). In eval mode it is
-    torch's BatchNorm."""
+    torch's BatchNorm. In train mode it is torch's native kernel (on the
+    CPU the same as `F.batch_norm`), never cuDNN's: cuDNN's train-mode
+    backward sums its terms in fp32 where they cancel, which put the
+    gradients behind the decoder ~1e-3 off a float64 rerun on an H100."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
+        y = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                    True, 0.0, self.eps)[0]
         with torch.no_grad():
             dims = [0, *range(2, x.dim())]
             var, mean = torch.var_mean(x, dim=dims, unbiased=False)
@@ -88,12 +91,89 @@ class ConvBnRelu(nn.Module):
         return F.relu(self.BatchNorm_0(self.Conv_0(x)))
 
 
+# out[2m] = x[m] w[1] and out[2m + 1] = x[m] w[2] + x[m + 1] w[0] along each
+# dim of the stride-2 transposed conv (padding 1, output_padding 1): the tap
+# of the 3-wide kernel at offset a of a 2-wide window for an output of
+# parity p is _UP_TAP[p][a] (-1: none)
+_UP_TAP = ((1, -1), (2, 0))
+_UP_INDEX = {}
+
+
+def _up_index(device):
+    """[8, 2, 2, 2]: for each output parity (pd, ph, pw) and window offset,
+    the flat tap of the 3x3x3 kernel, or 27 for a zero."""
+    if device not in _UP_INDEX:
+        def tap(p, o):
+            t = [_UP_TAP[pi][oi] for pi, oi in zip(p, o)]
+            return 27 if -1 in t else t[0] * 9 + t[1] * 3 + t[2]
+
+        bits = [(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)]
+        _UP_INDEX[device] = torch.tensor(
+            [[tap(p, o) for o in bits] for p in bits],
+            device=device).view(8, 2, 2, 2)
+    return _UP_INDEX[device]
+
+
+def _up_conv_polyphase(x, w):
+    """`conv_transpose3d(x, w, stride=2, padding=1, output_padding=1)` as
+    one plain conv with a 2x2x2 kernel and eight output channels per
+    channel, one per parity of the output's (d, h, w), each holding the
+    taps that reach it and zeros (exact) elsewhere; then interleaved.
+    A plain conv sums in a fixed order."""
+    B, Ci, D, H, W = x.shape
+    Co = w.shape[1]
+    wz = torch.cat([w.reshape(Ci, Co, 27), w.new_zeros(Ci, Co, 1)], 2)
+    k = wz[:, :, _up_index(w.device)]               # [Ci, Co, 8, 2, 2, 2]
+    k = k.permute(2, 1, 0, 3, 4, 5).reshape(8 * Co, Ci, 2, 2, 2)
+    y = F.conv3d(F.pad(x, (0, 1, 0, 1, 0, 1)), k)   # [B, 8 Co, D, H, W]
+    y = y.view(B, 2, 2, 2, Co, D, H, W).permute(0, 4, 5, 1, 6, 2, 7, 3)
+    return y.reshape(B, Co, 2 * D, 2 * H, 2 * W)
+
+
+class _UpConvFunction(torch.autograd.Function):
+    """The polyphase forward; the backward is the transposed conv's own
+    (cuDNN's, on the card), which does 27/64 of the work of the plain
+    conv's backward (no zero taps)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _up_conv_polyphase(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            gy.contiguous(), x, w, None, [2] * 3, [1] * 3, [1] * 3, True,
+            [1] * 3, 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                         False])
+        return gx, gw
+
+
+class _RepeatableConvTranspose3d(nn.ConvTranspose3d):
+    """The stride-2 up-conv with a forward that repeats bit for bit.
+    cuDNN's default pick for the cost regularisation's last up-conv and the
+    scene U-Net's sums in a run-dependent order: the initial depth then
+    moves from run to run, and at n_iters >= 1 the PointNet's max pools
+    route that noise onto other rows (the n_iters=2 train loss moved 7e-6
+    to 7e-5 off a float64 rerun from run to run on an H100). cuDNN's
+    deterministic picks took up to 14x the default's forward time there,
+    the polyphase conv 0.35x to 1.9x (`tools/probe_up_conv.py`, H100 80GB
+    HBM3 at 700 W)."""
+
+    def forward(self, x, output_size=None):
+        if output_size is not None:
+            raise ValueError("the up-conv's output size is fixed: 2x")
+        return _UpConvFunction.apply(x, self.weight)
+
+
 def up_conv3d(in_ch: int, features: int):
     """The JAX package's input-dilated conv (lhs dilation 2, padding (1, 2),
     kernel 3): a stride-2 transposed conv with output_padding 1. The
     checkpoint's kernel is flipped and transposed into this layout."""
-    return nn.ConvTranspose3d(in_ch, features, 3, stride=2, padding=1,
-                              output_padding=1, bias=False)
+    return _RepeatableConvTranspose3d(in_ch, features, 3, stride=2,
+                                      padding=1, output_padding=1,
+                                      bias=False)
 
 
 class ConvTransposeUp3d(nn.Module):

@@ -10,8 +10,11 @@ TPU every case whose shuffle crossed an (8, 128) tile failed to compile;
 here each runs. One line per case: OK or FAIL against the plain twin
 (equal), the time per call with CUDA events, and GB/s (indices and output
 once, and each value the gather can reach once: no more values than
-indices). `torch.take_along_dim` on the same tensors is the
-library yardstick the port never calls.
+indices); then the sums over the cases, the kernel's against
+`torch.take_along_dim`'s. `torch.take_along_dim` on the same tensors is
+the library yardstick the port never calls; its int64 copy of the
+indices is made outside its timing. `out_of_range_inputs` holds the
+cases that check `jnp.take_along_axis`'s index rule on the card.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 
 from tdvnet_torch.config import resolve_device
 from tdvnet_torch.kernels.probes import take_along_axis, take_along_axis_ref
-from tdvnet_torch.tools.timing import time_ms
+from tdvnet_torch.tools.timing import HBM_BYTES_PER_S, time_ms
 
 # (name, axis, value rows, value cols, index rows, index range)
 CASES = (
@@ -44,6 +47,29 @@ def make_inputs(seed: int = 0):
         vals = rng.rand(rows, cols).astype(np.float32)
         idx = (rng.rand(irows, cols) * hi).astype(np.int32)
         out.append((name, axis, vals, idx))
+    return out
+
+
+# (axis, value rows, value cols, index rows, index cols): both kernel
+# forms (cols % 4 == 0: four columns a thread; else one) along each axis
+OUT_OF_RANGE = ((1, 8, 128, 8, 128), (0, 80, 128, 80, 128),
+                (1, 33, 37, 33, 5), (0, 50, 7, 19, 7))
+
+
+def out_of_range_inputs(seed: int = 1):
+    """Per `OUT_OF_RANGE` case (name, axis, values, idx) as numpy, drawn
+    from `np.random.RandomState(seed)`: indices uniform in [-2n, 2n) (a
+    quarter in range, a quarter counted from the end, half NaN), with -n,
+    -n-1, n and n-1 in each."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for axis, rows, cols, irows, icols in OUT_OF_RANGE:
+        n = (rows, cols)[axis]
+        vals = rng.rand(rows, cols).astype(np.float32)
+        idx = rng.randint(-2 * n, 2 * n, size=(irows, icols)).astype(np.int32)
+        idx.reshape(-1)[:4] = [-n, -n - 1, n, n - 1]
+        out.append((f"axis={axis} ({irows},{icols}) into ({rows},{cols}) "
+                    f"in [-2n, 2n)", axis, vals, idx))
     return out
 
 
@@ -80,6 +106,12 @@ def run(device=None, iters: int = 50):
         print(f"{name:<44s} {'OK  ' if ok else 'FAIL'} {ms:8.4f} ms "
               f"{gbs:7.2f} GB/s  (plain {plain:.4f} ms, "
               f"torch.take_along_dim {lib:.4f} ms)", flush=True)
+    ms = sum(r["ms"] for r in recs)
+    lib = sum(r["library_ms"] for r in recs)
+    bound = 1e3 * sum(r["nbytes"] for r in recs) / HBM_BYTES_PER_S
+    print(f"sum over the {len(recs)} cases: hand kernel {ms:.4f} ms, "
+          f"torch.take_along_dim {lib:.4f} ms ({ms / lib:.3f}x), byte "
+          f"bound {bound:.5f} ms ({bound / ms:.4f} of it)", flush=True)
     return recs
 
 

@@ -787,6 +787,10 @@ def test_scene_wrappers_give_their_twins_gradients_on_the_card():
 
 @pytest.mark.cuda
 def test_probe_kernels_match_twins():
+    """batched_dot at the probe's shape and the ragged ones within one bf16
+    ulp of its twin, and refusing other shapes; take_along_axis on the
+    tool's cases and on out-of-range indices equal to its twin (NaN
+    positions included, jnp.take_along_axis's rule) without a host sync."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from tdvnet_torch.kernels.probes import (batched_dot, batched_dot_ref,
@@ -795,11 +799,32 @@ def test_probe_kernels_match_twins():
     from tdvnet_torch.tools import probe_batched_dot, probe_gather
     from tdvnet_torch.tools.timing import bf16_ulp_ok
 
-    W, F = probe_batched_dot.make_inputs(torch.device("cuda"), 4, 5)
+    dev = torch.device("cuda")
+    W, F = probe_batched_dot.make_inputs(dev, 4, 5)
     assert bf16_ulp_ok(batched_dot(W, F), batched_dot_ref(W, F))
+    for lead, Q, Y, C in probe_batched_dot.RAGGED:
+        W, F = probe_batched_dot.make_shaped(dev, lead, Q, Y, C, seed=9)
+        assert bf16_ulp_ok(batched_dot(W, F), batched_dot_ref(W, F)), (
+            lead, Q, Y, C)
+    W, F = probe_batched_dot.make_shaped(dev, (3,), 56, 48, 32)
+    with pytest.raises(ValueError):
+        batched_dot(W, F)
     for name, axis, vals, idx in probe_gather.make_inputs():
         v, i = torch.from_numpy(vals).cuda(), torch.from_numpy(idx).cuda()
         assert torch.equal(take_along_axis(v, i, axis),
                            take_along_axis_ref(v, i, axis)), name
-    with pytest.raises(IndexError):
-        take_along_axis(v, i + 10 ** 6, 0)
+    for name, axis, vals, idx in probe_gather.out_of_range_inputs():
+        v, i = torch.from_numpy(vals).cuda(), torch.from_numpy(idx).cuda()
+        got, want = take_along_axis(v, i, axis), take_along_axis_ref(v, i,
+                                                                     axis)
+        assert got.isnan().any(), name
+        assert torch.equal(got.isnan(), want.isnan()), name
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()), name
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            int(i.min())                    # the control: a host sync
+        take_along_axis(v, i, axis)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

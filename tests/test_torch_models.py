@@ -236,3 +236,65 @@ def test_weight_bridge_layout_rules():
         b = m(t(x).permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
     np.testing.assert_allclose(np.asarray(a), n(b), rtol=1e-5, atol=1e-5)
     assert jax.devices()[0].platform == "cpu"
+
+
+@pytest.mark.parametrize("shape,co", [((2, 4, 3, 5, 4), 3), ((1, 6, 4, 4, 4), 5),
+                                      ((1, 3, 1, 2, 1), 2)])
+def test_up_conv_is_the_transposed_conv(shape, co):
+    """The up-conv's polyphase forward and its backward equal
+    `conv_transpose3d(stride=2, padding=1, output_padding=1)` in float64,
+    and its fp32 forward repeats bit for bit."""
+    import torch.nn.functional as F
+
+    from tdvnet_torch.models.layers import up_conv3d
+
+    g = torch.Generator().manual_seed(0)
+    m = up_conv3d(shape[1], co).double()
+    x = torch.randn(*shape, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    y = m(x)
+    gy = torch.randn(y.shape, generator=g, dtype=torch.float64)
+    y.backward(gy)
+    x2 = x.detach().clone().requires_grad_()
+    w2 = m.weight.detach().clone().requires_grad_()
+    y2 = F.conv_transpose3d(x2, w2, stride=2, padding=1, output_padding=1)
+    y2.backward(gy)
+    assert y.shape == y2.shape == (shape[0], co, *(2 * s for s in shape[2:]))
+    torch.testing.assert_close(y, y2, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(x.grad, x2.grad, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(m.weight.grad, w2.grad, rtol=1e-12, atol=1e-12)
+    m32 = m.float()
+    with torch.no_grad():
+        a, b = m32(x.detach().float()), m32(x.detach().float())
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(5, 4, 7), (3, 4, 6, 6, 6), (2, 3, 9, 9)])
+def test_train_mode_batch_norm_is_torch_batch_norm_on_the_cpu(shape):
+    """Train-mode BatchNorm takes torch's native kernel (never cuDNN's on
+    the card); on the CPU that is `F.batch_norm`, output and gradients bit
+    for bit, and the running statistics follow flax's rule."""
+    import torch.nn.functional as F
+
+    from tdvnet_torch.models.layers import batch_norm
+
+    g = torch.Generator().manual_seed(1)
+    bn = batch_norm(len(shape) - 2, shape[1])
+    with torch.no_grad():
+        bn.weight.copy_(torch.randn(shape[1], generator=g))
+        bn.bias.copy_(torch.randn(shape[1], generator=g))
+    bn.train()
+    x = torch.randn(*shape, generator=g, requires_grad=True)
+    y = bn(x)
+    gy = torch.randn(y.shape, generator=g)
+    got = torch.autograd.grad(y, (x, bn.weight, bn.bias), gy)
+    x2 = x.detach().clone().requires_grad_()
+    y2 = F.batch_norm(x2, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+    want = torch.autograd.grad(y2, (x2, bn.weight, bn.bias), gy)
+    assert torch.equal(y, y2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    dims = [0, *range(2, len(shape))]
+    var, mean = torch.var_mean(x.detach(), dim=dims, unbiased=False)
+    torch.testing.assert_close(bn.running_mean, bn.momentum * mean)
+    torch.testing.assert_close(bn.running_var,
+                               (1 - bn.momentum) + bn.momentum * var)

@@ -133,16 +133,100 @@ def test_take_along_axis_twin_matches_pallas_probe_kernels(gather_cases):
         np.testing.assert_array_equal(n(got), np.asarray(out), err_msg=name)
 
 
+def _jax_rule_cases():
+    """Index tables along both axes of one [5, 6] value table, drawn from a
+    seed in [-2n, 2n), with the edges -n, -n-1, n, n-1, -1 and 0 in each:
+    in range, negative and out of range."""
+    rng = np.random.RandomState(7)
+    vals = rng.rand(5, 6).astype(np.float32)
+    out = []
+    for axis, shape in ((1, (5, 6)), (0, (4, 6)), (1, (5, 3)), (0, (7, 6))):
+        n_ = vals.shape[axis]
+        idx = rng.randint(-2 * n_, 2 * n_, size=shape).astype(np.int32)
+        idx.reshape(-1)[:6] = [-n_, -n_ - 1, n_, n_ - 1, -1, 0]
+        out.append((axis, vals, idx))
+    return out
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_take_along_axis_follows_jnp_out_of_range(case):
+    """jnp.take_along_axis, which the probe kernels call, counts an index in
+    [-n, 0) from the end and fills one outside [-n, n) with NaN; the twin
+    and the CPU wrapper do the same (NaN positions equal, every other value
+    equal)."""
+    from tdvnet_torch.kernels.probes import (take_along_axis,
+                                             take_along_axis_ref)
+
+    axis, vals, idx = _jax_rule_cases()[case]
+    want = np.asarray(jnp.take_along_axis(jnp.asarray(vals),
+                                          jnp.asarray(idx), axis=axis))
+    n_ = vals.shape[axis]
+    assert np.isnan(want).any() and ((idx < 0) & (idx >= -n_)).any()
+    for fn in (take_along_axis_ref, take_along_axis):
+        got = n(fn(torch.from_numpy(vals), torch.from_numpy(idx), axis))
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(got, want)
+
+
 def test_take_along_axis_checks_its_indices():
+    """Shapes and the axis are refused with ValueError; an index out of
+    range is no error (jnp.take_along_axis's rule: NaN, and a negative one
+    in range counts from the end)."""
     from tdvnet_torch.kernels.probes import take_along_axis
 
-    v = torch.zeros(4, 6)
-    with pytest.raises(IndexError):
-        take_along_axis(v, torch.full((4, 6), 6, dtype=torch.int32), 1)
-    with pytest.raises(IndexError):
-        take_along_axis(v, torch.full((2, 6), -1, dtype=torch.int32), 0)
+    v = torch.arange(24, dtype=torch.float32).reshape(4, 6)
+    got = take_along_axis(v, torch.full((4, 6), 6, dtype=torch.int32), 1)
+    assert torch.isnan(got).all()
+    got = take_along_axis(v, torch.full((2, 6), -1, dtype=torch.int32), 0)
+    assert torch.equal(got, v[3:4].expand(2, 6))
+    got = take_along_axis(v, torch.full((2, 6), -5, dtype=torch.int32), 0)
+    assert torch.isnan(got).all()
     with pytest.raises(ValueError):
         take_along_axis(v, torch.zeros((3, 6), dtype=torch.int32), 1)
+    with pytest.raises(ValueError):
+        take_along_axis(v, torch.zeros((4, 6), dtype=torch.int32), 2)
+    with pytest.raises(ValueError):
+        take_along_axis(v, torch.zeros((4, 6, 1), dtype=torch.int32), 0)
+
+
+@pytest.mark.parametrize("shape, ok", [
+    ((56, 64, 32), True), ((17, 64, 8), True), ((64, 64, 32), True),
+    ((1, 16, 8), True), ((256, 64, 64), True), ((200, 32, 16), True),
+    ((56, 64, 36), False), ((56, 64, 24), False), ((56, 48, 32), False),
+    ((56, 128, 32), False), ((0, 64, 32), False), ((257, 64, 32), False),
+    ((56, 0, 32), False), ((56, 64, 0), False), ((56, 64, 128), False)])
+def test_batched_dot_shape_rule(shape, ok):
+    """The shapes the card's kernel takes: 1 <= Q <= 256, Y in {16, 32,
+    64}, C in {8, 16, 32, 64}; the wrapper raises ValueError for any other
+    shape on the card (the rule is a plain function, so it is checked
+    here), and for 2^31 products or more."""
+    from tdvnet_torch.kernels.probes import batched_dot_shape_error
+
+    Q, Y, C = shape
+    why = batched_dot_shape_error(Q, Y, C)
+    assert (why is None) == ok, why
+    assert batched_dot_shape_error(Q, Y, C, 2 ** 31) is not None
+    if ok:
+        assert batched_dot_shape_error(Q, Y, C, 2 ** 31 - 1) is None
+
+
+def test_batched_dot_twin_is_the_exact_sum_rounded(dot_inputs):
+    """The twin sums in float64 (exact here: bf16 products of normal
+    draws), then rounds to fp32 and to bf16: equal to the exact rational
+    sum rounded the same way."""
+    from fractions import Fraction
+
+    from tdvnet_torch.kernels.probes import batched_dot_ref
+
+    W, F = dot_inputs
+    got = batched_dot_ref(W, F)
+    w, f = W[0, 0].double().numpy(), F[0, 0].double().numpy()
+    for q, c in ((0, 0), (13, 7), (55, 31)):
+        s = sum(Fraction(float(w[q, k])) * Fraction(float(f[k, c]))
+                for k in range(Y))
+        want = torch.tensor(float(s), dtype=torch.float64).float() \
+            .to(torch.bfloat16)
+        assert got[0, 0, q, c] == want
 
 
 def test_gather_bytes_count_at_most_one_value_per_index(gather_cases):
@@ -160,3 +244,33 @@ def test_gather_bytes_count_at_most_one_value_per_index(gather_cases):
     _, _, vals, idx = gather_cases[-1]
     assert vals.shape == (5120, 128) and idx.shape == (80, 128)
     assert count(gather_cases[-1]) == 4.0 * 3 * 80 * 128
+
+
+def test_take_along_axis_tool_out_of_range_cases_match_jnp():
+    """The out-of-range cases the card checks (`probe_gather.
+    out_of_range_inputs`, both kernel forms along both axes): the twin
+    equals jnp.take_along_axis, NaN positions included."""
+    from tdvnet_torch.kernels.probes import take_along_axis_ref
+    from tdvnet_torch.tools.probe_gather import out_of_range_inputs
+
+    for name, axis, vals, idx in out_of_range_inputs():
+        want = np.asarray(jnp.take_along_axis(jnp.asarray(vals),
+                                              jnp.asarray(idx), axis=axis))
+        got = n(take_along_axis_ref(torch.from_numpy(vals),
+                                    torch.from_numpy(idx), axis))
+        assert np.isnan(want).any(), name
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want),
+                                      err_msg=name)
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_up_conv_probe_runs_on_the_cpu():
+    """`tools/probe_up_conv.py` at small shapes on the CPU: every form near
+    float64, the port's repeating, nothing timed off the card."""
+    from tdvnet_torch.tools import probe_up_conv
+
+    recs = probe_up_conv.run("cpu", shapes=(((1, 4, 3, 4, 5), 3),
+                                            ((2, 3, 2, 2, 2), 5)))
+    assert len(recs) == 2 * len(probe_up_conv.FORMS)
+    assert all(r["rel_err"] < 1e-6 and r["fwd_ms"] is None for r in recs)
+    assert all(r["repeats"] for r in recs if r["form"].startswith("port"))
