@@ -42,8 +42,9 @@ Phases (any failure exits non-zero):
      the cost volume's variance, the soft-argmax, the propagation blends;
      n_iters=1: the variance at the scene cloud and the hypotheses, the
      dense scatter, the pools and concat-backs, the masked GroupNorm, the
-     scene sampling), and the source variance's kernel and fp32 twin
-     against its twin in float64; (b) three n_iters=0 steps and three
+     scene sampling, on uniform points and on one offset pass of the golden
+     batch's n_iters=1 step as it reaches the backward), and the source
+     variance's kernel and fp32 twin against its twin in float64; (b) three n_iters=0 steps and three
      n_iters=1 steps (at the epoch-5 lambda) each against a float64 referee
      on the card and against its JAX golden
      (`tests/data/torch_golden_train_synth48.npz`,
@@ -1394,13 +1395,15 @@ def train_cases(device, seed=1):
     return cases
 
 
-def train_refine_cases(device, seed=2):
+def train_refine_cases(device, seed=2, real=()):
     """The backward kernels that n_iters >= 1 adds, at the shapes the
     full-width n_iters=1 step gives them (per step: one scene modelling,
     three offset passes), on seeded random inputs: the variance's backward
     at the scene cloud and the hypotheses (K2), the dense scatter's, the
     pools' and concat-backs', the masked GroupNorm's at the three U-Net
-    levels and both tails, and the three scales' sampling."""
+    levels and both tails, and the three scales' sampling; the sampling's
+    also at `real`, the (grad, pts, center0, cell, grid_shape) of one
+    offset pass of the golden step (`capture_sampling_backward`)."""
     import torch
     import torch.nn.functional as F
 
@@ -1544,6 +1547,32 @@ def train_refine_cases(device, seed=2):
                 4 * (B * C * V * (3 + n_out) + B * V + 3 * C + B * G * 4),
                 B * C * V * 16, path="train1"))
 
+    def sampling_case(label, gq, pts_q, center0, cell, shape, path):
+        B, X, Y, Z, C = shape
+        qn = (pts_q - center0[:, None, :]) / cell
+        lim = torch.tensor([X - 1, Y - 1, Z - 1], device=device,
+                           dtype=torch.float32)
+        gs_grid = (qn / lim * 2 - 1).flip(-1).reshape(B, -1, 1, 1, 3)
+        gs_in = torch.zeros(B, C, X, Y, Z, device=device, requires_grad=True)
+        gs_g = gq.permute(0, 2, 1).reshape(B, C, -1, 1, 1)
+        targs = (gq, pts_q, center0, cell, shape)
+        Q = pts_q.shape[1]
+        return Case(
+            "trilinear_sample_backward",
+            f"{label} s={round(cell / edge)} [{B},{Q},{C}] -> "
+            f"[{B},{X}^3,{C}]", 3 * n_off,
+            lambda a=targs: trilinear_sample_backward(*a),
+            lambda a=targs: trilinear_sample_backward_ref(*a),
+            BACKWARD_TOL,
+            4 * (B * Q * C + pts_q.numel() + center0.numel()
+                 + B * X * Y * Z * C),
+            B * Q * (30 + 16 * C),
+            library=lambda a=(gs_in, gs_grid, gs_g): torch.autograd.grad(
+                F.grid_sample(a[0], a[1], mode="bilinear",
+                              padding_mode="zeros", align_corners=True),
+                a[0], a[2]),
+            path=path)
+
     # the three scales' sampling backward at the hypotheses of one offset
     # pass (queries over the grid and a margin around it)
     Q = (R // B) * 7 * P_ref
@@ -1555,31 +1584,18 @@ def train_refine_cases(device, seed=2):
              ).contiguous()
     for stride, C in zip((1, 2, 4), cfg.unet_dims):
         dims = tuple(d // stride for d in g.grid_size)
-        cell = stride * edge
-        shape = (B, *dims, C)
-        gq = rnd(B, Q, C)
-        qn = (pts_q - center0[:, None, :]) / cell
-        lim = torch.tensor([d - 1 for d in dims], device=device,
-                           dtype=torch.float32)
-        gs_grid = (qn / lim * 2 - 1).flip(-1).reshape(B, Q, 1, 1, 3)
-        gs_in = torch.zeros(B, C, *dims, device=device, requires_grad=True)
-        gs_g = gq.permute(0, 2, 1).reshape(B, C, Q, 1, 1)
-        targs = (gq, pts_q, center0, cell, shape)
-        cases.append(Case(
-            "trilinear_sample_backward",
-            f"scale s={stride} [{B},{Q},{C}] -> [{B},{dims[0]}^3,{C}]",
-            3 * n_off,
-            lambda a=targs: trilinear_sample_backward(*a),
-            lambda a=targs: trilinear_sample_backward_ref(*a),
-            BACKWARD_TOL,
-            4 * (B * Q * C + pts_q.numel() + center0.numel()
-                 + B * dims[0] * dims[1] * dims[2] * C),
-            B * Q * (30 + 16 * C),
-            library=lambda a=(gs_in, gs_grid, gs_g): torch.autograd.grad(
-                F.grid_sample(a[0], a[1], mode="bilinear",
-                              padding_mode="zeros", align_corners=True),
-                a[0], a[2]),
-            path="train1"))
+        cases.append(sampling_case("uniform", rnd(B, Q, C), pts_q, center0,
+                                   stride * edge, (B, *dims, C), "train1"))
+    # and at one offset pass of the golden batch's n_iters=1 step, whose
+    # hypotheses lie along the rays near the surfaces (another path key:
+    # the kernels line keeps the uniform case's sums). Its incoming
+    # gradients are ~1e-9..1e-6: scaled by a power of two (exact, and the
+    # backward is linear, so kernel and twin scale alike) to a largest
+    # magnitude in [0.5, 1), BACKWARD_TOL reads them at their own scale
+    for grad, pts, c0, cell, shape in real:
+        unit = grad * 2.0 ** -math.frexp(float(grad.abs().max()))[1]
+        cases.append(sampling_case("golden", unit, pts, c0, cell, shape,
+                                   "train1_golden"))
     return cases
 
 
@@ -2334,9 +2350,15 @@ def train_phase(device, card):
     from tdvnet_torch.weights import load_threedvnet
 
     log("phase 9a: backward kernels against their twins at the train "
-        "steps' shapes")
+        "steps' shapes (the scene sampling's also at one offset pass of the "
+        "golden batch's n_iters=1 step)")
+    from tdvnet_torch.tools.time_k6_backward import capture_sampling_backward
+
+    real = capture_sampling_backward(WEIGHTS, device)
+    torch.cuda.empty_cache()
     k_ok, per_kernel = kernel_phase(
-        device, train_cases(device) + train_refine_cases(device))
+        device, train_cases(device) + train_refine_cases(device, real=real))
+    del real
     log("phase 9a: the source variance, kernel and fp32 twin against the "
         "twin in float64")
     v_ok, reading = variance_reading(device)

@@ -9,25 +9,96 @@
 // g * w_tap into each of the 8 taps. The hypothesis points take no
 // gradient (`stop_gradient` in `run_pointflow`).
 //
-// Bound on an H100: bytes in the contract's count (d out [B, Q, C] read
-// once, the points, d grid written once: at the finest training scale
-// B = 2, Q = 153664, C = 64, 64^3 nodes: 79 MB + 134 MB, ~65 us); in
-// practice the atomics: 8 vector reductions per (point, 4 channels), with
-// the hypotheses of neighbouring pixels landing on the same nodes.
+// Bound on an H100: bytes (d out [B, Q, C] and the points read once, d grid
+// written once: at the finest training scale B = 2, Q = 153664, C = 64,
+// 64^3 nodes: 79 MB + 134 MB, ~65 us). A scatter-add straight into device
+// memory is bound instead by the L2's atomic units: one 16-byte reduction
+// per (point, tap, 4 channels), ~197M an offset pass over the three
+// scales, landing dozens to hundreds at a time on the same coarse cells.
 //
-// Design: one thread per (point, 4 channels), C/4 neighbouring threads on
-// one point as in the forward, the node coordinates, footprint and weights
-// computed as the forward does them (IEEE division by the cell, bounds on
-// the float coordinates before any float-to-int conversion); each tap
-// inside the grid takes one 16-byte vector reduction
-// (`red.global.add.v4.f32`) of g * w. Taps outside the grid take nothing,
-// and so does a point whose coordinates are not finite (its forward sample
-// is NaN). The sum order changes from run to run.
+// Design: owner bricks in shared memory. The grid is cut into bricks of
+// 8 x 8 x 8 nodes (4 x 8 x 8 measured 2-6% slower a pass on both point sets
+// of PERF.md; partial bricks at the grid's high faces). Each brick owns its
+// nodes, so the sum for a node is formed in one block's shared memory and
+// leaves it once.
+//   bin      a counting sort of (point, brick) entries, written by hand: one
+//            entry per brick that a point's in-grid taps touch (a point
+//            touches two bricks on an axis only when its anchor lies on a
+//            brick's high face: ~1.42 entries a point for bricks of 8).
+//            A histogram per brick (each block gathers its entries in a
+//            shared histogram first: at most 12288 bricks, which the
+//            wrapper enforces), whose last block to finish scans it
+//            (entry and chunk offsets), then placement, whose block i then
+//            zeroes brick i in the output when the brick's list is longer
+//            than one chunk (its chunks add into it; no other byte is
+//            zeroed). An entry is 16 bytes, the point's index
+//            and its node coordinates: the forward's IEEE division by the
+//            cell is done here once, not again per channel group. Binned per
+//            call, so per scale: a coarse anchor from its own division need
+//            not be the fine anchor halved.
+//   sum      a persistent grid of blocks takes work items (brick, chunk of
+//            at most 4096 of its entries, group of 64 channels). A block
+//            zeroes a tile of the brick's nodes x 64 channels in dynamic
+//            shared memory (128 KB for 8 x 8 x 8, after
+//            cudaFuncSetAttribute; one block of 32 warps an SM) and sorts
+//            the chunk in shared memory by anchor (a counting sort over the
+//            9 x 9 x 9 anchors that touch the brick), keeping per entry the
+//            point's index, its three weights and its key. Each warp then
+//            walks a contiguous run of the sorted chunk, a lane taking two
+//            neighbouring channels (a warp reads a point's 256-byte
+//            gradient row in one request), eight rows requested together.
+//            The entries of one anchor (a cell's points: tens to hundreds at
+//            the coarse scales) sum their eight taps in registers and add
+//            them into the tile once, with shared-memory float atomics; a
+//            lane's two channels sit 32 words apart in the tile, so a
+//            warp's 32 adds fall in 32 banks. Taps outside the grid or in
+//            another brick add nothing (that brick's own entry takes them).
+//            Hopper's shared-memory float atomics are compare-and-swap loops
+//            (ATOMS.CAST.SPIN); measured on the H100 (PERF.md, PR 8), this
+//            phase is bound by instruction issue and those loops' round
+//            trips, not by the gathers: a parity-class order that let
+//            most runs add without atomics, swaps issued together, 512
+//            threads with deeper prefetch, tap weights formed in the sort
+//            (which halves the chunk to fit), and an unsorted chunk were
+//            all slower.
+//   flush    a brick held by one chunk stores its tile with plain 16-byte
+//            stores, zeros included: the finest grid needs no zero fill and
+//            no global atomic where no brick holds more than a chunk. A
+//            brick of several chunks adds its tile with
+//            `red.global.add.v4.f32` (at the coarsest scale ~2M 16-byte
+//            reductions a pass instead of 79M).
+// The chunk (entries per work item) is sized from B * Q so that about two
+// work items run per resident block: long lists (the coarse scales' few
+// bricks) split, short ones (the finest scale's) do not. A point with
+// non-finite coordinates or an anchor off the grid takes nothing (its
+// forward sample is NaN or zero); bounds are tested on the float before any
+// float-to-int conversion. Shared-memory float atomics, the in-block sort
+// and the chunks' reductions sum in a run-dependent order: the result moves
+// at rounding level from run to run.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "block_scan.cuh"
+
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kB = 8;               // brick nodes along each axis
+constexpr int kGroup = 64;          // channels of one work item
+constexpr int kBinThreads = 1024;
+constexpr int kSharedBins = 12288;  // bricks a bin block counts in 48 KB
+constexpr int kMinChunk = 1024;     // entries: a flush is 8192 reductions
+constexpr int kMaxChunk = 4096;     // entries a block sorts (64 KB)
+constexpr int kBatch = 8;           // gradient rows a warp requests at once
+
+struct Geo {
+  int B;
+  long long Q;
+  int X, Y, Z, C;
+  float cell;
+  int nbx, nby, nbz;    // bricks along each axis
+};
 
 __device__ __forceinline__ void red_add4(float4* addr, float4 v) {
 #if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
@@ -42,64 +113,431 @@ __device__ __forceinline__ void red_add4(float4* addr, float4 v) {
 #endif
 }
 
-__global__ void trilinear_sample_backward_kernel(
-    const float* __restrict__ grad,     // [B, Q, C] d loss / d samples
-    const float* __restrict__ pts,      // [B, Q, 3] world points
-    const float* __restrict__ center0,  // [B, 3] world position of node 0
-    float* __restrict__ grad_grid,      // [B, X, Y, Z, C], zeroed
-    int B, long long Q, int X, int Y, int Z, int C, float cell) {
-  const int cq = C >> 2;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)B * Q * cq) return;
-  const int q = (int)(t % cq);
-  const long long bq = t / cq;
-  const int b = (int)(bq / Q);
-  const float qx = (pts[bq * 3 + 0] - center0[b * 3 + 0]) / cell;
-  const float qy = (pts[bq * 3 + 1] - center0[b * 3 + 1]) / cell;
-  const float qz = (pts[bq * 3 + 2] - center0[b * 3 + 2]) / cell;
-  if (!(isfinite(qx) && isfinite(qy) && isfinite(qz))) return;
+// The forward's node coordinates of point bq of scene b; false when the
+// point takes no gradient (coordinates not finite, or an anchor outside
+// [-1, n - 1] on some axis, tested on the float).
+__device__ __forceinline__ bool node_coords(const float* __restrict__ pts,
+                                            const float* __restrict__ c0,
+                                            long long bq, int b,
+                                            const Geo& g, float& qx,
+                                            float& qy, float& qz) {
+  qx = (pts[bq * 3 + 0] - c0[b * 3 + 0]) / g.cell;
+  qy = (pts[bq * 3 + 1] - c0[b * 3 + 1]) / g.cell;
+  qz = (pts[bq * 3 + 2] - c0[b * 3 + 2]) / g.cell;
+  if (!(isfinite(qx) && isfinite(qy) && isfinite(qz))) return false;
   const float fx = floorf(qx), fy = floorf(qy), fz = floorf(qz);
-  if (!(fx >= -1.f && fx <= (float)(X - 1) && fy >= -1.f &&
-        fy <= (float)(Y - 1) && fz >= -1.f && fz <= (float)(Z - 1)))
-    return;
-  const int x0 = (int)fx, y0 = (int)fy, z0 = (int)fz;
-  const float wx = qx - fx, wy = qy - fy, wz = qz - fz;
-  const float4 g = reinterpret_cast<const float4*>(grad)[bq * cq + q];
-  float4* gg =
-      reinterpret_cast<float4*>(grad_grid + (size_t)b * X * Y * Z * C) + q;
+  return fx >= -1.f && fx <= (float)(g.X - 1) && fy >= -1.f &&
+         fy <= (float)(g.Y - 1) && fz >= -1.f && fz <= (float)(g.Z - 1);
+}
+
+// Along one axis of n nodes: the bricks of `bs` nodes that hold the in-grid
+// taps of an anchor t0 in [-1, n - 1]; returns how many (1 or 2) and sets
+// *first, the lower one.
+__device__ __forceinline__ int axis_bricks(int t0, int n, int bs,
+                                           int* first) {
+  const int lo = t0 < 0 ? 0 : t0;
+  const int hi = t0 + 1 > n - 1 ? n - 1 : t0 + 1;
+  *first = lo / bs;
+  return hi / bs - lo / bs + 1;
+}
+
+struct Brick {
+  int scene, x0, y0, z0;    // first node
+  int ex, ey, ez;           // nodes inside the grid
+};
+
+__device__ __forceinline__ Brick brick_at(int id, const Geo& g) {
+  Brick k;
+  const int bz = id % g.nbz;
+  id /= g.nbz;
+  const int by = id % g.nby;
+  id /= g.nby;
+  const int bx = id % g.nbx;
+  k.scene = id / g.nbx;
+  k.x0 = bx * kB;
+  k.y0 = by * kB;
+  k.z0 = bz * kB;
+  k.ex = min(kB, g.X - k.x0);
+  k.ey = min(kB, g.Y - k.y0);
+  k.ez = min(kB, g.Z - k.z0);
+  return k;
+}
+
+__device__ __forceinline__ float4* node_row(float* grid, const Geo& g,
+                                            const Brick& k, int lx, int ly,
+                                            int lz) {
+  return reinterpret_cast<float4*>(
+      grid + ((((size_t)k.scene * g.X + k.x0 + lx) * g.Y + k.y0 + ly) * g.Z +
+              k.z0 + lz) * g.C);
+}
+
+// The scratch of one call: per brick its entry count (then the placement's
+// running offset), a done counter, the entry offsets and the chunk offsets
+// (n_bricks + 1 each).
+struct Bins {
+  int* counts;
+  int* done;
+  int* offs;
+  int* chunk_start;
+};
+
+// A point's bricks: n (0 when it takes no gradient) and the r-th brick's id.
+struct PointBricks {
+  int n, kz, kyz, base, nby, nbz;
+  __device__ __forceinline__ int id(int r) const {
+    const int ix = r / kyz, iy = (r - ix * kyz) / kz, iz = r % kz;
+    return base + (ix * nby + iy) * nbz + iz;
+  }
+};
+
+__device__ __forceinline__ PointBricks point_bricks(
+    const float* __restrict__ pts, const float* __restrict__ center0,
+    long long bq, const Geo& g, float& qx, float& qy, float& qz) {
+  PointBricks pb{0, 1, 1, 0, g.nby, g.nbz};
+  qx = qy = qz = 0.f;
+  if (bq >= (long long)g.B * g.Q) return pb;
+  const int b = (int)(bq / g.Q);
+  if (!node_coords(pts, center0, bq, b, g, qx, qy, qz)) return pb;
+  int fx, fy, fz;
+  const int kx = axis_bricks((int)floorf(qx), g.X, kB, &fx);
+  const int ky = axis_bricks((int)floorf(qy), g.Y, kB, &fy);
+  pb.kz = axis_bricks((int)floorf(qz), g.Z, kB, &fz);
+  pb.kyz = ky * pb.kz;
+  pb.n = kx * pb.kyz;
+  pb.base = ((b * g.nbx + fx) * g.nby + fy) * g.nbz + fz;
+  return pb;
+}
+
+// bin: kPlace false counts the entries of each brick, and the last block to
+// finish scans the counts (offsets, chunks: an empty brick has one chunk,
+// its tile of zeros); kPlace true writes each entry at the brick's running
+// offset, and block i < n_bricks then zeroes brick i in the output if its
+// list has several chunks (they add into it). A block first gathers its
+// entries per brick in a shared histogram (n_bricks ints) and takes one
+// global atomic per brick it touches.
+template <bool kPlace>
+__global__ void __launch_bounds__(kBinThreads)
+    trilinear_sample_backward_bin_kernel(
+        const float* __restrict__ pts, const float* __restrict__ center0, Geo g,
+    Bins bins, float4* __restrict__ entries, float* __restrict__ grad_grid,
+    int n_bricks, int chunk) {
+  extern __shared__ int sh_bins[];
+  const long long bq = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float qx, qy, qz;
+  const PointBricks pb = point_bricks(pts, center0, bq, g, qx, qy, qz);
+  for (int i = threadIdx.x; i < n_bricks; i += kBinThreads) sh_bins[i] = 0;
+  __syncthreads();
+  int rank[8];
 #pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
+  for (int r = 0; r < 8; ++r)
+    if (r < pb.n) rank[r] = atomicAdd(&sh_bins[pb.id(r)], 1);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_bricks; i += kBinThreads) {
+    const int c = sh_bins[i];
+    if (c == 0) continue;
+    const int at = atomicAdd(&bins.counts[i], c);
+    if (kPlace) sh_bins[i] = at;
+  }
+  if (kPlace) {
+    __syncthreads();
 #pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const int xi = x0 + dx, yi = y0 + dy, zi = z0 + dz;
-        if (xi < 0 || xi > X - 1 || yi < 0 || yi > Y - 1 || zi < 0 ||
-            zi > Z - 1)
-          continue;
-        const float w = (dx ? wx : 1.f - wx) * (dy ? wy : 1.f - wy) *
-                        (dz ? wz : 1.f - wz);
-        red_add4(gg + (((size_t)xi * Y + yi) * Z + zi) * cq,
-                 make_float4(g.x * w, g.y * w, g.z * w, g.w * w));
+    for (int r = 0; r < 8; ++r)
+      if (r < pb.n)
+        entries[sh_bins[pb.id(r)] + rank[r]] =
+            make_float4(__int_as_float((int)bq), qx, qy, qz);
+  }
+  if (!kPlace) {
+    __shared__ int last;
+    __shared__ int smem[33];
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      last = atomicAdd(bins.done, 1) == (int)gridDim.x - 1;
+    __syncthreads();
+    if (!last) return;
+    int carry_e = 0, carry_c = 0;
+    for (int b0 = 0; b0 < n_bricks; b0 += kBinThreads) {
+      const int i = b0 + threadIdx.x;
+      const int c = i < n_bricks ? __ldcg(bins.counts + i) : 0;
+      const int nch = i < n_bricks ? (c > chunk ? 1 + (c - 1) / chunk : 1)
+                                   : 0;
+      int tot_e, tot_c;
+      const int ex_e = tdv::block_exclusive_scan<kBinThreads>(c, smem, &tot_e);
+      const int ex_c =
+          tdv::block_exclusive_scan<kBinThreads>(nch, smem, &tot_c);
+      if (i < n_bricks) {
+        bins.offs[i] = bins.counts[i] = carry_e + ex_e;
+        bins.chunk_start[i] = carry_c + ex_c;
       }
+      carry_e += tot_e;
+      carry_c += tot_c;
+    }
+    if (threadIdx.x == 0) {
+      bins.offs[n_bricks] = carry_e;
+      bins.chunk_start[n_bricks] = carry_c;
+    }
+  } else {
+    const int id = blockIdx.x;
+    if (id >= n_bricks || bins.offs[id + 1] - bins.offs[id] <= chunk) return;
+    const Brick k = brick_at(id, g);
+    const int cq = g.C >> 2;
+    const int m_all = k.ex * k.ey * k.ez * cq;
+    for (int i = threadIdx.x; i < m_all; i += blockDim.x) {
+      const int node = i / cq, m = i - node * cq;
+      const int lz = node % k.ez, ly = (node / k.ez) % k.ey,
+                lx = node / (k.ez * k.ey);
+      node_row(grad_grid, g, k, lx, ly, lz)[m] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
+constexpr int kNodes = kB * kB * kB;
+constexpr int kKeys = (kB + 1) * (kB + 1) * (kB + 1);  // anchors [-1, 7]^3
+constexpr int kSumThreads = 1024;
+// the tile (w channels), the anchor histogram, the chunk's sorted entries
+// and keys
+constexpr int sum_smem_bytes(int w) {
+  return kNodes * w * 4 + 1024 * 4 + kMaxChunk * (16 + 2);
+}
+
+// an entry's sort key: its anchor in brick-local nodes, each in
+// [-1, brick - 1]
+__device__ __forceinline__ int local_key(const float4& r, const Brick& k) {
+  const int ux = (int)floorf(r.y) - k.x0 + 1, uy = (int)floorf(r.z) - k.y0 + 1,
+            uz = (int)floorf(r.w) - k.z0 + 1;
+  return (ux * (kB + 1) + uy) * (kB + 1) + uz;
+}
+
+// Add a run's eight register sums (anchor (cx, cy, cz) in brick-local
+// nodes, channels 2j and 2j + 1 of the group) into the tile.
+__device__ __forceinline__ void add_run(float* tile, const float2 (&acc)[8],
+                                        int key, const Brick& k, int w,
+                                        int lane_j) {
+  const int cz = key % (kB + 1) - 1, cy = key / (kB + 1) % (kB + 1) - 1,
+            cx = key / ((kB + 1) * (kB + 1)) - 1;
+  const int half = w >> 1;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int lx = cx + (t >> 2), ly = cy + ((t >> 1) & 1), lz = cz + (t & 1);
+    if (lx < 0 || lx >= k.ex || ly < 0 || ly >= k.ey || lz < 0 ||
+        lz >= k.ez)
+      continue;
+    float* dst = tile + ((lx * kB + ly) * kB + lz) * w + lane_j;
+    atomicAdd(dst, acc[t].x);
+    atomicAdd(dst + half, acc[t].y);
+  }
+}
+
+__global__ void __launch_bounds__(kSumThreads, 1)
+    trilinear_sample_backward_sum_kernel(
+        const float* __restrict__ grad, const float4* __restrict__ entries,
+        Bins bins, float* __restrict__ grad_grid, Geo g, int n_bricks,
+        int chunk, int n_groups, int w_max) {
+  constexpr int kThreads = kSumThreads;
+  extern __shared__ float4 tile4[];
+  float* tile = reinterpret_cast<float*>(tile4);
+  int* hist = reinterpret_cast<int*>(tile + kNodes * w_max);
+  float4* srec = reinterpret_cast<float4*>(hist + 1024);
+  uint16_t* skey = reinterpret_cast<uint16_t*>(srec + kMaxChunk);
+  __shared__ int item[4];       // brick, first entry, end, several chunks
+  __shared__ int scan_smem[33];
+  const int n_items = bins.chunk_start[n_bricks] * n_groups;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const int cid = it / n_groups, grp = it - cid * n_groups;
+    const int c0 = grp * kGroup;
+    const int w = min(kGroup, g.C - c0);        // this group's channels
+    if (warp == 0) {
+      // the brick that holds chunk cid (the last whose first chunk is at
+      // most cid): a 32-way search, one round trip per factor of 32
+      int lo = 0, span = n_bricks;
+      while (span > 1) {
+        const int step = (span + 31) >> 5;
+        const int at = lo + lane * step;
+        const bool le = at < lo + span && __ldg(bins.chunk_start + at) <= cid;
+        const int last = 31 - __clz(__ballot_sync(kFull, le));
+        lo += last * step;
+        span = min(step, span - last * step);
+      }
+      if (lane == 0) {
+        const int e_end = bins.offs[lo + 1];
+        const int e0 = bins.offs[lo] + (cid - bins.chunk_start[lo]) * chunk;
+        item[0] = lo;
+        item[1] = e0;
+        item[2] = e_end - e0 <= chunk ? e_end : e0 + chunk;
+        item[3] = e_end - bins.offs[lo] > chunk;
+      }
+    }
+    for (int i = threadIdx.x; i < kNodes * w / 4; i += kThreads)
+      tile4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = threadIdx.x; i < kKeys; i += kThreads) hist[i] = 0;
+    __syncthreads();
+    const Brick k = brick_at(item[0], g);
+    const int e0 = item[1], n = item[2] - item[1];
+    const bool several = item[3] != 0;
+
+    // a counting sort of the chunk by anchor: runs of one anchor then sum
+    // their taps in registers before they touch the tile. A sorted entry
+    // keeps the point's index and its three interpolation weights, its key
+    // beside it.
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      atomicAdd(&hist[local_key(entries[e0 + i], k)], 1);
+    __syncthreads();
+    for (int base = 0, carry = 0; base < kKeys; base += kThreads) {
+      int total;
+      const int i = base + threadIdx.x;
+      const int v = i < kKeys ? hist[i] : 0;
+      const int ex = tdv::block_exclusive_scan<kThreads>(v, scan_smem, &total);
+      if (i < kKeys) hist[i] = carry + ex;
+      carry += total;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const float4 r = entries[e0 + i];
+      const int key = local_key(r, k);
+      const int at = atomicAdd(&hist[key], 1);
+      srec[at] = make_float4(r.x, r.y - floorf(r.y), r.z - floorf(r.z),
+                             r.w - floorf(r.w));
+      skey[at] = (uint16_t)key;
+    }
+    __syncthreads();
+
+    // each slot (a warp, or part of one when the group is narrower than 64
+    // channels) sums a contiguous run of the sorted chunk, kBatch entries
+    // at a time: their gradient rows are requested together, then added
+    const int lpe = w >> 1;                     // lanes per entry
+    const int epw = 32 / lpe;                   // entries per warp
+    const int sub = lane / lpe, lane_j = lane - sub * lpe;
+    if (sub < epw) {
+      const int n_slots = (kThreads >> 5) * epw;
+      const int per = (n + n_slots - 1) / n_slots;
+      const int j0 = (warp * epw + sub) * per;
+      const int stop = min(j0 + per, n);
+      const float* gp = grad + c0 + 2 * lane_j;
+      float2 acc[8];
+      int cur = -1;
+      for (int jb = j0; jb < stop; jb += kBatch) {
+        float2 gv[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (jb + u < stop)
+            gv[u] = __ldg(reinterpret_cast<const float2*>(
+                gp + (size_t)__float_as_int(srec[jb + u].x) * g.C));
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (jb + u >= stop) break;
+          const int key = skey[jb + u];
+          if (key != cur) {
+            if (cur >= 0) add_run(tile, acc, cur, k, w, lane_j);
+            cur = key;
+#pragma unroll
+            for (int t = 0; t < 8; ++t) acc[t] = make_float2(0.f, 0.f);
+          }
+          const float4 r = srec[jb + u];      // point, wx, wy, wz
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            // the forward's product order: (w_x * w_y) * w_z
+            const float wt = ((t >> 2) ? r.y : 1.f - r.y) *
+                             (((t >> 1) & 1) ? r.z : 1.f - r.z) *
+                             ((t & 1) ? r.w : 1.f - r.w);
+            acc[t].x += gv[u].x * wt;
+            acc[t].y += gv[u].y * wt;
+          }
+        }
+      }
+      if (cur >= 0) add_run(tile, acc, cur, k, w, lane_j);
+    }
+    __syncthreads();
+
+    // the tile leaves once: channel 2j + h of the group sits at h * w / 2 + j
+    const int nq = w >> 2;
+    const float2* tile2 = reinterpret_cast<const float2*>(tile);
+    for (int i = threadIdx.x; i < kNodes * nq; i += kThreads) {
+      const int node = i / nq, m = i - node * nq;
+      const int lz = node % kB, ly = (node / kB) % kB, lx = node / (kB * kB);
+      if (lx >= k.ex || ly >= k.ey || lz >= k.ez) continue;
+      const float2 lo = tile2[(node * w >> 1) + m];           // 4m, 4m + 2
+      const float2 hi = tile2[((node * w + lpe) >> 1) + m];   // 4m + 1, 4m + 3
+      const float4 v = make_float4(lo.x, hi.x, lo.y, hi.y);
+      float4* dst = node_row(grad_grid, g, k, lx, ly, lz) + (c0 >> 2) + m;
+      if (several) red_add4(dst, v);
+      else *dst = v;
+    }
+    __syncthreads();
+  }
+}
+
+// resident blocks of the sum kernel on the current device (the attribute
+// and the occupancy query once per device and tile size)
+int sum_blocks(int smem_bytes) {
+  constexpr int kDevices = 64;
+  static int cached_smem[kDevices], cached_blocks[kDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < kDevices && cached_smem[dev] == smem_bytes)
+    return cached_blocks[dev];
+  int n_sm = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(trilinear_sample_backward_sum_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem_bytes);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, trilinear_sample_backward_sum_kernel, kSumThreads, smem_bytes);
+  if (dev < kDevices) {
+    cached_smem[dev] = smem_bytes;
+    cached_blocks[dev] = per_sm * n_sm;
+  }
+  return per_sm * n_sm;
+}
+
 }  // namespace
 
-// grad [B, Q, C]; grad_grid [B, X, Y, Z, C] zeroed by the caller;
-// C % 4 == 0.
+// grad [B, Q, C]; grad_grid [B, X, Y, Z, C], uninitialised (every element is
+// written); C % 4 == 0; `scratch` 3 * n_bricks + 3 ints (the counts, a done
+// counter, the entry offsets and the chunk offsets, n_bricks + 1 each) for
+// n_bricks <= 12288 bricks of 8^3 nodes; `entries` 8 * B * Q float4;
+// B * Q * 8 < 2^31. `chunk` <= 0 sizes the chunk from B * Q, and no chunk
+// exceeds 4096.
 extern "C" int tdv_trilinear_sample_backward(
     const float* grad, const float* pts, const float* center0,
-    float* grad_grid, int B, long long Q, int X, int Y, int Z, int C,
-    float cell, void* stream) {
-  const long long total = (long long)B * Q * (C / 4);
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  trilinear_sample_backward_kernel<<<(unsigned)blocks, threads, 0,
-                                     (cudaStream_t)stream>>>(
-      grad, pts, center0, grad_grid, B, Q, X, Y, Z, C, cell);
+    float* grad_grid, int* scratch, float* entries, int B, long long Q, int X,
+    int Y, int Z, int C, float cell, int chunk, void* stream) {
+  if (B <= 0 || X <= 0 || Y <= 0 || Z <= 0 || C <= 0) return 0;
+  const Geo g{B, Q, X, Y, Z, C, cell, (X + kB - 1) / kB, (Y + kB - 1) / kB,
+              (Z + kB - 1) / kB};
+  const int n_bricks = B * g.nbx * g.nby * g.nbz;
+  if (C % 4 || n_bricks > kSharedBins) return (int)cudaErrorInvalidValue;
+  const long long n_pts = (long long)B * Q;
+  const int n_groups = (C + kGroup - 1) / kGroup;
+  const int smem = sum_smem_bytes(min(C, kGroup));
+  const int resident = sum_blocks(smem);
+  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+  if (chunk <= 0) {   // about two work items per resident block
+    const long long want = 3 * n_pts * n_groups / (4LL * resident) + 1;
+    chunk = (int)(want < kMinChunk ? kMinChunk : want);
+  }
+  chunk = min(chunk, kMaxChunk);
+  cudaStream_t s = (cudaStream_t)stream;
+  float4* ent = reinterpret_cast<float4*>(entries);
+  const Bins bins{scratch, scratch + n_bricks, scratch + n_bricks + 1,
+                  scratch + 2 * n_bricks + 2};
+  cudaMemsetAsync(scratch, 0, (n_bricks + 1) * sizeof(int), s);
+  const long long bin_blocks = (n_pts + kBinThreads - 1) / kBinThreads;
+  const int sh = n_bricks * (int)sizeof(int);
+  trilinear_sample_backward_bin_kernel<false>
+      <<<(unsigned)(bin_blocks > 0 ? bin_blocks : 1), kBinThreads, sh, s>>>(
+          pts, center0, g, bins, ent, grad_grid, n_bricks, chunk);
+  trilinear_sample_backward_bin_kernel<true>
+      <<<(unsigned)(bin_blocks > n_bricks ? bin_blocks : n_bricks),
+         kBinThreads, sh, s>>>(pts, center0, g, bins, ent, grad_grid,
+                               n_bricks, chunk);
+  // at most every brick once plus one chunk per `chunk` entries (8 a point)
+  const long long max_items =
+      (n_bricks + (8 * n_pts + chunk - 1) / chunk) * (long long)n_groups;
+  const int blocks = (int)(max_items < resident ? max_items : resident);
+  trilinear_sample_backward_sum_kernel<<<blocks, kSumThreads, smem, s>>>(
+      grad, ent, bins, grad_grid, g, n_bricks, chunk, n_groups,
+      min(C, kGroup));
   return (int)cudaGetLastError();
 }

@@ -52,7 +52,9 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
           contiguous: bool = True) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None:
+    # the exact shape first: the wrappers' host path is a small kernel's
+    # whole time; a shape with None wildcards takes the long test
+    if shape is not None and t.shape != shape:
         if t.dim() != len(shape) or any(
                 s is not None and s != d for s, d in zip(shape, t.shape)):
             raise ValueError(f"{name}: expected shape {shape}, got "
@@ -61,15 +63,20 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
         raise ValueError(f"{name}: must be contiguous")
 
 
+_ENTRY_POINTS = {}       # C entry points of the kernel library, by name
+
+
 def launch(fn_name: str, device: torch.device, *args) -> None:
     """Call one C entry point of the kernel library on `device`'s current
     stream and raise if the launch was refused. At the probes' sizes this
     host path is a call's whole time, so it stays short: the raw stream
     handle, and a device switch only when `device` is not the current
     one."""
-    from tdvnet_torch.kernels.build import library
+    fn = _ENTRY_POINTS.get(fn_name)
+    if fn is None:
+        from tdvnet_torch.kernels.build import library
 
-    fn = getattr(library(), fn_name)
+        fn = _ENTRY_POINTS[fn_name] = getattr(library(), fn_name)
     index = device.index
     current = torch.cuda.current_device()
     if index is None or index == current:

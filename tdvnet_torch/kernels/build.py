@@ -51,7 +51,7 @@ SIGNATURES = {
     "tdv_take_along_axis": [_P] * 3 + [_I] * 6 + [_P],
     "tdv_scene_origins": [_P, _P, _P, _P, _P, _L, _I, _P],
     "tdv_voxelize": [_P] * 14 + [_L, _I, _I, _I, _I, _F, _I, _P],
-    "tdv_scatter_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tdv_scatter_dense": [_P] * 7 + [_I] * 6 + [_P],
     "tdv_segment_max": [_P, _P, _P, _P, _L, _I, _L, _P],
     "tdv_gather_concat": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
     "tdv_masked_group_norm": [_P] * 8 + [_I, _I, _I, _L, _F, _I, _I, _P],
@@ -62,8 +62,8 @@ SIGNATURES = {
     "tdv_gather_concat_backward": [_P] * 6 + [_L, _I, _L, _I, _P],
     "tdv_masked_group_norm_backward": [_P] * 13 + [_I, _I, _I, _L, _I, _I,
                                                    _P],
-    "tdv_trilinear_sample_backward": [_P] * 4 + [_I, _L, _I, _I, _I, _I, _F,
-                                                 _P],
+    "tdv_trilinear_sample_backward": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _F,
+                                                 _I, _P],
 }
 
 

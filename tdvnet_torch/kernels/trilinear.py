@@ -10,7 +10,9 @@ PyTorch twins; the wrappers run them only for CPU tensors.
 `trilinear_sample` writes into a channel slice of a wider output, which
 autograd cannot follow: a sampling that must carry the grid's gradient
 goes through `trilinear_sample_scale`, which returns the scale's own
-[B, Q, C] from `TrilinearSampleFn` (backward: `trilinear_sample_backward`).
+[B, Q, C] from `TrilinearSampleFn` (backward: `trilinear_sample_backward`,
+which sums each brick of BRICK^3 nodes in one block's shared memory; see
+the kernel's header).
 """
 from __future__ import annotations
 
@@ -19,6 +21,12 @@ import torch
 from tdvnet_torch.kernels._launch import (check, launch, no_backward,
                                           on_cpu, wants_grad)
 from tdvnet_torch.ops.sampling import _floor_in, trilinear_sample_batched
+
+# the backward kernel's bricks of BRICK^3 nodes, each summed in one block's
+# shared memory; its binning counts at most MAX_BRICKS in a block's shared
+# histogram
+BRICK = 8
+MAX_BRICKS = 12288
 
 
 def _node_coords(pts, center0, cell, cell_offset):
@@ -175,24 +183,55 @@ def trilinear_sample_backward(grad: torch.Tensor, pts: torch.Tensor,
                               center0: torch.Tensor, cell: float,
                               grid_shape) -> torch.Tensor:
     """Same contract as `trilinear_sample_backward_ref`; launches the CUDA
-    kernel for CUDA tensors (vector atomics: the sum order changes from run
-    to run)."""
+    kernel for CUDA tensors (shared-memory atomics: the sum order changes
+    from run to run)."""
     if on_cpu(grad, pts, center0):
         return trilinear_sample_backward_ref(grad, pts, center0, cell,
                                              grid_shape)
+    return _trilinear_sample_backward(grad, pts, center0, cell,
+                                      grid_shape)[0]
+
+
+def brick_count(grid_shape) -> int:
+    """Bricks of BRICK^3 nodes over the B grids of `grid_shape`
+    [B, X, Y, Z, C] (partial bricks at the high faces)."""
+    B, X, Y, Z, _ = grid_shape
+    return B * -(-X // BRICK) * -(-Y // BRICK) * -(-Z // BRICK)
+
+
+def _trilinear_sample_backward(grad, pts, center0, cell, grid_shape,
+                               chunk: int = 0):
+    """The launch. Returns (d grid, chunk offsets [n_bricks + 1]): brick i's
+    entries are summed by chunks chunk_offsets[i] .. chunk_offsets[i + 1] - 1,
+    so a last value equal to the brick count means every brick stored its
+    tile once (no zero fill, no reduction). `chunk` > 0 fixes the entries
+    per chunk (at most 4096); 0 lets the kernel size it from B * Q."""
     B, X, Y, Z, C = grid_shape
     Q = pts.shape[1]
     _check_slice("trilinear_sample_backward", C, C, 0)
+    n_bricks = brick_count(grid_shape)
+    if n_bricks > MAX_BRICKS:
+        raise ValueError(f"trilinear_sample_backward: {B} grids of "
+                         f"{(X, Y, Z)} nodes are {n_bricks} bricks of "
+                         f"{BRICK}^3, more than the kernel's {MAX_BRICKS}")
+    if 8 * B * Q >= 2 ** 31:
+        raise ValueError(f"trilinear_sample_backward: {B} x {Q} points are "
+                         f"outside the kernel's int32 entry space")
     check(grad, "grad", torch.float32, (B, Q, C))
     check(pts, "pts", torch.float32, (B, Q, 3))
     check(center0, "center0", torch.float32, (B, 3))
-    out = torch.zeros(tuple(grid_shape), dtype=torch.float32,
-                      device=grad.device)
-    launch("tdv_trilinear_sample_backward", grad.device, grad.data_ptr(),
-           pts.data_ptr(), center0.data_ptr(), out.data_ptr(), B, Q, X, Y, Z,
-           C, float(cell))
+    dev = grad.device
+    # every element of the output is written by the kernel
+    out = torch.empty(tuple(grid_shape), dtype=torch.float32, device=dev)
+    scratch = torch.empty((3 * n_bricks + 3,), dtype=torch.int32, device=dev)
+    # one 16-byte entry per (point, brick): at most 8 a point
+    entries = torch.empty((8 * B * Q, 4), dtype=torch.float32, device=dev)
+    launch("tdv_trilinear_sample_backward", dev, grad.data_ptr(),
+           pts.data_ptr(), center0.data_ptr(), out.data_ptr(),
+           scratch.data_ptr(), entries.data_ptr(), B, Q, X, Y, Z, C,
+           float(cell), chunk)
     trilinear_sample_backward.launches += 1
-    return out
+    return out, scratch[2 * n_bricks + 2:]
 
 
 trilinear_sample_backward.launches = 0

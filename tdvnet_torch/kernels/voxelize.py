@@ -252,14 +252,23 @@ def _scatter_dense(anchor_feats, vg, grid_size, n_scenes):
     check(anchor_feats, "anchor_feats", torch.float32, (A, C))
     _check_anchor_table(vg, A)
     dev = anchor_feats.device
-    dense = torch.zeros((n_scenes, gx, gy, gz, C), dtype=torch.float32,
+    n_all = n_scenes * gx * gy * gz
+    if n_all * C // 4 >= 2 ** 31:
+        raise ValueError(f"scatter_anchors_to_dense: {n_scenes} grids of "
+                         f"{grid_size} x {C} channels are outside the "
+                         f"kernel's int32 index space")
+    # the kernel writes every element of both outputs once; the occupancy
+    # and the kernel's cell map share one allocation (the host path is a
+    # good part of this call's time)
+    dense = torch.empty((n_scenes, gx, gy, gz, C), dtype=torch.float32,
                         device=dev)
-    occ = torch.zeros((n_scenes, gx, gy, gz, 1), dtype=torch.float32,
-                      device=dev)
+    occ_map = torch.empty((2, n_all), dtype=torch.float32, device=dev)
+    occ = occ_map[0].view(n_scenes, gx, gy, gz, 1)
+    cell_anchor = occ_map[1].view(torch.int32)
     launch("tdv_scatter_dense", dev, anchor_feats.data_ptr(),
            vg.anchor_idx3.data_ptr(), vg.anchor_scene.data_ptr(),
-           vg.anchor_valid.data_ptr(), dense.data_ptr(), occ.data_ptr(), A,
-           C, gx, gy, gz)
+           vg.anchor_valid.data_ptr(), dense.data_ptr(), occ.data_ptr(),
+           cell_anchor.data_ptr(), A, C, n_scenes, gx, gy, gz)
     scatter_anchors_to_dense.launches += 1
     return dense, occ
 

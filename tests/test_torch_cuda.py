@@ -828,3 +828,156 @@ def test_probe_kernels_match_twins():
         take_along_axis(v, i, axis)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------- the brick backward and the dense scatter
+def _leave_nan(shape, device):
+    """Free a block of NaN of `shape` fp32 into the caching allocator, where
+    the next allocation of that size lands: an output element that a
+    kernel leaves unwritten then reads NaN."""
+    torch.full(shape, float("nan"), device=device)
+
+
+def _tri_inputs(case, device):
+    import _kernel_edge_cases as E
+
+    grad, pts, c0, cell, shape = E.trilinear_case(case)
+    return ([torch.from_numpy(x).to(device) for x in (grad, pts, c0)], cell,
+            shape)
+
+
+def _tri_check(got, want):
+    import chip_smoke
+
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    assert err <= chip_smoke.BACKWARD_TOL * scale, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [0, 3])
+@pytest.mark.parametrize("case", ["brick_faces", "grid_edges", "nonfinite",
+                                  "one_cell", "no_points", "four_channels"])
+def test_trilinear_backward_kernel_matches_twin_at_edges(case, chunk):
+    """The brick-binned backward against its twin at
+    `tests/_kernel_edge_cases.py`'s edges (partial bricks at the grid's
+    high faces, anchors on brick faces and corners, on the last node and at
+    -1, non-finite points, one crowded cell, no points, four channels), with
+    the kernel's chunks and with chunks of 3 entries (every non-empty brick
+    then adds several chunks into a zeroed output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import trilinear as T
+
+    dev = torch.device("cuda")
+    (grad, pts, c0), cell, shape = _tri_inputs(case, dev)
+    _leave_nan(shape, dev)
+    got, starts = T._trilinear_sample_backward(grad, pts, c0, cell, shape,
+                                               chunk)
+    want = T.trilinear_sample_backward_ref(grad, pts, c0, cell, shape)
+    torch.cuda.synchronize()
+    _tri_check(got, want)
+    n_bricks = T.brick_count(shape)
+    assert starts.numel() == n_bricks + 1
+    several = int(starts[-1]) > n_bricks
+    if case == "no_points":
+        assert not several and not got.any()
+    elif chunk == 3 or case == "one_cell":       # 3000 entries a brick
+        assert several
+
+
+def _uniform_points(B, Q, dims, cell, seed):
+    """World points uniform over a grid of `dims` nodes and a margin of a
+    cell around it, with node 0 at the origin."""
+    g = torch.Generator().manual_seed(seed)
+    lo, span = -cell, (torch.tensor(dims, dtype=torch.float32) + 1) * cell
+    return lo + torch.rand(B, Q, 3, generator=g) * span, torch.zeros(B, 3)
+
+
+@pytest.mark.cuda
+def test_trilinear_backward_kernel_adds_chunks_at_the_coarse_scale():
+    """The full-width step's coarsest scale ([2, 16^3, 128], 153664
+    hypotheses a scene): every brick's list splits into several chunks that
+    add into the zeroed bricks with vector reductions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import trilinear as T
+
+    dev = torch.device("cuda")
+    B, Q, C, dims, cell = 2, 153664, 128, (16, 16, 16), 0.32
+    pts, c0 = _uniform_points(B, Q, dims, cell, 4)
+    grad = torch.randn(B, Q, C, generator=torch.Generator().manual_seed(5))
+    pts, c0, grad = pts.to(dev), c0.to(dev), grad.to(dev)
+    shape = (B, *dims, C)
+    _leave_nan(shape, dev)
+    got, starts = T._trilinear_sample_backward(grad, pts, c0, cell, shape)
+    want = T.trilinear_sample_backward_ref(grad, pts, c0, cell, shape)
+    torch.cuda.synchronize()
+    _tri_check(got, want)
+    assert bool(((starts[1:] - starts[:-1]) > 1).all())
+
+
+@pytest.mark.cuda
+def test_trilinear_backward_kernel_stores_once_at_the_fine_scale():
+    """The finest scale's grid ([2, 64^3, 64]) under 20000 points a scene:
+    every brick is one chunk and stores its tile once, zeros included,
+    into an uninitialised output (no zero fill, no global atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import trilinear as T
+
+    dev = torch.device("cuda")
+    B, Q, C, dims, cell = 2, 20000, 64, (64, 64, 64), 0.08
+    pts, c0 = _uniform_points(B, Q, dims, cell, 6)
+    grad = torch.randn(B, Q, C, generator=torch.Generator().manual_seed(7))
+    pts, c0, grad = pts.to(dev), c0.to(dev), grad.to(dev)
+    shape = (B, *dims, C)
+    _leave_nan(shape, dev)
+    got, starts = T._trilinear_sample_backward(grad, pts, c0, cell, shape)
+    want = T.trilinear_sample_backward_ref(grad, pts, c0, cell, shape)
+    torch.cuda.synchronize()
+    _tri_check(got, want)
+    assert int(starts[-1]) == T.brick_count(shape)
+    assert (got == 0).float().mean() > 0.5      # most nodes took nothing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("case", ["no_valid", "all_valid", "last_cells",
+                                  "three_scenes"])
+def test_scatter_kernel_equals_twin_at_edges(case, shuffled):
+    """The map-based scatter writes every element of `dense` and `occ` once
+    (into blocks of NaN left by `_leave_nan`), reads a map entry that names
+    an anchor of another cell as no anchor, and equals its twin bit for
+    bit: no valid anchor, every anchor valid, anchors in each scene's last
+    cell, three scenes; in `voxelize`'s order and shuffled (the kernel
+    assumes none)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import _kernel_edge_cases as E
+    from tdvnet_torch.kernels import voxelize as vox
+
+    dev = torch.device("cuda")
+    feats, idx3, scene, valid, grid, B = E.scatter_case(case)
+    if shuffled:
+        perm = np.random.default_rng(1).permutation(len(valid))
+        feats, idx3, scene, valid = (x[perm] for x in (feats, idx3, scene,
+                                                        valid))
+    feats = torch.from_numpy(np.ascontiguousarray(feats)).to(dev)
+    vg = vox._anchor_table(*(torch.from_numpy(np.ascontiguousarray(x))
+                             .to(dev) for x in (idx3, scene, valid)))
+    _leave_nan((B, *grid, feats.shape[1]), dev)
+    # the cell map is never filled: leave blocks of the occupancy and map's
+    # size whose every entry names an anchor (i mod A), mostly of another
+    # cell
+    n_all, A = B * grid[0] * grid[1] * grid[2], len(valid)
+    names = [torch.arange(2 * n_all, dtype=torch.int32, device=dev) % A
+             for _ in range(2)]
+    del names
+    got = vox.scatter_anchors_to_dense(feats, vg, grid, B)
+    want = vox.scatter_anchors_to_dense_ref(feats, vg, grid, B)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[1].sum()) == int(valid.sum())
