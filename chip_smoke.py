@@ -597,13 +597,16 @@ def scene_model_cases(device, gen, label, path, P, B, grid, A, unet):
         * grid[2] + vg.anchor_idx3[:, 2]
     seg_a = (vg.anchor_scene * (n_cells // B) + flat)[vg.anchor_valid]
     feats_a = feats[vg.anchor_valid]
-    # the library yardstick fills the dense grid with zeros as the kernel's
-    # wrapper does, then writes the valid anchors' rows
+    # the library yardstick fills the dense grid with zeros, then writes
+    # the valid anchors' rows. The bound counts what this data needs: every
+    # anchor's valid flag, the valid anchors' cells and rows read once,
+    # `dense` and `occ` written once
+    n_valid = len(seg_a)
     cases.append(Case(
         "voxelize", f"scatter {label} [{A},{C}] -> {B}x{grid}", n_iters,
         lambda a=(feats, vg, grid, B): vox.scatter_anchors_to_dense(*a),
         lambda a=(feats, vg, grid, B): vox.scatter_anchors_to_dense_ref(*a),
-        0.0, A * (4 * C + 24 + 8 + 1) + n_cells * 4 * (C + 1), 0,
+        0.0, A + n_valid * (4 * C + 24 + 8) + n_cells * 4 * (C + 1), 0,
         library=lambda c=C: torch.zeros(n_cells, c, device=device)
         .index_put_((seg_a,), feats_a), path=path))
 
@@ -1421,6 +1424,8 @@ def train_refine_cases(device, seed=2, real=()):
     from tdvnet_torch.kernels.variance import (source_variance_backward_ref,
                                                source_variance_ref)
     from tdvnet_torch.ops import camera
+    from tdvnet_torch.tools.time_k6_backward import (backward_bytes,
+                                                     uniform_points)
 
     cfg = ModelConfig()
     dc, g = cfg.depth_train, cfg.grid
@@ -1563,9 +1568,7 @@ def train_refine_cases(device, seed=2, real=()):
             f"[{B},{X}^3,{C}]", 3 * n_off,
             lambda a=targs: trilinear_sample_backward(*a),
             lambda a=targs: trilinear_sample_backward_ref(*a),
-            BACKWARD_TOL,
-            4 * (B * Q * C + pts_q.numel() + center0.numel()
-                 + B * X * Y * Z * C),
+            BACKWARD_TOL, backward_bytes(gq, pts_q, shape),
             B * Q * (30 + 16 * C),
             library=lambda a=(gs_in, gs_grid, gs_g): torch.autograd.grad(
                 F.grid_sample(a[0], a[1], mode="bilinear",
@@ -1576,12 +1579,9 @@ def train_refine_cases(device, seed=2, real=()):
     # the three scales' sampling backward at the hypotheses of one offset
     # pass (queries over the grid and a margin around it)
     Q = (R // B) * 7 * P_ref
-    extent = g.grid_size[0] * edge
     origins = rnd(B, 3) * 0.1
     center0 = (origins + 0.5 * edge).contiguous()
-    pts_q = (origins[:, None, :] - 0.3
-             + torch.rand(B, Q, 3, generator=gen).to(device) * (extent + 0.6)
-             ).contiguous()
+    pts_q = uniform_points(origins, g.grid_size[0] * edge, Q, gen)
     for stride, C in zip((1, 2, 4), cfg.unet_dims):
         dims = tuple(d // stride for d in g.grid_size)
         cases.append(sampling_case("uniform", rnd(B, Q, C), pts_q, center0,

@@ -26,9 +26,10 @@
 //            touches two bricks on an axis only when its anchor lies on a
 //            brick's high face: ~1.42 entries a point for bricks of 8).
 //            A histogram per brick (each block gathers its entries in a
-//            shared histogram first: at most 12288 bricks, which the
-//            wrapper enforces), whose last block to finish scans it
-//            (entry and chunk offsets), then placement, whose block i then
+//            shared histogram first when the bricks fit in 48 KB, 12288 of
+//            them, else takes one global atomic per entry), whose last
+//            block to finish scans it (entry and chunk offsets), then
+//            placement, whose block i then
 //            zeroes brick i in the output when the brick's list is longer
 //            than one chunk (its chunks add into it; no other byte is
 //            zeroed). An entry is 16 bytes, the point's index
@@ -87,7 +88,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kB = 8;               // brick nodes along each axis
 constexpr int kGroup = 64;          // channels of one work item
 constexpr int kBinThreads = 1024;
-constexpr int kSharedBins = 12288;  // bricks a bin block counts in 48 KB
+constexpr int kSharedBins = 12288;  // bricks a shared histogram holds (48 KB)
 constexpr int kMinChunk = 1024;     // entries: a flush is 8192 reductions
 constexpr int kMaxChunk = 4096;     // entries a block sorts (64 KB)
 constexpr int kBatch = 8;           // gradient rows a warp requests at once
@@ -212,39 +213,49 @@ __device__ __forceinline__ PointBricks point_bricks(
 // finish scans the counts (offsets, chunks: an empty brick has one chunk,
 // its tile of zeros); kPlace true writes each entry at the brick's running
 // offset, and block i < n_bricks then zeroes brick i in the output if its
-// list has several chunks (they add into it). A block first gathers its
-// entries per brick in a shared histogram (n_bricks ints) and takes one
-// global atomic per brick it touches.
+// list has several chunks (they add into it). With `shared_bins` (n_bricks
+// <= kSharedBins) a block first gathers its entries per brick in a shared
+// histogram and takes one global atomic per brick it touches (the coarse
+// scales' few bricks would otherwise serialise ~27k atomics each); without
+// it, one global atomic per entry.
 template <bool kPlace>
 __global__ void __launch_bounds__(kBinThreads)
     trilinear_sample_backward_bin_kernel(
         const float* __restrict__ pts, const float* __restrict__ center0, Geo g,
     Bins bins, float4* __restrict__ entries, float* __restrict__ grad_grid,
-    int n_bricks, int chunk) {
+    int n_bricks, int chunk, bool shared_bins) {
   extern __shared__ int sh_bins[];
   const long long bq = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float qx, qy, qz;
   const PointBricks pb = point_bricks(pts, center0, bq, g, qx, qy, qz);
-  for (int i = threadIdx.x; i < n_bricks; i += kBinThreads) sh_bins[i] = 0;
-  __syncthreads();
-  int rank[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-    if (r < pb.n) rank[r] = atomicAdd(&sh_bins[pb.id(r)], 1);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_bricks; i += kBinThreads) {
-    const int c = sh_bins[i];
-    if (c == 0) continue;
-    const int at = atomicAdd(&bins.counts[i], c);
-    if (kPlace) sh_bins[i] = at;
-  }
-  if (kPlace) {
+  const float4 entry = make_float4(__int_as_float((int)bq), qx, qy, qz);
+  if (shared_bins) {
+    for (int i = threadIdx.x; i < n_bricks; i += kBinThreads) sh_bins[i] = 0;
     __syncthreads();
+    int rank[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r)
-      if (r < pb.n)
-        entries[sh_bins[pb.id(r)] + rank[r]] =
-            make_float4(__int_as_float((int)bq), qx, qy, qz);
+      if (r < pb.n) rank[r] = atomicAdd(&sh_bins[pb.id(r)], 1);
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_bricks; i += kBinThreads) {
+      const int c = sh_bins[i];
+      if (c == 0) continue;
+      const int at = atomicAdd(&bins.counts[i], c);
+      if (kPlace) sh_bins[i] = at;
+    }
+    if (kPlace) {
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (r < pb.n) entries[sh_bins[pb.id(r)] + rank[r]] = entry;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (r < pb.n) {
+        const int at = atomicAdd(&bins.counts[pb.id(r)], 1);
+        if (kPlace) entries[at] = entry;
+      }
   }
   if (!kPlace) {
     __shared__ int last;
@@ -496,42 +507,43 @@ int sum_blocks(int smem_bytes) {
 // grad [B, Q, C]; grad_grid [B, X, Y, Z, C], uninitialised (every element is
 // written); C % 4 == 0; `scratch` 3 * n_bricks + 3 ints (the counts, a done
 // counter, the entry offsets and the chunk offsets, n_bricks + 1 each) for
-// n_bricks <= 12288 bricks of 8^3 nodes; `entries` 8 * B * Q float4;
-// B * Q * 8 < 2^31. `chunk` <= 0 sizes the chunk from B * Q, and no chunk
-// exceeds 4096.
+// the n_bricks bricks of 8^3 nodes; `entries` 8 * B * Q float4;
+// B * Q * 8 < 2^31.
 extern "C" int tdv_trilinear_sample_backward(
     const float* grad, const float* pts, const float* center0,
     float* grad_grid, int* scratch, float* entries, int B, long long Q, int X,
-    int Y, int Z, int C, float cell, int chunk, void* stream) {
+    int Y, int Z, int C, float cell, void* stream) {
   if (B <= 0 || X <= 0 || Y <= 0 || Z <= 0 || C <= 0) return 0;
   const Geo g{B, Q, X, Y, Z, C, cell, (X + kB - 1) / kB, (Y + kB - 1) / kB,
               (Z + kB - 1) / kB};
   const int n_bricks = B * g.nbx * g.nby * g.nbz;
-  if (C % 4 || n_bricks > kSharedBins) return (int)cudaErrorInvalidValue;
+  if (C % 4) return (int)cudaErrorInvalidValue;
   const long long n_pts = (long long)B * Q;
   const int n_groups = (C + kGroup - 1) / kGroup;
   const int smem = sum_smem_bytes(min(C, kGroup));
   const int resident = sum_blocks(smem);
   if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
-  if (chunk <= 0) {   // about two work items per resident block
-    const long long want = 3 * n_pts * n_groups / (4LL * resident) + 1;
-    chunk = (int)(want < kMinChunk ? kMinChunk : want);
-  }
-  chunk = min(chunk, kMaxChunk);
+  // about two work items per resident block
+  const long long want = 3 * n_pts * n_groups / (4LL * resident) + 1;
+  const int chunk = (int)(want < kMinChunk   ? kMinChunk
+                          : want > kMaxChunk ? kMaxChunk
+                                             : want);
   cudaStream_t s = (cudaStream_t)stream;
   float4* ent = reinterpret_cast<float4*>(entries);
   const Bins bins{scratch, scratch + n_bricks, scratch + n_bricks + 1,
                   scratch + 2 * n_bricks + 2};
   cudaMemsetAsync(scratch, 0, (n_bricks + 1) * sizeof(int), s);
   const long long bin_blocks = (n_pts + kBinThreads - 1) / kBinThreads;
-  const int sh = n_bricks * (int)sizeof(int);
+  const bool shared_bins = n_bricks <= kSharedBins;
+  const int sh = shared_bins ? n_bricks * (int)sizeof(int) : 0;
   trilinear_sample_backward_bin_kernel<false>
       <<<(unsigned)(bin_blocks > 0 ? bin_blocks : 1), kBinThreads, sh, s>>>(
-          pts, center0, g, bins, ent, grad_grid, n_bricks, chunk);
+          pts, center0, g, bins, ent, grad_grid, n_bricks, chunk,
+          shared_bins);
   trilinear_sample_backward_bin_kernel<true>
       <<<(unsigned)(bin_blocks > n_bricks ? bin_blocks : n_bricks),
          kBinThreads, sh, s>>>(pts, center0, g, bins, ent, grad_grid,
-                               n_bricks, chunk);
+                               n_bricks, chunk, shared_bins);
   // at most every brick once plus one chunk per `chunk` entries (8 a point)
   const long long max_items =
       (n_bricks + (8 * n_pts + chunk - 1) / chunk) * (long long)n_groups;

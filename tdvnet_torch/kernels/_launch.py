@@ -78,7 +78,7 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
 
         fn = _ENTRY_POINTS[fn_name] = getattr(library(), fn_name)
     index = device.index
-    current = torch.cuda.current_device()
+    current = torch._C._cuda_getDevice()    # CUDA is up: a tensor is there
     if index is None or index == current:
         err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
     else:

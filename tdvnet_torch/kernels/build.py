@@ -63,7 +63,7 @@ SIGNATURES = {
     "tdv_masked_group_norm_backward": [_P] * 13 + [_I, _I, _I, _L, _I, _I,
                                                    _P],
     "tdv_trilinear_sample_backward": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _F,
-                                                 _I, _P],
+                                                 _P],
 }
 
 

@@ -23,10 +23,8 @@ from tdvnet_torch.kernels._launch import (check, launch, no_backward,
 from tdvnet_torch.ops.sampling import _floor_in, trilinear_sample_batched
 
 # the backward kernel's bricks of BRICK^3 nodes, each summed in one block's
-# shared memory; its binning counts at most MAX_BRICKS in a block's shared
-# histogram
+# shared memory
 BRICK = 8
-MAX_BRICKS = 12288
 
 
 def _node_coords(pts, center0, cell, cell_offset):
@@ -188,32 +186,9 @@ def trilinear_sample_backward(grad: torch.Tensor, pts: torch.Tensor,
     if on_cpu(grad, pts, center0):
         return trilinear_sample_backward_ref(grad, pts, center0, cell,
                                              grid_shape)
-    return _trilinear_sample_backward(grad, pts, center0, cell,
-                                      grid_shape)[0]
-
-
-def brick_count(grid_shape) -> int:
-    """Bricks of BRICK^3 nodes over the B grids of `grid_shape`
-    [B, X, Y, Z, C] (partial bricks at the high faces)."""
-    B, X, Y, Z, _ = grid_shape
-    return B * -(-X // BRICK) * -(-Y // BRICK) * -(-Z // BRICK)
-
-
-def _trilinear_sample_backward(grad, pts, center0, cell, grid_shape,
-                               chunk: int = 0):
-    """The launch. Returns (d grid, chunk offsets [n_bricks + 1]): brick i's
-    entries are summed by chunks chunk_offsets[i] .. chunk_offsets[i + 1] - 1,
-    so a last value equal to the brick count means every brick stored its
-    tile once (no zero fill, no reduction). `chunk` > 0 fixes the entries
-    per chunk (at most 4096); 0 lets the kernel size it from B * Q."""
     B, X, Y, Z, C = grid_shape
     Q = pts.shape[1]
     _check_slice("trilinear_sample_backward", C, C, 0)
-    n_bricks = brick_count(grid_shape)
-    if n_bricks > MAX_BRICKS:
-        raise ValueError(f"trilinear_sample_backward: {B} grids of "
-                         f"{(X, Y, Z)} nodes are {n_bricks} bricks of "
-                         f"{BRICK}^3, more than the kernel's {MAX_BRICKS}")
     if 8 * B * Q >= 2 ** 31:
         raise ValueError(f"trilinear_sample_backward: {B} x {Q} points are "
                          f"outside the kernel's int32 entry space")
@@ -221,6 +196,7 @@ def _trilinear_sample_backward(grad, pts, center0, cell, grid_shape,
     check(pts, "pts", torch.float32, (B, Q, 3))
     check(center0, "center0", torch.float32, (B, 3))
     dev = grad.device
+    n_bricks = brick_count(grid_shape)
     # every element of the output is written by the kernel
     out = torch.empty(tuple(grid_shape), dtype=torch.float32, device=dev)
     scratch = torch.empty((3 * n_bricks + 3,), dtype=torch.int32, device=dev)
@@ -229,9 +205,16 @@ def _trilinear_sample_backward(grad, pts, center0, cell, grid_shape,
     launch("tdv_trilinear_sample_backward", dev, grad.data_ptr(),
            pts.data_ptr(), center0.data_ptr(), out.data_ptr(),
            scratch.data_ptr(), entries.data_ptr(), B, Q, X, Y, Z, C,
-           float(cell), chunk)
+           float(cell))
     trilinear_sample_backward.launches += 1
-    return out, scratch[2 * n_bricks + 2:]
+    return out
+
+
+def brick_count(grid_shape) -> int:
+    """Bricks of BRICK^3 nodes over the B grids of `grid_shape`
+    [B, X, Y, Z, C] (partial bricks at the high faces)."""
+    B, X, Y, Z, _ = grid_shape
+    return B * -(-X // BRICK) * -(-Y // BRICK) * -(-Z // BRICK)
 
 
 trilinear_sample_backward.launches = 0

@@ -257,14 +257,14 @@ def _scatter_dense(anchor_feats, vg, grid_size, n_scenes):
         raise ValueError(f"scatter_anchors_to_dense: {n_scenes} grids of "
                          f"{grid_size} x {C} channels are outside the "
                          f"kernel's int32 index space")
-    # the kernel writes every element of both outputs once; the occupancy
-    # and the kernel's cell map share one allocation (the host path is a
-    # good part of this call's time)
+    # the kernel writes every element of both outputs once; its cell map is
+    # never filled. Three allocations and no views: the host path is most
+    # of this call's time at the per-scene shape
     dense = torch.empty((n_scenes, gx, gy, gz, C), dtype=torch.float32,
                         device=dev)
-    occ_map = torch.empty((2, n_all), dtype=torch.float32, device=dev)
-    occ = occ_map[0].view(n_scenes, gx, gy, gz, 1)
-    cell_anchor = occ_map[1].view(torch.int32)
+    occ = torch.empty((n_scenes, gx, gy, gz, 1), dtype=torch.float32,
+                      device=dev)
+    cell_anchor = torch.empty((n_all,), dtype=torch.int32, device=dev)
     launch("tdv_scatter_dense", dev, anchor_feats.data_ptr(),
            vg.anchor_idx3.data_ptr(), vg.anchor_scene.data_ptr(),
            vg.anchor_valid.data_ptr(), dense.data_ptr(), occ.data_ptr(),

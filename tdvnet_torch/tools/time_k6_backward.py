@@ -27,7 +27,7 @@ import subprocess
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
+from tdvnet_torch.tools.timing import HBM_BYTES_PER_S
 
 
 def capture_sampling_backward(weights: str, device, lam: float = 0.5):
@@ -73,25 +73,29 @@ def capture_sampling_backward(weights: str, device, lam: float = 0.5):
             for g, p, c0, cell, shape in one]
 
 
+def uniform_points(origins, extent: float, Q: int, gen):
+    """[B, Q, 3] points uniform over each scene's grid (`origins` [B, 3] its
+    low corner, `extent` its side in metres) and 0.3 m around it: the
+    uniform point set of the backward's timings."""
+    u = torch.rand(origins.shape[0], Q, 3, generator=gen).to(origins.device)
+    return (origins[:, None, :] - 0.3 + u * (extent + 0.6)).contiguous()
+
+
+def backward_bytes(grad, pts, shape) -> int:
+    """The backward's byte bound: the incoming gradient, the points and the
+    scenes' centres read once, the grid gradient `shape` written once."""
+    B, X, Y, Z, C = shape
+    return 4 * (grad.numel() + pts.numel() + 3 * B + B * X * Y * Z * C)
+
+
 def synthetic_calls(real, seed: int = 0):
     """The same shapes as `real`, with one set of hypotheses for the three
-    scales, uniform over each scene's grid and 0.3 m around it, and normal
-    incoming gradients."""
+    scales (`uniform_points`), and normal incoming gradients."""
     gen = torch.Generator().manual_seed(seed)
     grad, pts, c0, cell, shape = real[0]          # the finest scale
-    B, Q = pts.shape[:2]
-    extent = shape[1] * cell
-    p = (c0[:, None, :].cpu() - 0.5 * cell - 0.3
-         + torch.rand(B, Q, 3, generator=gen) * (extent + 0.6))
-    p = p.to(pts.device).contiguous()
+    p = uniform_points(c0 - 0.5 * cell, shape[1] * cell, pts.shape[1], gen)
     return [(torch.randn(g.shape, generator=gen).to(g.device), p, c, s, sh)
             for g, _, c, s, sh in real]
-
-
-def bound_ms(grad, pts, shape) -> float:
-    B, X, Y, Z, C = shape
-    return 1e3 * 4 * (grad.numel() + pts.numel() + 3 * B
-                      + B * X * Y * Z * C) / HBM_BYTES_PER_S
 
 
 def time_calls(calls, iters: int):
@@ -103,7 +107,8 @@ def time_calls(calls, iters: int):
         label = f"{args[4][1]}^3 x {args[4][4]}"
         rec[label] = {
             "ms": time_ms(lambda a=args: fn(*a), iters=iters, warmup=3),
-            "bound_ms": bound_ms(args[0], args[1], args[4])}
+            "bound_ms": 1e3 * backward_bytes(args[0], args[1], args[4])
+            / HBM_BYTES_PER_S}
     rec["pass"] = {k: sum(v[k] for v in list(rec.values()))
                    for k in ("ms", "bound_ms")}
     return rec

@@ -8,17 +8,12 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet: a byte bound's rate
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean milliseconds per call of `fn` on the current CUDA stream. The
-    card spins ~50 us before the start event, so that the first calls are
-    queued by the time it is recorded: an empty queue would charge the
-    first call's host path (tens of microseconds for a wrapper that checks
-    and allocates) to the timed calls."""
+    """Mean milliseconds per call of `fn` on the current CUDA stream."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000)
     start.record()
     for _ in range(iters):
         fn()

@@ -855,36 +855,74 @@ def _tri_check(got, want):
     assert err <= chip_smoke.BACKWARD_TOL * scale, err
 
 
+# the kernel sums a brick's entries in chunks of 1024 to 4096, sized from
+# the point count and the card: a brick of at most ONE_CHUNK entries is one
+# chunk, which stores its tile once; one of more than SEVERAL_CHUNKS is
+# several, which add into the zeroed brick with vector reductions
+ONE_CHUNK, SEVERAL_CHUNKS = 1024, 4096
+
+
+def _brick_entries(pts, c0, cell, shape):
+    """[n_bricks] the binning's entries per brick: one per (point, brick
+    that holds one of its in-grid taps), as the kernel counts them."""
+    from tdvnet_torch.kernels.trilinear import BRICK, brick_count
+
+    B, X, Y, Z, _ = shape
+    n = torch.tensor((X, Y, Z))
+    q = (pts.cpu() - c0.cpu()[:, None]) / torch.tensor(cell)
+    f = q.floor()
+    ok = torch.isfinite(q).all(-1) & ((f >= -1) & (f <= n - 1)).all(-1)
+    f = torch.where(ok[..., None], f, torch.zeros_like(f)).long()
+    lo = f.clamp(min=0) // BRICK
+    hi = torch.minimum(f + 1, n - 1) // BRICK
+    nb = [-(-int(d) // BRICK) for d in n]
+    scene = torch.arange(B)[:, None].expand(ok.shape)
+    counts = torch.zeros(brick_count(shape), dtype=torch.long)
+    for pick in np.ndindex(2, 2, 2):
+        k = [hi[..., a] if pick[a] else lo[..., a] for a in range(3)]
+        take = ok.clone()
+        for a in range(3):
+            if pick[a]:
+                take &= hi[..., a] != lo[..., a]
+        ids = ((scene * nb[0] + k[0]) * nb[1] + k[1]) * nb[2] + k[2]
+        counts.index_add_(0, ids[take], torch.ones_like(ids[take]))
+    return counts
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk", [0, 3])
+@pytest.mark.parametrize("crowded", [False, True])
 @pytest.mark.parametrize("case", ["brick_faces", "grid_edges", "nonfinite",
                                   "one_cell", "no_points", "four_channels"])
-def test_trilinear_backward_kernel_matches_twin_at_edges(case, chunk):
+def test_trilinear_backward_kernel_matches_twin_at_edges(case, crowded):
     """The brick-binned backward against its twin at
     `tests/_kernel_edge_cases.py`'s edges (partial bricks at the grid's
     high faces, anchors on brick faces and corners, on the last node and at
-    -1, non-finite points, one crowded cell, no points, four channels), with
-    the kernel's chunks and with chunks of 3 entries (every non-empty brick
-    then adds several chunks into a zeroed output)."""
+    -1, non-finite points, one crowded cell, no points, four channels), as
+    they are and crowded: each point repeated to about 120000 a scene with
+    gradient rows of its own, so that the busiest brick holds several
+    chunks and adds them into a zeroed output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from tdvnet_torch.kernels import trilinear as T
 
     dev = torch.device("cuda")
     (grad, pts, c0), cell, shape = _tri_inputs(case, dev)
+    Q = pts.shape[1]
+    if crowded and Q:
+        reps = -(-120000 // Q)
+        pts = pts.repeat(1, reps, 1)
+        grad = torch.randn(grad.shape[0], Q * reps, grad.shape[2],
+                           generator=torch.Generator().manual_seed(3)).to(dev)
+    counts = _brick_entries(pts, c0, cell, shape)
+    if crowded and Q:
+        assert int(counts.max()) > SEVERAL_CHUNKS
     _leave_nan(shape, dev)
-    got, starts = T._trilinear_sample_backward(grad, pts, c0, cell, shape,
-                                               chunk)
+    got = T.trilinear_sample_backward(grad, pts, c0, cell, shape)
     want = T.trilinear_sample_backward_ref(grad, pts, c0, cell, shape)
     torch.cuda.synchronize()
     _tri_check(got, want)
-    n_bricks = T.brick_count(shape)
-    assert starts.numel() == n_bricks + 1
-    several = int(starts[-1]) > n_bricks
     if case == "no_points":
-        assert not several and not got.any()
-    elif chunk == 3 or case == "one_cell":       # 3000 entries a brick
-        assert several
+        assert not got.any()
 
 
 def _uniform_points(B, Q, dims, cell, seed):
@@ -895,6 +933,27 @@ def _uniform_points(B, Q, dims, cell, seed):
     return lo + torch.rand(B, Q, 3, generator=g) * span, torch.zeros(B, 3)
 
 
+def _tri_uniform_check(B, Q, C, dims, cell, seed):
+    """The kernel against its twin on uniform points and normal incoming
+    gradients at [B, dims, C], its output landing in a block of NaN.
+    Returns the entries per brick."""
+    from tdvnet_torch.kernels import trilinear as T
+
+    dev = torch.device("cuda")
+    pts, c0 = _uniform_points(B, Q, dims, cell, seed)
+    grad = torch.randn(B, Q, C,
+                       generator=torch.Generator().manual_seed(seed + 1))
+    counts = _brick_entries(pts, c0, cell, (B, *dims, C))
+    pts, c0, grad = pts.to(dev), c0.to(dev), grad.to(dev)
+    shape = (B, *dims, C)
+    _leave_nan(shape, dev)
+    got = T.trilinear_sample_backward(grad, pts, c0, cell, shape)
+    want = T.trilinear_sample_backward_ref(grad, pts, c0, cell, shape)
+    torch.cuda.synchronize()
+    _tri_check(got, want)
+    return counts, got
+
+
 @pytest.mark.cuda
 def test_trilinear_backward_kernel_adds_chunks_at_the_coarse_scale():
     """The full-width step's coarsest scale ([2, 16^3, 128], 153664
@@ -902,20 +961,8 @@ def test_trilinear_backward_kernel_adds_chunks_at_the_coarse_scale():
     add into the zeroed bricks with vector reductions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    from tdvnet_torch.kernels import trilinear as T
-
-    dev = torch.device("cuda")
-    B, Q, C, dims, cell = 2, 153664, 128, (16, 16, 16), 0.32
-    pts, c0 = _uniform_points(B, Q, dims, cell, 4)
-    grad = torch.randn(B, Q, C, generator=torch.Generator().manual_seed(5))
-    pts, c0, grad = pts.to(dev), c0.to(dev), grad.to(dev)
-    shape = (B, *dims, C)
-    _leave_nan(shape, dev)
-    got, starts = T._trilinear_sample_backward(grad, pts, c0, cell, shape)
-    want = T.trilinear_sample_backward_ref(grad, pts, c0, cell, shape)
-    torch.cuda.synchronize()
-    _tri_check(got, want)
-    assert bool(((starts[1:] - starts[:-1]) > 1).all())
+    counts, _ = _tri_uniform_check(2, 153664, 128, (16, 16, 16), 0.32, 4)
+    assert int(counts.min()) > SEVERAL_CHUNKS
 
 
 @pytest.mark.cuda
@@ -925,21 +972,23 @@ def test_trilinear_backward_kernel_stores_once_at_the_fine_scale():
     into an uninitialised output (no zero fill, no global atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    from tdvnet_torch.kernels import trilinear as T
-
-    dev = torch.device("cuda")
-    B, Q, C, dims, cell = 2, 20000, 64, (64, 64, 64), 0.08
-    pts, c0 = _uniform_points(B, Q, dims, cell, 6)
-    grad = torch.randn(B, Q, C, generator=torch.Generator().manual_seed(7))
-    pts, c0, grad = pts.to(dev), c0.to(dev), grad.to(dev)
-    shape = (B, *dims, C)
-    _leave_nan(shape, dev)
-    got, starts = T._trilinear_sample_backward(grad, pts, c0, cell, shape)
-    want = T.trilinear_sample_backward_ref(grad, pts, c0, cell, shape)
-    torch.cuda.synchronize()
-    _tri_check(got, want)
-    assert int(starts[-1]) == T.brick_count(shape)
+    counts, got = _tri_uniform_check(2, 20000, 64, (64, 64, 64), 0.08, 6)
+    assert int(counts.max()) <= ONE_CHUNK
     assert (got == 0).float().mean() > 0.5      # most nodes took nothing
+
+
+@pytest.mark.cuda
+def test_trilinear_backward_kernel_bins_past_the_shared_histogram():
+    """Four scenes of 128^3 nodes are 16384 bricks, more than a bin block's
+    shared histogram holds (12288): the binning then takes one global
+    atomic per entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels.trilinear import brick_count
+
+    dims = (128, 128, 128)
+    assert brick_count((4, *dims, 4)) == 16384
+    _tri_uniform_check(4, 200000, 4, dims, 0.04, 8)
 
 
 @pytest.mark.cuda
@@ -955,11 +1004,32 @@ def test_scatter_kernel_equals_twin_at_edges(case, shuffled):
     assumes none)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    _scatter_check(case, shuffled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 12, 136, 256])
+def test_scatter_kernel_equals_twin_at_channel_widths(width):
+    """The scatter at other row widths than the edge cases' 8 channels:
+    one 16-byte quad a cell (4), an odd count of quads (12, 136) and rows
+    longer than a warp's stores (256)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    _scatter_check("three_scenes", True, width)
+
+
+def _scatter_check(case, shuffled, width=None):
+    """The scatter against its twin bit for bit on `case`'s anchor table
+    (features `width` wide when given), its outputs landing in blocks of NaN
+    and of wrong anchor names."""
     import _kernel_edge_cases as E
     from tdvnet_torch.kernels import voxelize as vox
 
     dev = torch.device("cuda")
     feats, idx3, scene, valid, grid, B = E.scatter_case(case)
+    if width is not None:
+        feats = np.random.default_rng(width).normal(
+            size=(len(valid), width)).astype(np.float32)
     if shuffled:
         perm = np.random.default_rng(1).permutation(len(valid))
         feats, idx3, scene, valid = (x[perm] for x in (feats, idx3, scene,
@@ -968,11 +1038,10 @@ def test_scatter_kernel_equals_twin_at_edges(case, shuffled):
     vg = vox._anchor_table(*(torch.from_numpy(np.ascontiguousarray(x))
                              .to(dev) for x in (idx3, scene, valid)))
     _leave_nan((B, *grid, feats.shape[1]), dev)
-    # the cell map is never filled: leave blocks of the occupancy and map's
-    # size whose every entry names an anchor (i mod A), mostly of another
-    # cell
+    # the cell map is never filled: leave blocks of its size whose every
+    # entry names an anchor (i mod A), mostly of another cell
     n_all, A = B * grid[0] * grid[1] * grid[2], len(valid)
-    names = [torch.arange(2 * n_all, dtype=torch.int32, device=dev) % A
+    names = [torch.arange(n_all, dtype=torch.int32, device=dev) % A
              for _ in range(2)]
     del names
     got = vox.scatter_anchors_to_dense(feats, vg, grid, B)
