@@ -473,66 +473,35 @@ MAIN_PATHS = {"trilinear_sample_i8": "fast", "patch_fan_variance": "fast",
               "batched_dot": "probe", "take_along_axis": "probe"}
 
 
-def stream_chunk(device, k):
-    """Cameras, ref depths, ref image indices and source index table of the
-    first ref chunk of the first streamed scene (refs 0..15 over images
-    0..19)."""
-    import numpy as np
-    import torch
-
-    from tdvnet_torch.config import EvalConfig, ModelConfig
-    from tdvnet_torch.ops.sampling import resize_nearest
-
-    CH = EvalConfig().fused_chunk
-    views = scene_views(STREAM_VIEWS, STREAM_SEEDS[0])
-    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(
-        a[:CH + 2 * k], np.float32)).to(device)
-    K, rot, tv = f32(views["K"]), f32(views["rotmats"]), f32(views["tvecs"])
-    depth = resize_nearest(torch.from_numpy(views["depth"][k:k + CH]),
-                           ModelConfig().depth_test.size).to(device)
-    ri = torch.arange(CH, device=device) + k
-    src_idx = ri[:, None] + torch.arange(-k, k + 1, device=device)[None]
-    return K, rot, tv, depth, ri, src_idx
-
-
-def fast_cases(device, gen):
+def fast_cases(device, gen, fan_args):
     """The fast path's kernels at one chunk pass (16 refs) of the fast golden
     scene, counted per inference of that scene (its chunks x 4 passes, as
     phase 7a launches them): the patch-fan variance of a chunk's hypothesis
-    fans, from the first streamed scene's cameras and depths, and the int8
-    sampling of the merged, projected table of the golden scene's grid."""
+    fans (`fan_args`: the first streamed scene's cameras and depths, from
+    `time_variance.scene_inputs`), and the int8 sampling of the merged,
+    projected table of the golden scene's grid."""
     import torch
 
     from tdvnet_torch.config import EvalConfig, ModelConfig
     from tdvnet_torch.kernels import patch_fan_variance, trilinear_sample_i8
     from tdvnet_torch.kernels.patchfan import patch_fan_variance_ref
     from tdvnet_torch.kernels.trilinear import trilinear_sample_i8_ref
-    from tdvnet_torch.models.threedvnet import hypothesis_points
-    from tdvnet_torch.ops import camera
+    from tdvnet_torch.tools.time_variance import variance_bytes
 
     cfg, ev = ModelConfig(), EvalConfig()
     rec = scene_golden_record(FAST_SCENE_GOLDEN)
-    k = ev.n_src_on_either_side
     per_scene = -(-rec["n_refs"] // ev.fused_chunk) * sum(
         len(o) for o in rec["offsets"])
-    K, rot, tv, depth, ri, src_idx = stream_chunk(device, k)
-    R, S, N = src_idx.shape[0], src_idx.shape[1], K.shape[0]
-    pts = hypothesis_points(depth, K[ri], rot[ri], tv[ri], cfg.img_size,
-                            0.05).contiguous()
-    Hh, P = pts.shape[1:3]
-    H, W = cfg.img_size
-    f = cfg.feat_dim
-    feats = torch.randn(N, H // 4, W // 4, f, generator=gen).to(device)
-    P_all = camera.projection_matrix(K, rot, tv).contiguous()
-    mask = torch.ones(R, S, dtype=torch.bool, device=device)
-    args = (pts, feats, src_idx, mask, P_all, cfg.img_size)
+    pts, feats, src_idx = fan_args[:3]
+    R, Hh, P = pts.shape[:3]
+    S = src_idx.shape[1]
+    N, Hf, Wf, f = feats.shape
     cases = [Case(
-        "patch_fan_variance", f"[{R},{Hh},{P},{f}] from [{N},{H // 4},"
-        f"{W // 4},{f}] x {S} sources", per_scene,
-        lambda a=args: patch_fan_variance(*a),
-        lambda a=args: patch_fan_variance_ref(*a), 1e-5,
-        4 * (pts.numel() + feats.numel() + R * Hh * P * f + P_all.numel()
-             + R * S * 3),
+        "patch_fan_variance", f"[{R},{Hh},{P},{f}] from [{N},{Hf},"
+        f"{Wf},{f}] x {S} sources", per_scene,
+        lambda a=fan_args: patch_fan_variance(*a),
+        lambda a=fan_args: patch_fan_variance_ref(*a), 1e-5,
+        variance_bytes(fan_args),
         R * S * Hh * P * (24 + 11 * f) + R * Hh * P * f * 4, path="fast")]
 
     # the merged grid of the golden scene, padded by 3 low-side nodes,
@@ -791,7 +760,116 @@ def kernel_cases(device, seed=0):
     cases += scene_model_cases(device, gen, "scene", "scene",
                                n_slots * P_ref, 1, tuple(rec["grid_size"]),
                                ev.eval_max_anchors, unet)
-    return cases + fast_cases(device, gen) + eval3d_cases(device)
+    scene, fan_args = scene_cases(device, gen)
+    return cases + scene + fast_cases(device, gen, fan_args) \
+        + eval3d_cases(device)
+
+
+def scene_cases(device, gen):
+    """The calls whole-scene inference makes per 52-view stream scene to the
+    source variance (a 16-ref chunk's cost volume and PointFlow pass, the
+    48-ref scene cloud, on the first streamed scene's cameras and
+    ground-truth depths: `time_variance.scene_inputs`), to the fp32 scene
+    sampling (one chunk pass's three U-Net scales in the golden scene's
+    grid), and to the propagation blend and the soft-argmax (a chunk), each
+    counted per inference of that scene as `expected_launches` counts them.
+    Also returns the chunk's hypothesis fans for the patch-fan case."""
+    import torch
+    import torch.nn.functional as F
+
+    from tdvnet_torch.config import EvalConfig, ModelConfig
+    from tdvnet_torch.kernels import (propagation_blend, softargmax_depth,
+                                      source_variance, trilinear_sample)
+    from tdvnet_torch.kernels.propagation import propagation_blend_ref
+    from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_ref
+    from tdvnet_torch.kernels.variance import source_variance_ref
+    from tdvnet_torch.ops import camera
+    from tdvnet_torch.tools.time_variance import scene_inputs, variance_bytes
+
+    cfg, ev = ModelConfig(), EvalConfig()
+    dc = cfg.depth_test
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(device)
+    n_refs = STREAM_VIEWS - 2 * ev.n_src_on_either_side
+    n_chunks = -(-n_refs // ev.fused_chunk)
+    n_iters = len(OFFSETS)
+    pf = n_chunks * sum(len(o) for o in OFFSETS)
+    per_scene = {"cost_volume": n_chunks, "pointflow": pf,
+                 "scene_cloud": n_iters}
+    inputs = scene_inputs(device, gen)
+    cases = []
+    for name, per in per_scene.items():
+        args = inputs[name]
+        pts, feats, src_idx = args[:3]
+        R, P = pts.shape[:2]
+        S, f = src_idx.shape[1], feats.shape[-1]
+        cases.append(Case(
+            "source_variance", f"{name} [{R},{P},{f}] x {S} sources", per,
+            lambda a=args: source_variance(*a),
+            lambda a=args: source_variance_ref(*a), 1e-4,
+            variance_bytes(args),
+            R * S * P * (24 + 11 * f) + R * P * f * 4, path="scene"))
+
+    # one chunk pass's queries in the golden scene's grid at its three
+    # scales (B = 1), over the grid and a margin around it
+    rec = scene_golden_record()
+    R = ev.fused_chunk
+    P = dc.size[0] * dc.size[1]
+    Q = R * 7 * P
+    edge = cfg.grid.edge_len
+    dims0 = tuple(rec["grid_size"])
+    origin = rnd(1, 3) * 0.1
+    center0 = (origin + 0.5 * edge).contiguous()
+    extent = torch.tensor(dims0, dtype=torch.float32, device=device) * edge
+    pts_q = (origin[:, None, :] - 0.3
+             + torch.rand(1, Q, 3, generator=gen).to(device) * (extent + 0.6)
+             ).contiguous()
+    n_ch = sum(cfg.unet_dims)
+    off = 0
+    for stride, C in zip((1, 2, 4), cfg.unet_dims):
+        dims = tuple(d // stride for d in dims0)
+        grid = rnd(1, *dims, C).contiguous()
+        cell = stride * edge
+        out = torch.empty(1, Q, n_ch, device=device)
+        qn = (pts_q - center0[:, None, :]) / cell
+        lim = torch.tensor([d - 1 for d in dims], device=device,
+                           dtype=torch.float32)
+        gs_grid = (qn / lim * 2 - 1).flip(-1).reshape(1, Q, 1, 1, 3)
+        gs_in = grid.permute(0, 4, 1, 2, 3)
+        cases.append(Case(
+            "trilinear_sample", f"scene s={stride} [1,{dims[0]}x{dims[1]}x"
+            f"{dims[2]},{C}] x {Q} queries", pf,
+            lambda a=(grid, pts_q, center0, cell, out, off), c=C:
+                trilinear_sample(*a)[..., a[5]:a[5] + c],
+            lambda a=(grid, pts_q, center0, cell):
+                trilinear_sample_ref(*a),
+            1e-5, 4 * (grid.numel() + pts_q.numel() + 3 + Q * C),
+            Q * (30 + 16 * C),
+            library=lambda a=(gs_in, gs_grid): F.grid_sample(
+                a[0], a[1], mode="bilinear", padding_mode="zeros",
+                align_corners=True), path="scene"))
+        off += C
+
+    # a chunk's propagation blends and soft-argmax
+    H, W = cfg.img_size
+    for h, w in ((H // 4, W // 4), (H // 2, W // 2), (H, W)):
+        logits = rnd(R, 9, h, w).permute(0, 2, 3, 1)
+        depth = (1.0 + torch.rand(R, h, w, generator=gen) * 3).to(device)
+        cases.append(Case(
+            "propagation_blend", f"scene [{R},{h},{w},9]", n_chunks,
+            lambda a=(logits, depth): propagation_blend(*a),
+            lambda a=(logits, depth): propagation_blend_ref(*a),
+            1e-5, 4 * R * h * w * 11, R * h * w * 45, path="scene"))
+    D = dc.n_intervals
+    cost = (rnd(R, D, *dc.size) * 3).contiguous()
+    dvals = camera.linspace_f32(dc.depth_start, dc.depth_end, D, device)
+    cases.append(Case(
+        "softargmax_depth", f"scene [{R},{D},{dc.size[0]},{dc.size[1]}]",
+        n_chunks, lambda a=(cost, dvals): softargmax_depth(*a),
+        lambda a=(cost, dvals): softargmax_depth_ref(*a),
+        1e-5, 4 * (cost.numel() + D + R * dc.size[0] * dc.size[1]),
+        cost.numel() * 5, path="scene"))
+    return cases, inputs["patch_fan"]
 
 
 def eval3d_preds(poses, K0, depth_gt, scene):

@@ -8,30 +8,49 @@
 // `patch_sample_hypotheses` (:117-196), reached from
 // tdvnet/models/threedvnet.py `run_pointflow` (:195-202). The 16C-wide patch
 // table exists because the TPU's gather costs per row; here the kernel reads
-// the unpacked [N, Hf, Wf, C] feature maps directly, which gives the same
-// taps.
+// the unpacked [N, Hf, Wf, C] feature maps, which gives the same taps.
 //
-// Bound on an H100: bytes. At full width one chunk pass writes [16, 7, 3136,
-// 32] fp32 (45 MB) and reads 4.2 MB of hypothesis points; the feature maps
-// (20 x 64 x 80 x 32 fp32, 13 MB) stay in the 50 MB L2. About 30 flops per
-// hypothesis, channel and source is far below the fp32 rate.
+// Bound on an H100: in the contract's count, bytes: one chunk pass writes
+// [16, 7, 3136, 32] fp32 (45 MB, ~0.019 ms at 3.35 TB/s) and reads 4.2 MB
+// of points; the maps (20 x 64 x 80 x 32 fp32, 13 MB) stay in the 50 MB L2.
+// The SMs do more: every (hypothesis, source, channel) is four taps and
+// ~12 flops, 4 x 56 M 16-byte reads a pass through the L1/shared-memory
+// port, and every (pixel, source, hypothesis) a projection with two IEEE
+// divisions. Measured (PERF.md, section 6): half of a pass is the
+// tile's fixed work (projections, tap records, the per-source walk and the
+// stores; every source masked as padding) and half the taps, which take
+// the same time from a staged window as from L1.
 //
-// Design: one warp per (ref, pixel), one lane per channel (C = 32 at full
-// width; a wider C loops, a narrower one idles lanes), so each tap is one
-// warp-wide contiguous load. Per source the warp projects every hypothesis,
-// loads the 4x4 patch around the centre hypothesis's anchor once into
-// registers, interpolates every hypothesis from it, and keeps the sum and
-// the sum of squares per hypothesis in registers; per-source samples are
-// never written. The JAX package's rules are kept exactly: local coordinates
-// clamp to [0, PATCH_K - 1 - 1e-4] and the cell to [0, PATCH_K - 2], so a
-// hypothesis beyond +-1 texel of the centre reads the patch's edge; a
-// hypothesis is masked by its own anchor rule; the whole fan is zero for a
-// source where the centre's anchor is out of bounds; var = s2/n - mean^2
-// with n = max(sum(mask), 1). The projection is written with explicit
-// roundings (__fmul_rn, __fmaf_rn, __fadd_rn) in the twin's order, which is
-// also the order of XLA's CPU dot in the JAX package, so the coordinates, the
-// patch's anchor and every clamp equal the twin's bit for bit (a floor that
-// flips between the two would move a whole fan). Bounds
+// Design: a block owns a tile of TP = 32 neighbouring pixels of one ref and
+// up to 32 channels (gridDim.y slices wider maps), a thread one pixel and 4
+// channels (1 where C % 4 != 0). Sources go in groups of up to 8. For a
+// group, the block's threads first project every (source, hypothesis,
+// pixel) once into shared memory (not once for every channel lane), then
+// turn each into its tap record (the
+// clamped 2x2 cell inside the centre's patch, its two fractions, and skip /
+// sample / NaN), while the centre anchors reduce into each source's window
+// (anchor - 1 .. anchor + 2 of every centre of the tile). The windows are
+// staged with cp.async in source order while they fit the shared-memory
+// budget (WINDOW_FLOATS in kernels/patchfan.py), so each texel of a staged
+// window crosses from L2 once per tile; a source whose window does not fit
+// (centres scattered, near or behind a camera, or a window larger than the
+// budget) is read from global memory through L1 with the same taps. A
+// hypothesis reads only its own 2x2 taps (4 fmas a channel, not 16 selects
+// over the patch), summed in the order of the patch's 16-tap sums. The sums
+// over sources stay in registers with no barrier between sources; the
+// variance takes one division a thread and is written once with streaming
+// stores.
+//
+// Kept from the JAX package exactly: local coordinates clamp to
+// [0, PATCH_K - 1 - 1e-4] and the cell to [0, PATCH_K - 2], so a hypothesis
+// beyond +-1 texel of the centre reads the patch's edge; a hypothesis is
+// masked by its own anchor rule; the whole fan is zero for a source where
+// the centre's anchor is out of bounds; var = s2/n - mean^2 with
+// n = max(sum(mask), 1). The projection is written with explicit roundings
+// (__fmul_rn, __fmaf_rn, __fadd_rn, __fdiv_rn) in the twin's order, which
+// is also the order of XLA's CPU dot in the JAX package, so the
+// coordinates, the patch's anchor and every clamp equal the twin's bit for
+// bit (a floor that flips between the two would move a whole fan). Bounds
 // are tested on the float coordinates before any float-to-int conversion; a
 // non-finite coordinate gives NaN (the centre's: the whole fan), even for a
 // padding source, as in `source_variance`.
@@ -39,10 +58,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "variance_window.cuh"
+
 namespace {
 
 constexpr int HH_MAX = 8;  // hypotheses per pixel (7 on the main path)
 constexpr int PK = 4;      // patch side, the JAX package's PATCH_K
+constexpr int TP = 32;     // pixels a tile
+constexpr int SG = 8;      // sources a group
+constexpr int NT = TP * vw::SLICE_GROUPS;
 
 // fma(m2, z, fma(m1, y, m0 * x)) + m3: the order of XLA's CPU dot and of
 // the twin, with every rounding explicit so that nvcc contracts nothing else
@@ -52,147 +76,268 @@ __device__ __forceinline__ float dot_row(const float* M, float px, float py,
   return __fadd_rn(__fmaf_rn(M[2], pz, xy), M[3]);
 }
 
-__global__ void patch_fan_variance_kernel(
+__device__ __forceinline__ float4 fma_v(float4 a, float w, float4 b) {
+  return make_float4(fmaf(a.x, w, b.x), fmaf(a.y, w, b.y), fmaf(a.z, w, b.z),
+                     fmaf(a.w, w, b.w));
+}
+__device__ __forceinline__ float fma_v(float a, float w, float b) {
+  return fmaf(a, w, b);
+}
+__device__ __forceinline__ float4 mul_v(float4 a, float w) {
+  return make_float4(a.x * w, a.y * w, a.z * w, a.w * w);
+}
+__device__ __forceinline__ float mul_v(float a, float w) { return a * w; }
+__device__ __forceinline__ float4 sq_v(float4 a) {
+  return make_float4(a.x * a.x, a.y * a.y, a.z * a.z, a.w * a.w);
+}
+__device__ __forceinline__ float sq_v(float a) { return a * a; }
+__device__ __forceinline__ void set_v(float4& a, float v) {
+  a = make_float4(v, v, v, v);
+}
+__device__ __forceinline__ void set_v(float& a, float v) { a = v; }
+// s2/n - (s/n)^2 with `in` = 1 / n: one IEEE division a thread, not two
+// for every hypothesis and channel
+__device__ __forceinline__ float4 var_v(float4 s, float4 s2, float in) {
+  float4 v;
+  float mu;
+  mu = s.x * in; v.x = s2.x * in - mu * mu;
+  mu = s.y * in; v.y = s2.y * in - mu * mu;
+  mu = s.z * in; v.z = s2.z * in - mu * mu;
+  mu = s.w * in; v.w = s2.w * in - mu * mu;
+  return v;
+}
+__device__ __forceinline__ float var_v(float s, float s2, float in) {
+  const float mu = s * in;
+  return s2 * in - mu * mu;
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(NT) patch_fan_variance_kernel(
     const float* __restrict__ feats,      // [N, Hf, Wf, C]
     const float* __restrict__ pts,        // [R, Hh, P, 3]
     const int64_t* __restrict__ src_idx,  // [R, S]
     const float* __restrict__ src_w,      // [R, S]: 1 real source, 0 padding
     const float* __restrict__ proj,       // [N, 3, 4]
     float* __restrict__ out,              // [R, Hh, P, C]
-    int R, int Hh, long long P, int S, int Hf, int Wf, int C, float sx,
-    float sy) {
-  const long long warp =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long long)R * P) return;
-  const int r = (int)(warp / P);
-  const long long p = warp % P;
+    int Hh, long long P, int S, int Hf, int Wf, int C, float sx, float sy,
+    int sg, int cap) {
+  using V = typename vw::Vec<VEC>::T;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const long long tiles = (P + TP - 1) / TP;
+  const int r = (int)(blockIdx.x / tiles);
+  const long long p0 = (blockIdx.x % tiles) * TP;
+  const int c0 = blockIdx.y * vw::SLICE_GROUPS * VEC;
+  const int cw = min(vw::SLICE_GROUPS * VEC, C - c0);  // the slice's channels
   const int hc = Hh / 2;
+  const int items = Hh * TP;                            // per source
+
+  // dynamic shared memory: the windows (cap floats), then per group the tap
+  // records, the projected coordinates, the tile's points and the bounds
+  float* win = smem;
+  int4* rec = reinterpret_cast<int4*>(smem + cap);  // [sg][Hh][TP]
+  float2* xy = reinterpret_cast<float2*>(rec + sg * items);
+  float* pt = reinterpret_cast<float*>(xy + sg * items);  // [Hh][TP][3]
+  int* bnd = reinterpret_cast<int*>(pt + items * 3);       // [sg][4]
+
+  for (int i = tid; i < items * 3; i += NT) {
+    const int h = i / (TP * 3), k = i - h * TP * 3;
+    pt[i] = p0 + k / 3 < P ? pts[((size_t)r * Hh + h) * P * 3 + p0 * 3 + k]
+                           : 0.f;
+  }
+  __syncthreads();
+
+  const int p = tid / vw::SLICE_GROUPS;  // this thread's pixel and group
+  const int v = tid - p * vw::SLICE_GROUPS;
+  const bool active = p0 + p < P && v * VEC < cw;
   const float wmax = (float)(Wf - 1);
   const float hmax = (float)(Hf - 1);
-
-  float hx[HH_MAX], hy[HH_MAX], hz[HH_MAX];
+  V acc[HH_MAX], acc2[HH_MAX];
 #pragma unroll
   for (int h = 0; h < HH_MAX; ++h) {
-    if (h < Hh) {
-      const float* pt = pts + (((size_t)r * Hh + h) * P + p) * 3;
-      hx[h] = pt[0];
-      hy[h] = pt[1];
-      hz[h] = pt[2];
-    }
+    set_v(acc[h], 0.f);
+    set_v(acc2[h], 0.f);
   }
+  float cnt = 0.f;
 
-  for (int c = lane; c < C; c += 32) {
-    float acc[HH_MAX], acc2[HH_MAX];
-#pragma unroll
-    for (int h = 0; h < HH_MAX; ++h) acc[h] = acc2[h] = 0.f;
-    float cnt = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float m = src_w[r * S + s];
-      cnt += m;
-      const long long n = src_idx[r * S + s];
-      const float* M = proj + n * 12;
-      float x[HH_MAX], y[HH_MAX];
-      bool finite[HH_MAX];
-#pragma unroll
-      for (int h = 0; h < HH_MAX; ++h) {
-        if (h < Hh) {
-          const float X = dot_row(M, hx[h], hy[h], hz[h]);
-          const float Y = dot_row(M + 4, hx[h], hy[h], hz[h]);
-          const float Z = dot_row(M + 8, hx[h], hy[h], hz[h]);
-          const float den = __fadd_rn(fabsf(Z), 1e-8f);
-          x[h] = __fmul_rn(__fdiv_rn(X, den), sx);
-          y[h] = __fmul_rn(__fdiv_rn(Y, den), sy);
-          finite[h] = isfinite(x[h]) && isfinite(y[h]);
-        }
-      }
-      // centre hypothesis (dynamic index: pick it with an unrolled select)
-      float xc = 0.f, yc = 0.f;
-      bool fc = true;
-#pragma unroll
-      for (int h = 0; h < HH_MAX; ++h)
-        if (h == hc) { xc = x[h]; yc = y[h]; fc = finite[h]; }
-      bool any_bad = !fc;
-#pragma unroll
-      for (int h = 0; h < HH_MAX; ++h) {
-        if (h < Hh && (!fc || !finite[h])) {
-          acc[h] = acc2[h] = NAN;
-        }
-      }
-      if (any_bad || m == 0.f) continue;
-      const float xc0f = floorf(xc), yc0f = floorf(yc);
-      // the centre's 2x2 footprint misses the map: the whole fan is zero
-      if (!(xc0f >= -1.f && xc0f <= wmax && yc0f >= -1.f && yc0f <= hmax))
-        continue;
-      const int xc0 = (int)xc0f, yc0 = (int)yc0f;
-      const float* fm = feats + (size_t)n * Hf * Wf * C + c;
-      float pv[PK][PK];
-#pragma unroll
-      for (int dy = 0; dy < PK; ++dy) {
-        const int yy = yc0 - 1 + dy;
-#pragma unroll
-        for (int dx = 0; dx < PK; ++dx) {
-          const int xx = xc0 - 1 + dx;
-          pv[dy][dx] = (yy >= 0 && yy < Hf && xx >= 0 && xx < Wf)
-                           ? __ldg(fm + ((size_t)yy * Wf + xx) * C)
-                           : 0.f;
-        }
-      }
-      const float ox = xc0f - 1.f, oy = yc0f - 1.f;  // the patch's origin
-#pragma unroll
-      for (int h = 0; h < HH_MAX; ++h) {
-        if (h >= Hh || !finite[h]) continue;
-        const float xh0 = floorf(x[h]), yh0 = floorf(y[h]);
-        if (!(xh0 >= -1.f && xh0 <= wmax && yh0 >= -1.f && yh0 <= hmax))
-          continue;
-        const float lx = fminf(fmaxf(x[h] - ox, 0.f), (float)PK - 1.f - 1e-4f);
-        const float ly = fminf(fmaxf(y[h] - oy, 0.f), (float)PK - 1.f - 1e-4f);
-        const float ixf = fminf(fmaxf(floorf(lx), 0.f), (float)(PK - 2));
-        const float iyf = fminf(fmaxf(floorf(ly), 0.f), (float)(PK - 2));
-        const float fx = lx - ixf, fy = ly - iyf;
-        const int ix = (int)ixf, iy = (int)iyf;
-        float f = 0.f;
-#pragma unroll
-        for (int dy = 0; dy < PK; ++dy) {
-          const float wy = dy == iy ? 1.f - fy : (dy == iy + 1 ? fy : 0.f);
-          float t = 0.f;
-#pragma unroll
-          for (int dx = 0; dx < PK; ++dx) {
-            const float wx = dx == ix ? 1.f - fx : (dx == ix + 1 ? fx : 0.f);
-            t = fmaf(wx, pv[dy][dx], t);
-          }
-          f = fmaf(wy, t, f);
-        }
-        acc[h] = fmaf(f, m, acc[h]);
-        acc2[h] = fmaf(f * f, m, acc2[h]);
-      }
+  for (int g0 = 0; g0 < S; g0 += sg) {
+    const int ns = min(sg, S - g0);
+    const int64_t* node = src_idx + (size_t)r * S + g0;
+    const float* wgt = src_w + (size_t)r * S + g0;
+    if (g0) __syncthreads();  // the last group is done with its records
+    if (tid < ns) vw::bounds_init(bnd + 4 * tid);
+    // every (source, hypothesis, pixel) of the group projected once
+    for (int i = tid; i < ns * items; i += NT) {
+      const int j = i / items, k = i - j * items;
+      const int q = k % TP;
+      if (p0 + q >= P) continue;
+      const float* M = proj + node[j] * 12;
+      const float px = pt[k * 3], py = pt[k * 3 + 1], pz = pt[k * 3 + 2];
+      const float X = dot_row(M, px, py, pz);
+      const float Y = dot_row(M + 4, px, py, pz);
+      const float Z = dot_row(M + 8, px, py, pz);
+      const float den = __fadd_rn(fabsf(Z), 1e-8f);
+      xy[i] = make_float2(__fmul_rn(__fdiv_rn(X, den), sx),
+                          __fmul_rn(__fdiv_rn(Y, den), sy));
     }
-    const float cn = fmaxf(cnt, 1.f);
+    __syncthreads();
+    // tap records; the centres' anchors bound each source's window
+    for (int i = tid; i < ns * items; i += NT) {
+      const int j = i / items, k = i - j * items;
+      const int h = k / TP, q = k - h * TP;
+      int4 rc = make_int4(0, 0, 0, vw::SKIP);
+      if (p0 + q < P) {
+        const float2 c = xy[j * items + hc * TP + q];
+        const float2 e = xy[i];
+        if (!(isfinite(c.x) && isfinite(c.y) && isfinite(e.x) &&
+              isfinite(e.y))) {
+          rc.w = vw::POISON;
+        } else if (wgt[j] != 0.f) {
+          const float xc0f = floorf(c.x), yc0f = floorf(c.y);
+          const float xh0f = floorf(e.x), yh0f = floorf(e.y);
+          // the centre's 2x2 footprint misses the map: the fan is zero
+          const bool centre = xc0f >= -1.f && xc0f <= wmax && yc0f >= -1.f &&
+                              yc0f <= hmax;
+          if (centre && h == hc)
+            vw::bounds_add(bnd + 4 * j, (int)xc0f, (int)yc0f);
+          if (centre && xh0f >= -1.f && xh0f <= wmax && yh0f >= -1.f &&
+              yh0f <= hmax) {
+            const float ox = xc0f - 1.f, oy = yc0f - 1.f;  // patch origin
+            const float lx =
+                fminf(fmaxf(e.x - ox, 0.f), (float)PK - 1.f - 1e-4f);
+            const float ly =
+                fminf(fmaxf(e.y - oy, 0.f), (float)PK - 1.f - 1e-4f);
+            const float ixf = fminf(fmaxf(floorf(lx), 0.f), (float)(PK - 2));
+            const float iyf = fminf(fmaxf(floorf(ly), 0.f), (float)(PK - 2));
+            rc.x = __float_as_int(lx - ixf);
+            rc.y = __float_as_int(ly - iyf);
+            rc.z = vw::pack_xy((int)xc0f - 1 + (int)ixf,
+                               (int)yc0f - 1 + (int)iyf);
+            rc.w = vw::SAMPLE;
+          }
+        }
+      }
+      rec[i] = rc;
+    }
+    __syncthreads();
+
+    // the sources' windows, staged in source order while they fit
+    if (vw::stage<VEC>(win, cap, bnd, ns, 1, 2, feats, node, Hf, Wf, C, c0,
+                       cw, p, TP, v))
+      __syncthreads();
+    int used = 0;
+    for (int j = 0; j < ns; ++j) {
+      const vw::Box w = vw::box(bnd + 4 * j, 1, 2, cw, cap - used);
+      const float* wb = win + used + v * VEC;
+      if (w.staged) used += w.w * w.h * cw;
+      const float m = wgt[j];
+      cnt += m;
+      if (active) {
+        const float* fm = feats + (size_t)node[j] * Hf * Wf * C + c0 + v * VEC;
+        const int4* rj = rec + j * items + p;
 #pragma unroll
-    for (int h = 0; h < HH_MAX; ++h) {
-      if (h < Hh) {
-        const float mu = acc[h] / cn;
-        out[(((size_t)r * Hh + h) * P + p) * C + c] = acc2[h] / cn - mu * mu;
+        for (int h = 0; h < HH_MAX; ++h) {
+          if (h >= Hh) continue;
+          const int4 rc = rj[h * TP];
+          if (rc.w == vw::POISON) {
+            set_v(acc[h], NAN);
+            set_v(acc2[h], NAN);
+          }
+          if (rc.w != vw::SAMPLE) continue;
+          const float fx = __int_as_float(rc.x), fy = __int_as_float(rc.y);
+          const int tx = vw::unpack_x(rc.z), ty = vw::unpack_y(rc.z);
+          V t00, t01, t10, t11;
+          if (w.staged) {
+            const float* a =
+                wb + ((size_t)(ty - w.y0) * w.w + (tx - w.x0)) * cw;
+            t00 = vw::load<VEC>(a);
+            t01 = vw::load<VEC>(a + cw);
+            t10 = vw::load<VEC>(a + (size_t)w.w * cw);
+            t11 = vw::load<VEC>(a + (size_t)(w.w + 1) * cw);
+          } else {
+            // the same taps from global memory, zero off the map
+            const bool x0in = tx >= 0, x1in = tx + 1 < Wf;
+            const bool y0in = ty >= 0, y1in = ty + 1 < Hf;
+            const float* a = fm + ((long long)ty * Wf + tx) * C;
+            set_v(t00, 0.f);
+            set_v(t01, 0.f);
+            set_v(t10, 0.f);
+            set_v(t11, 0.f);
+            if (y0in && x0in) t00 = vw::ldg<VEC>(a);
+            if (y0in && x1in) t01 = vw::ldg<VEC>(a + C);
+            if (y1in && x0in) t10 = vw::ldg<VEC>(a + (size_t)Wf * C);
+            if (y1in && x1in) t11 = vw::ldg<VEC>(a + (size_t)(Wf + 1) * C);
+          }
+          // the order of the patch's 16-tap sums with their zero weights
+          // dropped: rows first, then the two rows
+          const V top = fma_v(t01, fx, mul_v(t00, 1.f - fx));
+          const V bot = fma_v(t11, fx, mul_v(t10, 1.f - fx));
+          const V f = fma_v(bot, fy, mul_v(top, 1.f - fy));
+          acc[h] = fma_v(f, m, acc[h]);
+          acc2[h] = fma_v(sq_v(f), m, acc2[h]);
+        }
       }
     }
   }
+  if (!active) return;
+  const float in = 1.f / fmaxf(cnt, 1.f);
+#pragma unroll
+  for (int h = 0; h < HH_MAX; ++h) {
+    if (h < Hh)
+      vw::store(out + (((size_t)r * Hh + h) * P + p0 + p) * C + c0 + v * VEC,
+                var_v(acc[h], acc2[h], in));
+  }
+}
+
+template <int VEC>
+int launch(const float* feats, const float* pts, const int64_t* src_idx,
+           const float* src_w, const float* proj, float* out, int R, int Hh,
+           long long P, int S, int Hf, int Wf, int C, float sx, float sy,
+           int cap, cudaStream_t stream) {
+  const int sg = S < SG ? S : SG;
+  const size_t smem = sizeof(float) * cap +
+                      (size_t)sg * Hh * TP * (sizeof(int4) + sizeof(float2)) +
+                      sizeof(float) * Hh * TP * 3 + sizeof(int) * 4 * sg;
+  if (smem > 48 * 1024) {
+    // the attribute once per device and size
+    constexpr int kDevices = 64;
+    static size_t granted[kDevices];
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev >= kDevices || granted[dev] < smem) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          patch_fan_variance_kernel<VEC>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < kDevices) granted[dev] = smem;
+    }
+  }
+  const long long tiles = (P + TP - 1) / TP;
+  const int per = vw::SLICE_GROUPS * VEC;
+  const dim3 grid((unsigned)(R * tiles), (unsigned)((C + per - 1) / per));
+  patch_fan_variance_kernel<VEC><<<grid, NT, smem, stream>>>(
+      feats, pts, src_idx, src_w, proj, out, Hh, P, S, Hf, Wf, C, sx, sy, sg,
+      cap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// cap: floats of shared memory for the windows (a multiple of 4)
 extern "C" int tdv_patch_fan_variance(const float* feats, const float* pts,
                                       const int64_t* src_idx,
                                       const float* src_w, const float* proj,
                                       float* out, int R, int Hh, long long P,
                                       int S, int Hf, int Wf, int C, float sx,
-                                      float sy, void* stream) {
-  if (Hh < 1 || Hh > HH_MAX) return (int)cudaErrorInvalidValue;
-  const long long warps = (long long)R * P;
-  if (warps == 0 || C == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (warps * 32 + threads - 1) / threads;
-  patch_fan_variance_kernel<<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(
-      feats, pts, src_idx, src_w, proj, out, R, Hh, P, S, Hf, Wf, C, sx, sy);
-  return (int)cudaGetLastError();
+                                      float sy, int cap, void* stream) {
+  if (Hh < 1 || Hh > HH_MAX || cap < 0 || cap % 4 || Hf > 32000 ||
+      Wf > 32000)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)R * P == 0 || C == 0) return 0;
+  const bool vec4 = C % 4 == 0 && (uintptr_t)feats % 16 == 0 &&
+                    (uintptr_t)out % 16 == 0;
+  return vec4 ? launch<4>(feats, pts, src_idx, src_w, proj, out, R, Hh, P, S,
+                          Hf, Wf, C, sx, sy, cap, (cudaStream_t)stream)
+              : launch<1>(feats, pts, src_idx, src_w, proj, out, R, Hh, P, S,
+                          Hf, Wf, C, sx, sy, cap, (cudaStream_t)stream);
 }

@@ -1050,3 +1050,68 @@ def _scatter_check(case, shuffled, width=None):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert int(got[1].sum()) == int(valid.sum())
+
+
+# ------------------------------------------------------ the variance kernels
+def _variance_inputs(case, device):
+    import _kernel_edge_cases as E
+
+    P_all = E.projection_matrices(case["K"], case["rotmats"], case["tvecs"])
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                 for x in (case["pts"], case["feats"], case["src_idx"],
+                           case["src_mask"], P_all)) + (case["img_size"],)
+
+
+def _variance_check(got, want, tol):
+    """NaN where the twin is NaN, elsewhere within `tol` of the twin's
+    largest magnitude (at least 1)."""
+    assert got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    fin = ~nan
+    scale = max(1.0, float(want[fin].abs().max())) if fin.any() else 1.0
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    assert err <= tol * scale, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4, 8, 12, 32, 64, 1040])
+@pytest.mark.parametrize("name", ["scattered", "edges", "nonfinite",
+                                  "ragged"])
+def test_source_variance_kernel_matches_twin_at_edges(name, C):
+    """K1's kernel against its twin on the edge inputs, variance and mean,
+    within 1e-4 of the twin's largest, NaN for NaN; C = 12 puts a point's
+    channel groups across warps (each lane projects its own sources), and
+    C = 1040 takes two blocks along the channels, the second partial."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import _kernel_edge_cases as E
+    from tdvnet_torch.kernels import variance as K
+
+    args = _variance_inputs(E.variance_case(name, C), "cuda")
+    got = K._source_variance(*args, True)
+    want = K.source_variance_ref(*(a.cpu() if torch.is_tensor(a) else a
+                                   for a in args), with_mean=True)
+    for g, w in zip(got, want):
+        _variance_check(g.cpu(), w, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4, 6, 8, 32, 64])
+@pytest.mark.parametrize("name", ["scattered", "edges", "wide", "nonfinite",
+                                  "single", "eight"])
+def test_patch_fan_variance_kernel_matches_twin_at_edges(name, C):
+    """K7's tiled kernel against its twin on the edge inputs (both window
+    branches, Hh = 1 and 8, C % 4 != 0), within 1e-5 of the twin's largest,
+    NaN for NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import _kernel_edge_cases as E
+    from tdvnet_torch.kernels.patchfan import (patch_fan_variance,
+                                               patch_fan_variance_ref)
+
+    args = _variance_inputs(E.fan_case(name, C), "cuda")
+    got = patch_fan_variance(*args)
+    want = patch_fan_variance_ref(*(a.cpu() if torch.is_tensor(a) else a
+                                    for a in args))
+    _variance_check(got.cpu(), want, 1e-5)

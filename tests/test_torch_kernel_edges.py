@@ -1,10 +1,12 @@
-"""The edges that the brick-binned trilinear backward and the map-based
-dense scatter must keep, on the CPU: each twin against the JAX function it
-stands for, on the seeded numpy inputs of `_kernel_edge_cases` (the card
-tests in tests/test_torch_cuda.py hold the kernels to these twins on the
-same inputs); and a plain model of the backward's binning (each point's
-entries per brick, each brick summing only its own nodes) against the
-twin."""
+"""The edges that the brick-binned trilinear backward, the map-based dense
+scatter and the two variance kernels must keep, on the CPU: each twin
+against the JAX function it stands for, on the seeded numpy inputs of
+`_kernel_edge_cases` (the card tests in tests/test_torch_cuda.py hold the
+kernels to these twins on the same inputs); a plain model of the
+backward's binning (each point's entries per brick, each brick summing
+only its own nodes) against the twin; and a model of the patch-fan
+kernel's windows, which the edge inputs must push through both of its
+branches."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,3 +160,119 @@ def test_scatter_ref_matches_jax_at_edges(case):
     assert int(n(ob).sum()) == int(valid.sum())
     if case == "last_cells":
         assert (n(ob)[:, -1, -1, -1, 0] == 1).all()
+
+
+# ----------------------------------------------------- the variance kernels
+def _jax_projections(case):
+    from tdvnet.ops import camera as JC
+
+    return np.asarray(JC.projection_matrix(case["K"], case["rotmats"],
+                                           case["tvecs"]))
+
+
+@pytest.mark.parametrize("name", E.VARIANCE_CASES)
+def test_source_variance_ref_matches_jax_at_edges(name):
+    """K1's twin against the JAX package's `_source_variance` on the edge
+    inputs: footprints scattered over the map, behind the cameras and on
+    their planes; on the map's edges and corners and off it; NaN, inf and
+    overflowing coordinates; P not a multiple of a block's points; padding
+    sources (fed the JAX package's projection matrices)."""
+    from tdvnet.ops.costvolume import _source_variance
+    from tdvnet_torch.kernels.variance import source_variance_ref
+
+    c = E.variance_case(name)
+    P_all = _jax_projections(c)
+    args = (c["pts"], c["feats"], c["src_idx"], c["src_mask"], P_all,
+            c["img_size"])
+    want, want_mean = (np.asarray(a) for a in _source_variance(
+        *(jnp.asarray(a) for a in args[:5]), args[5]))
+    got, got_mean = (n(a) for a in source_variance_ref(
+        *(t(a) for a in args[:5]), args[5], with_mean=True))
+    assert got.shape == want.shape == (*c["pts"].shape[:2],
+                                       c["feats"].shape[-1])
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5)
+    np.testing.assert_allclose(got_mean, want_mean, rtol=1e-4, atol=2e-5)
+    bad = ~np.isfinite(c["pts"]).all(-1) | (np.abs(c["pts"]) > 1e30).any(-1)
+    assert np.isnan(got[bad]).all() and not np.isnan(got[~bad]).any()
+    assert np.abs(got[~bad]).max() > 0.1
+
+
+@pytest.mark.parametrize("name", [c[0] for c in E.FAN_CASES])
+def test_patch_fan_variance_ref_matches_jax_at_edges(name):
+    """K7's twin against the JAX package's `hypothesis_patch_variance` on
+    the tiled kernel's edge inputs: centres scattered, behind camera 0 and
+    on its plane; on the map's edges and corners; centre anchors out of
+    bounds; hypotheses beyond +-1 texel; Hh = 1 and 8; P not a multiple of
+    a tile; NaN, inf and overflowing coordinates; padding sources. Where a
+    coordinate is not finite the twin gives NaN (the port's rule, as in
+    `source_variance`); JAX's float-to-int of an infinite coordinate masks
+    its hypothesis to 0 instead, so the two are compared where the twin is
+    finite, and the twin's NaN must cover JAX's."""
+    from tdvnet.ops.costvolume import hypothesis_patch_variance
+    from tdvnet_torch.kernels.patchfan import patch_fan_variance_ref
+
+    c = E.fan_case(name)
+    want = np.asarray(hypothesis_patch_variance(
+        jnp.asarray(c["pts"]), jnp.asarray(c["feats"]),
+        jnp.asarray(c["src_idx"]), jnp.asarray(c["src_mask"]),
+        jnp.asarray(c["rotmats"]), jnp.asarray(c["tvecs"]),
+        jnp.asarray(c["K"]), c["img_size"]))
+    got = n(patch_fan_variance_ref(
+        t(c["pts"]), t(c["feats"]), t(c["src_idx"]), t(c["src_mask"]),
+        t(_jax_projections(c)), c["img_size"]))
+    assert got.shape == want.shape == (*c["pts"].shape[:3],
+                                       c["feats"].shape[-1])
+    fin = ~np.isnan(got)
+    assert np.isnan(got[np.isnan(want)]).all()
+    # an ulp of a coordinate between XLA's dot and the twin's fma chain
+    # moves unit-variance features by ~1e-5 of their largest (the limit
+    # chip_smoke.py holds the kernel to)
+    scale = max(1.0, float(np.abs(want[fin]).max()))
+    assert np.abs(got[fin] - want[fin]).max() <= 1e-5 * scale
+    if name == "nonfinite":
+        assert (~fin).any() and fin.any()
+    else:
+        assert fin.all()
+    assert np.abs(got[fin]).max() > 0.1
+
+
+def _k7_windows(c, C):
+    """The same for the K7 kernel: each tile's centres' patches."""
+    from tdvnet_torch.kernels.patchfan import TILE_PIXELS, _project
+    from tdvnet_torch.kernels.variance import _feature_scale
+
+    pts, feats = t(c["pts"]), t(c["feats"])
+    P_all = t(E.projection_matrices(c["K"], c["rotmats"], c["tvecs"]))
+    hf, wf = feats.shape[1:3]
+    sx, sy = _feature_scale(feats, c["img_size"])
+    hc = pts.shape[1] // 2
+    out = []
+    for r in range(pts.shape[0]):
+        P_s = P_all[t(c["src_idx"][r])]
+        xy = n(_project(pts[r, hc][None].expand(len(P_s), -1, -1), P_s, sx,
+                        sy))
+        a = np.floor(xy)
+        valid = (np.isfinite(xy).all(-1) & c["src_mask"][r][:, None]
+                 & (a[..., 0] >= -1) & (a[..., 0] <= wf - 1)
+                 & (a[..., 1] >= -1) & (a[..., 1] <= hf - 1))
+        out.append(E.window_floats(xy, valid, TILE_PIXELS, 1, 2,
+                                   min(C, 32)))
+    return np.concatenate(out, None)
+
+
+@pytest.mark.parametrize("C", [4, 6, 8, 32, 64])
+def test_patch_fan_edge_cases_reach_both_window_branches(C):
+    """The edge cases that the card tests hand to the tiled patch-fan
+    kernel make it take both branches at every channel width the card
+    tests take: a (tile, source) whose window fits the kernel's shared
+    memory (staged with cp.async) and one whose window overflows it (read
+    from global memory), by a margin that an ulp of a coordinate cannot
+    cross."""
+    from tdvnet_torch.kernels import patchfan
+
+    cap = patchfan.WINDOW_FLOATS
+    w = np.concatenate([_k7_windows(E.fan_case(c[0]), C)
+                        for c in E.FAN_CASES])
+    w = w[w > 0]
+    assert (w <= 0.9 * cap).any() and (w >= 1.1 * cap).any()
