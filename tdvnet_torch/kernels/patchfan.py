@@ -18,14 +18,6 @@ from tdvnet_torch.kernels.variance import _feature_scale
 from tdvnet_torch.ops.sampling import patch_sample_hypotheses_batched
 
 
-# floats of the kernel's shared-memory windows (32 KB): a tile's sources
-# are staged in order while their windows (texels x up to 32 channels) fit,
-# the rest read from global memory
-WINDOW_FLOATS = 8192
-# pixels a tile (`TP` in csrc/patch_fan_variance.cu)
-TILE_PIXELS = 32
-
-
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """a * b + c with one rounding to fp32, as a fused multiply-add gives it:
     the product of two fp32 values is exact in fp64, and the fp64 sum then
@@ -106,8 +98,7 @@ def patch_fan_variance(pts_hyp: torch.Tensor, feats: torch.Tensor,
     out = torch.empty((R, Hh, P, C), dtype=torch.float32, device=feats.device)
     launch("tdv_patch_fan_variance", feats.device, feats.data_ptr(),
            pts_hyp.data_ptr(), src_idx.data_ptr(), src_w.data_ptr(),
-           P_all.data_ptr(), out.data_ptr(), R, Hh, P, S, Hf, Wf, C, sx, sy,
-           WINDOW_FLOATS)
+           P_all.data_ptr(), out.data_ptr(), R, Hh, P, S, Hf, Wf, C, sx, sy)
     patch_fan_variance.launches += 1
     return out
 

@@ -2,8 +2,8 @@
 `patch_fan_variance`, on the card at their main-path shapes, for comparing
 trees.
 
-    python -m tdvnet_torch.tools.time_variance [--iters 20]
-        [--k7-windows 0,16384] [--ablate] [--no-captured]
+    python -m tdvnet_torch.tools.time_variance [--iters 20] [--ablate]
+        [--no-captured]
 
 Shapes: K1 at `infer_depth`'s three calls on the golden batch (the cost
 volume [14, 96*3136, 32], the scene cloud [14, 3136, 32], the PointFlow
@@ -19,12 +19,10 @@ the synth48 weights. Its last line is one JSON object: per input set and
 shape the kernel's mean ms over `--iters` calls (CUDA events) and its byte
 bound (inputs read once, the output written once, at 3.35 TB/s).
 
-`--k7-windows` times K7 again at other window budgets (floats of shared
-memory for a tile's windows; 0 reads every source from global memory), on
-a tree whose wrapper has `WINDOW_FLOATS`. `--ablate` adds each shape with
-every source masked as padding: the projections, the per-source loop and
-the stores without a tap read. To compare two trees in one call, run it
-from each tree's root with that root first on the path, alternating:
+`--ablate` adds each shape with every source masked as padding: the
+projections, the per-source loop and the stores without a tap read. To
+compare two trees in one call, run it from each tree's root with that root
+first on the path, alternating:
 
     (cd parent && PYTHONPATH=. python ../change/tdvnet_torch/tools/time_variance.py)
 """
@@ -238,7 +236,7 @@ def _name_calls(path, calls):
     return out
 
 
-def time_inputs(named, iters, windows, ablate):
+def time_inputs(named, iters, ablate):
     """{label: {"ms", "bound_ms", "shape"}} for each (kernel, args)."""
     from tdvnet_torch.kernels import patchfan, variance
     from tdvnet_torch.tools.timing import time_ms
@@ -255,28 +253,16 @@ def time_inputs(named, iters, windows, ablate):
             masked = list(args)
             masked[3] = torch.zeros_like(args[3])
             runs.append(("/masked", tuple(masked)))
-        default = getattr(mod, "WINDOW_FLOATS", None)
-        for wlabel, cap in [("", default)] + [
-                (f"/window={w}", w) for w in windows.get(kernel, ())
-                if default is not None]:
-            for alabel, a in runs:
-                if default is not None:
-                    mod.WINDOW_FLOATS = cap
-                try:
-                    ms = time_ms(lambda a=a: fn(*a), iters=iters, warmup=3)
-                finally:
-                    if default is not None:
-                        mod.WINDOW_FLOATS = default
-                rec[label + wlabel + alabel] = {
-                    "ms": ms, "bound_ms": bound, "shape": shape}
+        for alabel, a in runs:
+            ms = time_ms(lambda a=a: fn(*a), iters=iters, warmup=3)
+            rec[label + alabel] = {"ms": ms, "bound_ms": bound,
+                                   "shape": shape}
     return rec
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--k7-windows", default="",
-                    help="comma-separated window budgets in floats")
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--no-captured", action="store_true",
                     help="time the synthetic inputs only")
@@ -293,8 +279,6 @@ def main():
         tdvnet_torch.__file__)))
     device = torch.device("cuda")
     set_fp32_numerics()
-    ints = lambda s: [int(x) for x in s.split(",") if x]
-    windows = {"patch_fan_variance": ints(args.k7_windows)}
     gen = torch.Generator().manual_seed(0)
     views = stream_views()
     synthetic = {f"infer_depth/{k}": ("source_variance", a)
@@ -305,16 +289,14 @@ def main():
                   else "source_variance")
         synthetic[f"{path}/{k}"] = (kernel, a)
     rec = {"root": root, "card": card,
-           "synthetic": time_inputs(synthetic, args.iters, windows,
-                                    args.ablate)}
+           "synthetic": time_inputs(synthetic, args.iters, args.ablate)}
     del synthetic
     if not args.no_captured:
         captured = captured_inputs(
             os.path.join(root, "weights", "3dvnet_synth48.npz"), device,
             views)
         torch.cuda.empty_cache()
-        rec["captured"] = time_inputs(captured, args.iters, windows,
-                                      args.ablate)
+        rec["captured"] = time_inputs(captured, args.iters, args.ablate)
     print(json.dumps(rec), flush=True)
     return 0
 

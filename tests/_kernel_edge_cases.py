@@ -296,25 +296,3 @@ def fan_case(name, C=None, seed=0):
                 src_idx=SRC_IDX.copy(), src_mask=mask, K=K, rotmats=Rs,
                 tvecs=ts, img_size=img)
 
-
-def window_floats(xy, valid, tile, lo, hi, channels):
-    """Floats of each (source, tile) window that the patch-fan kernel
-    stages: xy [S, P, 2] the centres' feature-grid coordinates in each
-    source, valid [S, P] which of them bound a window
-    (finite, a real source, anchor in [-1, size - 1]), `tile` consecutive
-    points a tile, the window anchor - lo .. anchor + hi, `channels` floats
-    a texel. Returns [S, n_tiles], 0 where no point bounds a window."""
-    S, P, _ = xy.shape
-    n = -(-P // tile)
-    pad = n * tile - P
-    a = np.floor(np.where(valid[..., None], xy, 0)).astype(np.int64)
-    big = np.iinfo(np.int64).max // 4
-    lo_a = np.pad(np.where(valid[..., None], a, big),
-                  ((0, 0), (0, pad), (0, 0)), constant_values=big)
-    hi_a = np.pad(np.where(valid[..., None], a, -big),
-                  ((0, 0), (0, pad), (0, 0)), constant_values=-big)
-    mn = lo_a.reshape(S, n, tile, 2).min(2)
-    mx = hi_a.reshape(S, n, tile, 2).max(2)
-    any_ = np.pad(valid, ((0, 0), (0, pad))).reshape(S, n, tile).any(-1)
-    side = np.where(any_[..., None], mx - mn + lo + hi + 1, 0)
-    return side[..., 0] * side[..., 1] * channels

@@ -1097,13 +1097,42 @@ def test_source_variance_kernel_matches_twin_at_edges(name, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shared,own", [(8, 12), (16, 24), (32, 48),
+                                        (64, 80), (1040, 1020)])
+@pytest.mark.parametrize("name", ["scattered", "nonfinite"])
+def test_source_variance_shared_projection_is_bit_equal(name, shared, own):
+    """K1's lanes that share a point's projection through warp shuffles
+    (C = `shared`: 2 to 32 lanes a point) give the same bits as lanes that
+    each project their own point (C = `own`: C/4 neither divides 32 nor is
+    a multiple of it), variance and mean, on the first min(C) channels of
+    the same maps. Training's referee readings follow any rounding change,
+    so the shared form must not round differently."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import _kernel_edge_cases as E
+    from tdvnet_torch.kernels import variance as K
+
+    pts, feats, *rest = _variance_inputs(
+        E.variance_case(name, max(shared, own)), "cuda")
+    n = min(shared, own)
+    got = {c: K._source_variance(pts, feats[..., :c].contiguous(), *rest,
+                                 True) for c in (shared, own)}
+    for a, b in zip(got[shared], got[own]):
+        a, b = a[..., :n], b[..., :n]
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    if name == "nonfinite":
+        assert torch.isnan(got[own][0]).any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("C", [4, 6, 8, 32, 64])
 @pytest.mark.parametrize("name", ["scattered", "edges", "wide", "nonfinite",
                                   "single", "eight"])
 def test_patch_fan_variance_kernel_matches_twin_at_edges(name, C):
-    """K7's tiled kernel against its twin on the edge inputs (both window
-    branches, Hh = 1 and 8, C % 4 != 0), within 1e-5 of the twin's largest,
-    NaN for NaN."""
+    """K7's tiled kernel against its twin on the edge inputs (centres
+    scattered and off the map, Hh = 1 and 8, C % 4 != 0), within 1e-5 of
+    the twin's largest, NaN for NaN."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     import _kernel_edge_cases as E

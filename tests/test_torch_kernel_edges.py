@@ -2,11 +2,9 @@
 scatter and the two variance kernels must keep, on the CPU: each twin
 against the JAX function it stands for, on the seeded numpy inputs of
 `_kernel_edge_cases` (the card tests in tests/test_torch_cuda.py hold the
-kernels to these twins on the same inputs); a plain model of the
+kernels to these twins on the same inputs); and a plain model of the
 backward's binning (each point's entries per brick, each brick summing
-only its own nodes) against the twin; and a model of the patch-fan
-kernel's windows, which the edge inputs must push through both of its
-branches."""
+only its own nodes) against the twin."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -236,43 +234,3 @@ def test_patch_fan_variance_ref_matches_jax_at_edges(name):
         assert fin.all()
     assert np.abs(got[fin]).max() > 0.1
 
-
-def _k7_windows(c, C):
-    """The same for the K7 kernel: each tile's centres' patches."""
-    from tdvnet_torch.kernels.patchfan import TILE_PIXELS, _project
-    from tdvnet_torch.kernels.variance import _feature_scale
-
-    pts, feats = t(c["pts"]), t(c["feats"])
-    P_all = t(E.projection_matrices(c["K"], c["rotmats"], c["tvecs"]))
-    hf, wf = feats.shape[1:3]
-    sx, sy = _feature_scale(feats, c["img_size"])
-    hc = pts.shape[1] // 2
-    out = []
-    for r in range(pts.shape[0]):
-        P_s = P_all[t(c["src_idx"][r])]
-        xy = n(_project(pts[r, hc][None].expand(len(P_s), -1, -1), P_s, sx,
-                        sy))
-        a = np.floor(xy)
-        valid = (np.isfinite(xy).all(-1) & c["src_mask"][r][:, None]
-                 & (a[..., 0] >= -1) & (a[..., 0] <= wf - 1)
-                 & (a[..., 1] >= -1) & (a[..., 1] <= hf - 1))
-        out.append(E.window_floats(xy, valid, TILE_PIXELS, 1, 2,
-                                   min(C, 32)))
-    return np.concatenate(out, None)
-
-
-@pytest.mark.parametrize("C", [4, 6, 8, 32, 64])
-def test_patch_fan_edge_cases_reach_both_window_branches(C):
-    """The edge cases that the card tests hand to the tiled patch-fan
-    kernel make it take both branches at every channel width the card
-    tests take: a (tile, source) whose window fits the kernel's shared
-    memory (staged with cp.async) and one whose window overflows it (read
-    from global memory), by a margin that an ulp of a coordinate cannot
-    cross."""
-    from tdvnet_torch.kernels import patchfan
-
-    cap = patchfan.WINDOW_FLOATS
-    w = np.concatenate([_k7_windows(E.fan_case(c[0]), C)
-                        for c in E.FAN_CASES])
-    w = w[w > 0]
-    assert (w <= 0.9 * cap).any() and (w >= 1.1 * cap).any()
