@@ -628,22 +628,69 @@ def scene_model_cases(device, gen, label, path, P, B, grid, A, unet):
     return cases
 
 
+def sampling_cases(device, gen, label, B, dims0, pts_q, center0, per_infer,
+                   path):
+    """The fp32 scene sampling's three U-Net scales (seeded grids of
+    `dims0` / stride nodes) at the points pts_q [B, Q, 3], each written into
+    its channel slice of a [B, Q, sum C] output, with `F.grid_sample` at the
+    same points as the library yardstick. The byte bound counts the grid
+    nodes that the points' taps touch, not the whole grid."""
+    import torch
+    import torch.nn.functional as F
+
+    from tdvnet_torch.config import ModelConfig
+    from tdvnet_torch.kernels import trilinear_sample
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_ref
+    from tdvnet_torch.tools.time_sampling_gn import k6_bytes
+
+    cfg = ModelConfig()
+    edge = cfg.grid.edge_len
+    Q = pts_q.shape[1]
+    n_ch = sum(cfg.unet_dims)
+    cases, off = [], 0
+    for stride, C in zip((1, 2, 4), cfg.unet_dims):
+        dims = tuple(d // stride for d in dims0)
+        grid = torch.randn(B, *dims, C, generator=gen).to(device).contiguous()
+        cell = stride * edge
+        out = torch.empty(B, Q, n_ch, device=device)
+        # grid_sample on 5-D input: [B, C, X, Y, Z] with (z, y, x) coords
+        # normalised with align_corners=True
+        qn = (pts_q - center0[:, None, :]) / cell
+        lim = torch.tensor([d - 1 for d in dims], device=device,
+                           dtype=torch.float32)
+        gs_grid = (qn / lim * 2 - 1).flip(-1).reshape(B, Q, 1, 1, 3)
+        gs_in = grid.permute(0, 4, 1, 2, 3)
+        cases.append(Case(
+            "trilinear_sample", f"{label} s={stride} [{B},{dims[0]}x"
+            f"{dims[1]}x{dims[2]},{C}] x {Q} queries", per_infer,
+            lambda a=(grid, pts_q, center0, cell, out, off), c=C:
+                trilinear_sample(*a)[..., a[5]:a[5] + c],
+            lambda a=(grid, pts_q, center0, cell):
+                trilinear_sample_ref(*a),
+            1e-5, k6_bytes((grid, pts_q, center0, cell, n_ch, off)),
+            B * Q * (30 + 16 * C),
+            library=lambda a=(gs_in, gs_grid): F.grid_sample(
+                a[0], a[1], mode="bilinear", padding_mode="zeros",
+                align_corners=True), path=path))
+        off += C
+    return cases
+
+
 def kernel_cases(device, seed=0):
     """The calls the full-width main path makes, on the golden batch's
     cameras, with seeded random features, grids, logits and costs; and the
     calls whole-scene inference makes to the scene-modelling kernels at the
     golden scene's size."""
     import torch
-    import torch.nn.functional as F
 
     from tdvnet_torch.config import ModelConfig
     from tdvnet_torch.kernels import (propagation_blend, softargmax_depth,
-                                      source_variance, trilinear_sample)
+                                      source_variance)
     from tdvnet_torch.kernels.propagation import propagation_blend_ref
     from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
-    from tdvnet_torch.kernels.trilinear import trilinear_sample_ref
     from tdvnet_torch.kernels.variance import source_variance_ref
     from tdvnet_torch.ops import camera
+    from tdvnet_torch.tools.time_sampling_gn import batch_hypothesis_points
 
     cfg = ModelConfig()
     dc, g = cfg.depth_test, cfg.grid
@@ -681,7 +728,11 @@ def kernel_cases(device, seed=0):
                           lambda a=args: source_variance_ref(*a),
                           1e-4, nbytes, flops))
 
-    # trilinear_sample: the three U-Net scales at the pointflow queries
+    # trilinear_sample: the three U-Net scales at the pointflow queries of
+    # the golden batch at its ground-truth depth, the grid at its scene
+    # cloud's minimum (the main path's run of queries); and at uniform
+    # points over the grid and a margin around it (the out-of-grid taps),
+    # checked and timed beside them but not counted per inference
     B = b.n_scenes
     Q = (R // B) * 7 * dc.size[0] * dc.size[1]
     edge = g.edge_len
@@ -692,35 +743,11 @@ def kernel_cases(device, seed=0):
     pts_q = (origins[:, None, :] - 0.3
              + torch.rand(B, Q, 3, generator=gen).to(device) * (extent + 0.6)
              ).contiguous()
-    n_ch = sum(cfg.unet_dims)
-    off = 0
-    for stride, C in zip((1, 2, 4), cfg.unet_dims):
-        dims = tuple(d // stride for d in g.grid_size)
-        grid = rnd(B, *dims, C).contiguous()
-        cell = stride * edge
-        out = torch.empty(B, Q, n_ch, device=device)
-        # grid_sample on 5-D input: [B, C, X, Y, Z] with (z, y, x) coords
-        # normalised with align_corners=True
-        qn = (pts_q - center0[:, None, :]) / cell
-        lim = torch.tensor([d - 1 for d in dims], device=device,
-                           dtype=torch.float32)
-        gs_grid = (qn / lim * 2 - 1).flip(-1).reshape(B, Q, 1, 1, 3)
-        gs_in = grid.permute(0, 4, 1, 2, 3)
-        nbytes = 4 * (grid.numel() + pts_q.numel() + center0.numel()
-                      + B * Q * C)
-        flops = B * Q * (30 + 16 * C)
-        cases.append(Case(
-            "trilinear_sample", f"scale s={stride} [{B},{dims[0]}^3,{C}]"
-            f" x {Q} queries", 6,
-            lambda a=(grid, pts_q, center0, cell, out, off), c=C:
-                trilinear_sample(*a)[..., a[5]:a[5] + c],
-            lambda a=(grid, pts_q, center0, cell):
-                trilinear_sample_ref(*a),
-            1e-5, nbytes, flops,
-            library=lambda a=(gs_in, gs_grid): F.grid_sample(
-                a[0], a[1], mode="bilinear", padding_mode="zeros",
-                align_corners=True)))
-        off += C
+    cases += sampling_cases(device, gen, "scale", B, g.grid_size, pts_q,
+                            center0, 0, "infer_depth")
+    cases += sampling_cases(device, gen, "hyp", B, g.grid_size,
+                            *batch_hypothesis_points(device), 6,
+                            "infer_depth")
 
     # propagation_blend at the three upsampling sizes; the logits are the
     # NCHW output of a conv handed over as an [N, H, W, 9] view
@@ -775,16 +802,15 @@ def scene_cases(device, gen):
     counted per inference of that scene as `expected_launches` counts them.
     Also returns the chunk's hypothesis fans for the patch-fan case."""
     import torch
-    import torch.nn.functional as F
 
     from tdvnet_torch.config import EvalConfig, ModelConfig
     from tdvnet_torch.kernels import (propagation_blend, softargmax_depth,
-                                      source_variance, trilinear_sample)
+                                      source_variance)
     from tdvnet_torch.kernels.propagation import propagation_blend_ref
     from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
-    from tdvnet_torch.kernels.trilinear import trilinear_sample_ref
     from tdvnet_torch.kernels.variance import source_variance_ref
     from tdvnet_torch.ops import camera
+    from tdvnet_torch.tools.time_sampling_gn import scene_hypothesis_points
     from tdvnet_torch.tools.time_variance import scene_inputs, variance_bytes
 
     cfg, ev = ModelConfig(), EvalConfig()
@@ -810,8 +836,10 @@ def scene_cases(device, gen):
             variance_bytes(args),
             R * S * P * (24 + 11 * f) + R * P * f * 4, path="scene"))
 
-    # one chunk pass's queries in the golden scene's grid at its three
-    # scales (B = 1), over the grid and a margin around it
+    # one chunk pass's three U-Net scales (B = 1): at the chunk's
+    # hypothesis points in the grid `FusedSceneInference` sizes for the
+    # scene's cloud, counted per scene; and at uniform queries over the
+    # golden scene's grid and a margin around it, checked and timed beside
     rec = scene_golden_record()
     R = ev.fused_chunk
     P = dc.size[0] * dc.size[1]
@@ -824,31 +852,11 @@ def scene_cases(device, gen):
     pts_q = (origin[:, None, :] - 0.3
              + torch.rand(1, Q, 3, generator=gen).to(device) * (extent + 0.6)
              ).contiguous()
-    n_ch = sum(cfg.unet_dims)
-    off = 0
-    for stride, C in zip((1, 2, 4), cfg.unet_dims):
-        dims = tuple(d // stride for d in dims0)
-        grid = rnd(1, *dims, C).contiguous()
-        cell = stride * edge
-        out = torch.empty(1, Q, n_ch, device=device)
-        qn = (pts_q - center0[:, None, :]) / cell
-        lim = torch.tensor([d - 1 for d in dims], device=device,
-                           dtype=torch.float32)
-        gs_grid = (qn / lim * 2 - 1).flip(-1).reshape(1, Q, 1, 1, 3)
-        gs_in = grid.permute(0, 4, 1, 2, 3)
-        cases.append(Case(
-            "trilinear_sample", f"scene s={stride} [1,{dims[0]}x{dims[1]}x"
-            f"{dims[2]},{C}] x {Q} queries", pf,
-            lambda a=(grid, pts_q, center0, cell, out, off), c=C:
-                trilinear_sample(*a)[..., a[5]:a[5] + c],
-            lambda a=(grid, pts_q, center0, cell):
-                trilinear_sample_ref(*a),
-            1e-5, 4 * (grid.numel() + pts_q.numel() + 3 + Q * C),
-            Q * (30 + 16 * C),
-            library=lambda a=(gs_in, gs_grid): F.grid_sample(
-                a[0], a[1], mode="bilinear", padding_mode="zeros",
-                align_corners=True), path="scene"))
-        off += C
+    cases += sampling_cases(device, gen, "scene", 1, dims0, pts_q, center0,
+                            0, "scene")
+    pts_h, c0_h, dims_h = scene_hypothesis_points(inputs)
+    cases += sampling_cases(device, gen, "scene hyp", 1, dims_h, pts_h, c0_h,
+                            pf, "scene")
 
     # a chunk's propagation blends and soft-argmax
     H, W = cfg.img_size

@@ -8,30 +8,56 @@
 // ten XLA elementwise and reduction ops that the compiler fuses; in eager
 // PyTorch each is a pass over the [B, C, V] volume.
 //
-// Bound on an H100: bytes. The volume is read twice (statistics, then
-// apply) and written once; the skip, where there is one, is read once; the
-// mask is V floats per batch element. About 6 flops per element.
+// Bound on an H100: bytes. The volume is read once and the output written
+// once, the skip (where there is one) read once, the mask (V floats per
+// batch element) read once; about 6 flops per element. The kernels read
+// the volume twice (statistics, then apply): at the scene U-Net's levels
+// and the batch's levels 1-2 the tensor fits in the 50 MB L2, so the
+// second read comes from there; the batch's level 0 (134 MB) reads it from
+// HBM twice.
 //
-// Design, NCDHW so that a channel is contiguous over the V voxels:
-//   stats     grid (chunks of V, B*G): a block sums x*m, x*x*m and m over
-//             its chunk for the group's channels in float64, mask read once
-//             per voxel; block partials go to a [B*G, chunks, 3] float64
-//             scratch. The reference's one-pass formula (below) loses up to
-//             ~1e-3 of the variance in fp32 where a group's mean is large
-//             against its spread, and the scene stages' gradients with it;
-//             float64 sums keep it exact to fp32 at no extra pass (the
-//             kernel is bound by its fp32 reads, not by the adds);
-//   finalize  one warp per (b, g) adds the partials in a fixed order (the
-//             result repeats from run to run; no float atomics), then in
-//             float64 count = sum(m) * C/G clamped to 1, mean = s1 / count,
-//             var = s2 / count - mean^2 clamped at 0, rstd = 1 / sqrt(var +
-//             eps), each rounded once to fp32;
-//             stats[b, g] = (mean, rstd, count, 1 if var >= 0 else 0),
-//             which masked_group_norm_backward.cu reads;
-//   apply     one thread per 4 voxels of a channel (16-byte accesses) when
-//             V is a multiple of 4, else per voxel:
-//             y = ((x - mean) * rstd * w[c] + b[c]) * m, then by mode
-//             0: y   1: relu(y) * m   2: relu(y + skip) * m.
+// What held the first form of this kernel (a statistics grid of chunks of
+// 4096 voxels x B*G, a finalize kernel, the apply) at 2.7x its bound over
+// a batch and 8x over a scene (the profiler's kernel times in PERF.md
+// section 6): its statistics grid scaled with the voxels alone (8 blocks
+// at the scene's level 2, 24 at level 1, on a card of 132 SMs), and each
+// thread walked its voxels and, inside, the group's channels one scalar
+// load at a time into one float64 chain; statistics took 41-80% of a
+// call's device time. The finalize was a launch of its own (1.6 us of one
+// warp's work), and the apply divided 64-bit indices three times a
+// thread.
+//
+// Design, NCDHW so that a channel is contiguous over the V voxels; two
+// launches:
+//   stats  a grid of (voxel blocks x channel chunks, B*G) blocks: a block
+//          sums STATS_VOXELS voxels of one (b, g) slice over a chunk of
+//          the group's C/G channels, the chunk halved (from C/G) until
+//          the grid holds 4 blocks an SM (`stats_blocks` in
+//          kernels/groupnorm.py), so that the coarse levels fill the card.
+//          A thread takes 4 voxels (one float4), reads and widens their
+//          mask once, then the chunk's channels, 4 float4 loads in flight
+//          before their float64 adds: s1 += x m, s2 += x^2 m (exact
+//          products for a mask in {0, 1}), and m over the voxels where the
+//          chunk is the first (each voxel counts once). The reference's
+//          one-pass formula loses up to ~1e-3 of the variance in fp32
+//          where a group's mean is large against its spread, and the scene
+//          stages' gradients with it; float64 sums keep it exact to fp32.
+//          Each block writes its partial sums; the last block of a slice
+//          to finish (a ticket taken after __threadfence, the tickets kept
+//          zero between calls: the last block puts its own back) adds the
+//          slice's partials in index order (the result repeats from run to
+//          run; no float atomics), then in float64 count = sum(m) * C/G
+//          clamped to 1, mean = s1 / count, var = s2 / count - mean^2
+//          clamped at 0, rstd = 1 / sqrt(var + eps), each rounded once to
+//          fp32; stats[b, g] = (mean, rstd, count, 1 if var >= 0 else 0),
+//          which masked_group_norm_backward.cu reads;
+//   apply  a grid of (voxel blocks, rows): one thread per 4 voxels of a
+//          (b, c) row (16-byte accesses) when V is a multiple of 4, else
+//          per voxel: y = ((x - mean) * rstd * w[c] + b[c]) * m, then by
+//          mode 0: y   1: relu(y) * m   2: relu(y + skip) * m.
+// A single cooperative launch (stats, grid barrier, apply) was not built:
+// at levels 1-2 a kernel's fixed cost is ~1.6 us of a 6-12 us call, which
+// is all that fusing the two would save.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -39,6 +65,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;                // vectors a thread loads at once
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
@@ -48,25 +75,77 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-__global__ void masked_group_norm_stats_kernel(
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+};
+template <>
+struct Vec<1> {
+  using T = float;
+};
+
+__device__ __forceinline__ float lane_of(float4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float lane_of(float v, int) { return v; }
+
+// grid (voxel blocks x channel chunks, B*G). A (b, g) slice is the group's
+// C/G channels of batch element b, each V contiguous floats. Block
+// (vb, cc) sums x m and x^2 m over voxels [vb * Vb, (vb + 1) * Vb) of the
+// slice's channels [cc * CC, (cc + 1) * CC), and m over those voxels when
+// cc == 0 (each voxel's mask counts once); a thread takes VEC voxels, reads
+// and widens their mask once, then their CC channels, kUnroll loads in
+// flight before the float64 adds (x m and x^2 m are exact for a mask in
+// {0, 1}). The last block of a slice to finish (a ticket taken after
+// __threadfence) adds the slice's partials in index order and writes its
+// statistics, then puts the ticket back to 0 for the next call.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) masked_group_norm_stats_kernel(
     const float* __restrict__ x, const float* __restrict__ mask,
-    double* __restrict__ partial, int C, int G, long long V, int chunk,
-    int n_chunks) {
+    double* __restrict__ partial, unsigned* __restrict__ tickets,
+    float* __restrict__ stats, int C, int G, long long V, long long Vb,
+    int CC, float eps) {
+  using T = typename Vec<VEC>::T;
   __shared__ double smem[3][kThreads / 32];
+  __shared__ bool last;
   const int cg = C / G;
-  const int b = blockIdx.y / G, g = blockIdx.y % G;
-  const long long v0 = (long long)blockIdx.x * chunk;
-  const long long v1 = v0 + chunk < V ? v0 + chunk : V;
+  const int n_cc = cg / CC;
+  const int bg = blockIdx.y, b = bg / G;
+  const int vb = blockIdx.x / n_cc, cc = blockIdx.x - vb * n_cc;
+  const long long v0 = vb * Vb;
+  const long long v1 = v0 + Vb < V ? v0 + Vb : V;
+  const float* xs = x + ((long long)bg * cg + (long long)cc * CC) * V;
   const float* m = mask + (long long)b * V;
-  const float* xg = x + ((long long)b * C + (long long)g * cg) * V;
   double s1 = 0.0, s2 = 0.0, cnt = 0.0;
-  for (long long v = v0 + threadIdx.x; v < v1; v += kThreads) {
-    const double mv = m[v];
-    cnt += mv;
-    for (int c = 0; c < cg; ++c) {
-      const double xv = xg[(long long)c * V + v];
-      s1 += xv * mv;
-      s2 += xv * xv * mv;
+  for (long long v = v0 + threadIdx.x * VEC; v < v1; v += VEC * kThreads) {
+    const T mt = __ldg(reinterpret_cast<const T*>(m + v));
+    double md[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      md[j] = (double)lane_of(mt, j);
+      if (cc == 0) cnt += md[j];
+    }
+    for (int c = 0; c < CC; c += kUnroll) {
+      T xv[kUnroll];
+      // the round's loads first, then its float64 adds
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (c + u < CC)
+          xv[u] = __ldg(reinterpret_cast<const T*>(xs + (c + u) * V + v));
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (c + u < CC) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const double xd = (double)lane_of(xv[u], j);
+            const double xm = xd * md[j];
+            s1 += xm;
+            s2 = fma(xd, xm, s2);
+          }
+        }
+      }
     }
   }
   s1 = warp_sum(s1);
@@ -79,39 +158,41 @@ __global__ void masked_group_norm_stats_kernel(
     smem[2][warp] = cnt;
   }
   __syncthreads();
+  const int n_blk = gridDim.x;
   if (threadIdx.x < 3) {
     double t = 0.0;
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) t += smem[threadIdx.x][w];
-    partial[((long long)blockIdx.y * n_chunks + blockIdx.x) * 3 +
-            threadIdx.x] = t;
+    partial[((long long)bg * n_blk + blockIdx.x) * 3 + threadIdx.x] = t;
+    __threadfence();
   }
-}
-
-// one warp per (b, g): stats[bg] = (mean, rstd, count, var >= 0)
-__global__ void masked_group_norm_finalize_kernel(
-    const double* __restrict__ partial, float* __restrict__ stats, int C,
-    int G, int n_chunks, float eps) {
-  const int bg = blockIdx.x;
-  const int lane = threadIdx.x;
-  double s1 = 0.0, s2 = 0.0, cnt = 0.0;
-  for (int i = lane; i < n_chunks; i += 32) {
-    const double* p = partial + ((long long)bg * n_chunks + i) * 3;
-    s1 += p[0];
-    s2 += p[1];
-    cnt += p[2];
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(tickets + bg, 1u) == (unsigned)(n_blk - 1);
+  __syncthreads();
+  if (!last || warp != 0) return;
+  // the slice's partials in index order, as one warp: the result repeats
+  // from run to run whichever block came last
+  __threadfence();
+  s1 = s2 = cnt = 0.0;
+  for (int i = lane; i < n_blk; i += 32) {
+    const double* p = partial + ((long long)bg * n_blk + i) * 3;
+    s1 += __ldcg(p);
+    s2 += __ldcg(p + 1);
+    cnt += __ldcg(p + 2);
   }
   s1 = warp_sum(s1);
   s2 = warp_sum(s2);
   cnt = warp_sum(cnt);
   if (lane == 0) {
-    const double n = fmax(cnt * (double)(C / G), 1.0);
+    const double n = fmax(cnt * (double)cg, 1.0);
     const double mean = s1 / n;
     const double var = s2 / n - mean * mean;
     stats[bg * 4 + 0] = (float)mean;
     stats[bg * 4 + 1] = (float)(1.0 / sqrt(fmax(var, 0.0) + (double)eps));
     stats[bg * 4 + 2] = (float)n;
     stats[bg * 4 + 3] = var >= 0.0 ? 1.f : 0.f;
+    tickets[bg] = 0u;
   }
 }
 
@@ -127,65 +208,78 @@ __device__ __forceinline__ float apply_one(float x, float mean, float rstd,
   return y;
 }
 
+// grid (vectors of a channel row / kThreads, rows): one thread per VEC
+// voxels of one (b, c) row, rows strided by gridDim.y
 template <int VEC>
-__global__ void masked_group_norm_apply_kernel(
+__global__ void __launch_bounds__(kThreads) masked_group_norm_apply_kernel(
     const float* __restrict__ x, const float* __restrict__ mask,
     const float* __restrict__ weight, const float* __restrict__ bias,
     const float* __restrict__ stats, const float* __restrict__ skip,
     float* __restrict__ out, int B, int C, int G, long long V, int mode) {
-  const long long vq = V / VEC;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)B * C * vq) return;
-  const long long v = (t % vq) * VEC;
-  const long long bc = t / vq;
-  const int c = (int)(bc % C), b = (int)(bc / C);
-  const int bg = b * G + c / (C / G);
-  const float mean = stats[bg * 4], rstd = stats[bg * 4 + 1];
-  const float w = weight[c], bi = bias[c];
-  const long long xi = bc * V + v, mi = (long long)b * V + v;
-  if (VEC == 4) {
-    const float4 xv = *reinterpret_cast<const float4*>(x + xi);
-    const float4 mv = *reinterpret_cast<const float4*>(mask + mi);
-    float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (mode == 2) sv = *reinterpret_cast<const float4*>(skip + xi);
-    float4 y;
-    y.x = apply_one(xv.x, mean, rstd, w, bi, mv.x, sv.x, mode);
-    y.y = apply_one(xv.y, mean, rstd, w, bi, mv.y, sv.y, mode);
-    y.z = apply_one(xv.z, mean, rstd, w, bi, mv.z, sv.z, mode);
-    y.w = apply_one(xv.w, mean, rstd, w, bi, mv.w, sv.w, mode);
-    *reinterpret_cast<float4*>(out + xi) = y;
-  } else {
-    out[xi] = apply_one(x[xi], mean, rstd, w, bi, mask[mi],
-                        mode == 2 ? skip[xi] : 0.f, mode);
+  const long long v = ((long long)blockIdx.x * kThreads + threadIdx.x) * VEC;
+  if (v >= V) return;
+  const int cg = C / G;
+  for (int bc = blockIdx.y; bc < B * C; bc += gridDim.y) {
+    const int b = bc / C, c = bc - b * C;
+    const int bg = b * G + c / cg;
+    const float mean = stats[bg * 4], rstd = stats[bg * 4 + 1];
+    const float w = weight[c], bi = bias[c];
+    const long long xi = (long long)bc * V + v, mi = (long long)b * V + v;
+    if (VEC == 4) {
+      const float4 xv = __ldg(reinterpret_cast<const float4*>(x + xi));
+      const float4 mv = __ldg(reinterpret_cast<const float4*>(mask + mi));
+      float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (mode == 2) sv = __ldg(reinterpret_cast<const float4*>(skip + xi));
+      float4 y;
+      y.x = apply_one(xv.x, mean, rstd, w, bi, mv.x, sv.x, mode);
+      y.y = apply_one(xv.y, mean, rstd, w, bi, mv.y, sv.y, mode);
+      y.z = apply_one(xv.z, mean, rstd, w, bi, mv.z, sv.z, mode);
+      y.w = apply_one(xv.w, mean, rstd, w, bi, mv.w, sv.w, mode);
+      *reinterpret_cast<float4*>(out + xi) = y;
+    } else {
+      out[xi] = apply_one(x[xi], mean, rstd, w, bi, mask[mi],
+                          mode == 2 ? skip[xi] : 0.f, mode);
+    }
   }
+}
+
+// the two launches: statistics, then the apply
+template <int VEC>
+void launch(const float* x, const float* mask, const float* weight,
+            const float* bias, const float* skip, float* out,
+            double* partial, unsigned* tickets, float* stats, int B, int C,
+            int G, long long V, float eps, int mode, long long Vb, int CC,
+            cudaStream_t s) {
+  const unsigned n_blk =
+      (unsigned)((V + Vb - 1) / Vb) * (unsigned)(C / G / CC);
+  masked_group_norm_stats_kernel<VEC><<<dim3(n_blk, B * G), kThreads, 0, s>>>(
+      x, mask, partial, tickets, stats, C, G, V, Vb, CC, eps);
+  const unsigned rows = B * C < 65535 ? B * C : 65535;
+  const long long blocks = (V / VEC + kThreads - 1) / kThreads;
+  masked_group_norm_apply_kernel<VEC>
+      <<<dim3((unsigned)blocks, rows), kThreads, 0, s>>>(
+          x, mask, weight, bias, stats, skip, out, B, C, G, V, mode);
 }
 
 }  // namespace
 
-// x, out, skip [B, C, V]; mask [B, V]; partial [B*G, n_chunks, 3] float64;
-// stats [B*G, 4]; n_chunks = ceil(V / chunk). skip is read only in mode 2.
+// x, out, skip [B, C, V]; mask [B, V]; partial
+// [B*G, ceil(V / Vb) * C/G/CC, 3] float64; tickets [B*G] uint32, all 0 (the
+// kernel leaves them 0); stats [B*G, 4]. A statistics block sums Vb voxels
+// (a multiple of 1024) of CC channels (a divisor of C/G); the wrapper sizes
+// both from the shape and the SM count. skip is read only in mode 2.
 extern "C" int tdv_masked_group_norm(
     const float* x, const float* mask, const float* weight,
     const float* bias, const float* skip, float* out, double* partial,
-    float* stats, int B, int C, int G, long long V, float eps, int mode,
-    int chunk, void* stream) {
+    unsigned* tickets, float* stats, int B, int C, int G, long long V,
+    float eps, int mode, long long Vb, int CC, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if ((long long)B * C * V == 0) return 0;
-  const int n_chunks = (int)((V + chunk - 1) / chunk);
-  masked_group_norm_stats_kernel<<<dim3(n_chunks, B * G), kThreads, 0, s>>>(
-      x, mask, partial, C, G, V, chunk, n_chunks);
-  masked_group_norm_finalize_kernel<<<B * G, 32, 0, s>>>(partial, stats, C,
-                                                         G, n_chunks, eps);
-  if (V % 4 == 0) {
-    const long long total = (long long)B * C * (V / 4);
-    masked_group_norm_apply_kernel<4>
-        <<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-            x, mask, weight, bias, stats, skip, out, B, C, G, V, mode);
-  } else {
-    const long long total = (long long)B * C * V;
-    masked_group_norm_apply_kernel<1>
-        <<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-            x, mask, weight, bias, stats, skip, out, B, C, G, V, mode);
-  }
+  if (V % 4 == 0)
+    launch<4>(x, mask, weight, bias, skip, out, partial, tickets, stats, B, C,
+              G, V, eps, mode, Vb, CC, s);
+  else
+    launch<1>(x, mask, weight, bias, skip, out, partial, tickets, stats, B, C,
+              G, V, eps, mode, Vb, CC, s);
   return (int)cudaGetLastError();
 }

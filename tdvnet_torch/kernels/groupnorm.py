@@ -3,11 +3,16 @@ its gradient.
 
 Kernels: `csrc/masked_group_norm.cu` and `csrc/masked_group_norm_backward.cu`
 (see their headers for the TPU op they replace, their bounds and their
-designs). `masked_group_norm_ref` and `masked_group_norm_backward_ref` are
-the plain PyTorch twins; the wrappers run them only for CPU tensors. When
-autograd records a call (grad mode on and an input requiring grad), it
-goes through `MaskedGroupNormFn`, which keeps the forward's statistics and
-output for `masked_group_norm_backward`.
+designs). The forward is two launches: a statistics pass whose blocks
+(sized by `stats_blocks` from the shape and the SM count, so that every
+U-Net level fills the card) sum float64 partials, the last block of each
+(batch, group) adding them in a fixed order into the statistics; then the
+apply pass with the tail. `masked_group_norm_ref` and
+`masked_group_norm_backward_ref` are the plain PyTorch twins; the wrappers
+run them only for CPU tensors. When autograd records a call (grad mode on
+and an input requiring grad), it goes through `MaskedGroupNormFn`, which
+keeps the forward's statistics and output for
+`masked_group_norm_backward`.
 """
 from __future__ import annotations
 
@@ -18,7 +23,17 @@ import torch.nn.functional as F
 
 from tdvnet_torch.kernels._launch import check, launch, on_cpu, wants_grad
 
-CHUNK = 4096              # voxels per block of the statistics pass
+CHUNK = 4096              # voxels per block of the backward's reductions
+# the forward's statistics blocks: each sums STATS_VOXELS voxels of a
+# (batch, group) slice over a chunk of the group's channels, the chunks cut
+# until there are at least STATS_BLOCKS_PER_SM blocks an SM
+STATS_VOXELS = 1024
+STATS_BLOCKS_PER_SM = 4
+
+_SM_COUNT = {}            # multiprocessors per device index
+# (device index, stream): the statistics pass's scratch, float64 partials
+# and uint32 tickets, reused by every call on that stream
+_SCRATCH = {}
 
 
 def _group_stats(x, mask, num_groups):
@@ -105,6 +120,49 @@ def masked_group_norm_backward_ref(grad: torch.Tensor, x: torch.Tensor,
             g.reshape(x.shape) if skip else None)
 
 
+def stats_blocks(B, C, G, V, n_sm):
+    """(voxels, channels) that one block of the forward's statistics pass
+    sums: STATS_VOXELS voxels of a (batch, group) slice and a chunk of the
+    group's C/G channels, halved while the grid has fewer than
+    STATS_BLOCKS_PER_SM blocks an SM (so that the U-Net's coarse levels
+    fill the card) and the chunk is even."""
+    cg = C // G
+    n_vb = -(-V // STATS_VOXELS)
+    cc = cg
+    want = STATS_BLOCKS_PER_SM * n_sm
+    while cc % 2 == 0 and B * G * n_vb * (cg // cc) < want:
+        cc //= 2
+    return STATS_VOXELS, cc
+
+
+def _scratch(dev, n_partial, n_tickets):
+    """Pointers to the statistics pass's float64 partials (n_partial) and
+    uint32 tickets (n_tickets) on `dev`'s current stream. The tickets are
+    zeroed once, when the scratch is made, and every launch leaves them zero
+    (the last block of a slice puts its ticket back), so no call fills them;
+    calls on one stream run in order, so they share the scratch."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    have = _SCRATCH.get(key)
+    if have is None or have[0].numel() < n_partial \
+            or have[1].numel() < n_tickets:
+        n_partial = max(n_partial, 1 << 14)
+        n_tickets = max(n_tickets, 256)
+        have = _SCRATCH[key] = (
+            torch.empty((n_partial,), dtype=torch.float64, device=dev),
+            torch.zeros((n_tickets,), dtype=torch.int32, device=dev))
+    return have[0].data_ptr(), have[1].data_ptr()
+
+
+def _sm_count(dev):
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    n = _SM_COUNT.get(index)
+    if n is None:
+        n = _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
+
+
 def _masked_group_norm(x, mask, num_groups, weight, bias, eps, relu, skip):
     """The forward launch; returns (out, stats [B*G, 4]: mean, rstd, count,
     var >= 0)."""
@@ -124,16 +182,16 @@ def _masked_group_norm(x, mask, num_groups, weight, bias, eps, relu, skip):
         check(skip, "skip", torch.float32, tuple(x.shape))
     dev = x.device
     out = torch.empty_like(x)
-    n_chunks = -(-V // CHUNK)
-    partial = torch.empty((B * G, n_chunks, 3), dtype=torch.float64,
-                          device=dev)
+    vb, cc = stats_blocks(B, C, G, V, _sm_count(dev))
+    n_blk = -(-V // vb) * (C // G // cc)
+    partial, tickets = _scratch(dev, B * G * n_blk * 3, B * G)
     stats = torch.empty((B * G, 4), dtype=torch.float32, device=dev)
     mode = 2 if skip is not None else int(relu)
     launch("tdv_masked_group_norm", dev, x.data_ptr(), mask.data_ptr(),
            weight.data_ptr(), bias.data_ptr(),
            skip.data_ptr() if skip is not None else None, out.data_ptr(),
-           partial.data_ptr(), stats.data_ptr(), B, C, G, V, float(eps), mode,
-           CHUNK)
+           partial, tickets, stats.data_ptr(), B, C, G, V, float(eps), mode,
+           vb, cc)
     masked_group_norm.launches += 1
     return out, stats
 

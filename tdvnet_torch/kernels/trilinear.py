@@ -4,15 +4,19 @@ grids (K6-int8, inference only).
 
 Kernels: `csrc/trilinear_sample.cu`, `csrc/trilinear_sample_backward.cu`
 and `csrc/trilinear_sample_i8.cu` (see their headers for the TPU ops they
-replace, their bounds and their designs). `trilinear_sample_ref`,
-`trilinear_sample_backward_ref` and `trilinear_sample_i8_ref` are the plain
-PyTorch twins; the wrappers run them only for CPU tensors.
-`trilinear_sample` writes into a channel slice of a wider output, which
-autograd cannot follow: a sampling that must carry the grid's gradient
-goes through `trilinear_sample_scale`, which returns the scale's own
-[B, Q, C] from `TrilinearSampleFn` (backward: `trilinear_sample_backward`,
-which sums each brick of BRICK^3 nodes in one block's shared memory; see
-the kernel's header).
+replace, their bounds and their designs). The fp32 forward computes each
+query's coordinates once, in a lane of a warp that takes 32 consecutive
+queries, hands them to the C/4 lanes that sample its channels, and keeps a
+query's 8 taps in registers for the next query that shares its anchor; its
+sums are bit-equal to those of one thread per (query, 4 channels).
+`trilinear_sample_ref`, `trilinear_sample_backward_ref` and
+`trilinear_sample_i8_ref` are the plain PyTorch twins; the wrappers run
+them only for CPU tensors. `trilinear_sample` writes into a channel slice
+of a wider output, which autograd cannot follow: a sampling that must carry
+the grid's gradient goes through `trilinear_sample_scale`, which returns
+the scale's own [B, Q, C] from `TrilinearSampleFn` (backward:
+`trilinear_sample_backward`, which sums each brick of BRICK^3 nodes in one
+block's shared memory; see the kernel's header).
 """
 from __future__ import annotations
 
@@ -123,6 +127,9 @@ def _trilinear_sample(grid, pts, center0, cell, out, ch_off):
     Q = pts.shape[1]
     Ctot = out.shape[-1]
     _check_slice("trilinear_sample", C, Ctot, ch_off)
+    if B * X * Y * Z >= 2 ** 31:
+        raise ValueError(f"trilinear_sample: {B} grids of {X}x{Y}x{Z} nodes "
+                         f"are outside the kernel's int32 cell indices")
     check(grid, "grid", torch.float32, (B, X, Y, Z, C))
     check(pts, "pts", torch.float32, (B, Q, 3))
     check(center0, "center0", torch.float32, (B, 3))

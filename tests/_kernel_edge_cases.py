@@ -1,9 +1,11 @@
-"""Seeded numpy inputs at the edges that the brick-binned trilinear
-backward (`csrc/trilinear_sample_backward.cu`), the map-based dense
-scatter (`csrc/voxelize.cu`) and the two variance kernels
-(`csrc/source_variance.cu`, `csrc/patch_fan_variance.cu`) must keep. Numpy
-only: the CPU tests hand them to the JAX functions and the twins, the card
-tests to the kernels."""
+"""Seeded numpy inputs at the edges that the trilinear sampling forward
+(`csrc/trilinear_sample.cu`) and its brick-binned backward
+(`csrc/trilinear_sample_backward.cu`), the map-based dense scatter
+(`csrc/voxelize.cu`), the two variance kernels
+(`csrc/source_variance.cu`, `csrc/patch_fan_variance.cu`) and the masked
+GroupNorm forward (`csrc/masked_group_norm.cu`) must keep. Numpy only: the
+CPU tests hand them to the JAX functions and the twins, the card tests to
+the kernels."""
 import numpy as np
 
 # grids of 17 x 9 x 12 nodes: bricks of 8 (and 4) along x end in a partial
@@ -77,6 +79,121 @@ def trilinear_case(name, seed=0):
 def finite_points(pts):
     """[B, Q] whether a point's coordinates are all finite."""
     return np.isfinite(pts).all(-1)
+
+
+# the forward's cases: the backward's, and the runs the forward's tiles of
+# 32 queries walk (C/4 lanes a query, up to 32 queries a warp)
+TRILINEAR_FORWARD_CASES = TRILINEAR_CASES + ("anchor_runs", "alternating",
+                                             "ragged")
+TRILINEAR_FORWARD_CHANNELS = (4, 64, 128)
+
+
+def trilinear_forward_case(name, C, seed=0):
+    """(grid [B, X, Y, Z, C], pts [B, Q, 3], center0 [B, 3], cell), fp32:
+    the backward's cases' points and new ones. "anchor_runs": runs of 1 to
+    40 consecutive queries in one cell, some cells on the grid's faces (a
+    partial tap set), runs crossing the tiles' boundaries; "alternating":
+    two or three anchors taking turns inside runs, among them anchors with
+    the same cell index and other in-grid taps (anchor y = -1 beside the
+    previous x plane's y = Y - 1 cell, and scene 1's x = -1 beside scene
+    0's x = X - 1 cell at the scenes' boundary); "ragged": B * Q = 2 * 45
+    queries, so a tile holds both scenes' and the last tile is partial."""
+    rng = np.random.default_rng(1000 + seed
+                                + TRILINEAR_FORWARD_CASES.index(name))
+    dims = np.array(TRI_DIMS)
+    B = 2
+    frac = lambda *s: rng.integers(1, 64, s) / 64.0
+    if name in TRILINEAR_CASES:
+        _, pts, c0, cell, _ = trilinear_case(name, seed)
+    else:
+        c0 = (rng.integers(-8, 8, (B, 3)) / 64.0).astype(np.float32)
+        if name == "anchor_runs":
+            Q = 700
+            cells = []
+            while len(cells) < Q:
+                a = rng.integers(-1, dims)          # -1 .. X - 1: in range
+                cells += [a] * int(rng.integers(1, 41))
+            q = np.array(cells[:Q], np.float64)[None].repeat(B, 0) \
+                + frac(B, Q, 3)
+        elif name == "alternating":
+            Q = 640
+            X, Y, Z = dims
+            pairs = [((3, -1, 4), (2, Y - 1, 4)),  # one cell index, two taps
+                     ((5, 2, -1), (5, 1, Z - 1)),
+                     ((0, 0, 0), (1, 0, 0)), ((7, 3, 5), (7, 3, 6))]
+            q = np.empty((B, Q, 3))
+            for i in range(Q // 32):
+                a, b2 = pairs[i % len(pairs)]
+                pat = [a, b2] if i % 3 else [a, a, b2, a, b2, b2]
+                third = rng.integers(0, dims - 1)
+                for j in range(32):
+                    cell_j = pat[j % len(pat)] if j % 11 else third
+                    q[:, 32 * i + j] = cell_j
+            q += frac(B, Q, 3)
+            # at the scenes' boundary scene 0 ends at x = X - 1, scene 1
+            # starts at x = -1: the same cell index, other taps
+            q[0, -8:] = (X - 1, 4, 5) + frac(8, 3)
+            q[1, :8] = (-1, 4, 5) + frac(8, 3)
+        elif name == "ragged":
+            Q = 45
+            q = rng.integers(-1, dims, (B, Q, 3)) + frac(B, Q, 3)
+            q[:, 10:30] = q[:, 10:11]               # one run
+        else:
+            raise ValueError(name)
+        cell = TRI_CELL
+        pts = (c0[:, None] + q * cell).astype(np.float32)
+    return forward_grid(C), pts, c0, cell
+
+
+def forward_grid(C):
+    """The forward cases' grid [2, X, Y, Z, C <= 256]: the first C channels
+    of one seeded 256-channel grid, so that one JAX call covers every
+    width."""
+    grid = np.random.default_rng(999).normal(size=(2, *TRI_DIMS, 256))
+    return np.ascontiguousarray(grid[..., :C], np.float32)
+
+
+# ------------------------------------------------- the masked GroupNorm
+# (name, B, dims): V = 1; V % 4 != 0; the scene U-Net's level sizes
+# (1 536, 12 288, 98 304 voxels); one active voxel; an empty mask; two
+# scenes with different counts; a mean large against its spread.
+# One width (C = 8, G = 2) so that the CPU tests stack every case in one
+# JAX call; the card tests add the U-Net's widths
+GN_CASES = (("one_voxel", 2, (1, 1, 1)), ("ragged", 2, (5, 3, 3)),
+            ("level2", 2, (16, 12, 8)), ("level1", 1, (32, 24, 16)),
+            ("level0", 1, (64, 48, 32)), ("one_active", 2, (16, 12, 8)),
+            ("empty", 2, (16, 12, 8)), ("two_counts", 2, (16, 12, 8)),
+            ("large_mean", 2, (16, 12, 8)))
+GN_DIMS = (64, 48, 32)                  # every case's dims fit in these
+
+
+def gn_case(name, C=8, G=2):
+    """(x [B, C, *dims], mask [B, 1, *dims] in {0, 1}, skip [B, C, *dims],
+    weight [C], bias [C], groups), fp32, NCDHW as the kernel takes them;
+    x and skip are zero where the mask is (the U-Net's inputs are)."""
+    names = [c[0] for c in GN_CASES]
+    _, B, dims = GN_CASES[names.index(name)]
+    rng = np.random.default_rng(300 + names.index(name))
+    active = {"two_counts": None, "empty": 0.0}.get(name, 0.3)
+    if name == "one_voxel":
+        mask = np.array([1.0, 0.0])[:, None, None, None, None] \
+            * np.ones((B, 1, *dims))
+    elif name == "two_counts":
+        mask = np.stack([rng.uniform(size=(1, *dims)) < p
+                         for p in (0.9, 0.05)])
+    elif name == "one_active":
+        mask = np.zeros((B, 1, *dims))
+        mask[0, 0, 3, 5, 2] = 1.0
+        mask[1, 0, 15, 11, 7] = 1.0
+    else:
+        mask = rng.uniform(size=(B, 1, *dims)) < active
+    mask = mask.astype(np.float32)
+    mean, spread = (30.0, 1.0) if name == "large_mean" else (1.0, 2.0)
+    x = (rng.normal(mean, spread, (B, C, *dims)) * mask).astype(np.float32)
+    skip = (rng.normal(size=(B, C, *dims)) * mask).astype(np.float32)
+    # one affine for every case (the CPU tests' JAX call takes one)
+    wb = np.random.default_rng(399).normal(size=(2, C)).astype(np.float32)
+    return x, mask, skip, wb[0], wb[1], G
 
 
 SCATTER_CASES = ("no_valid", "all_valid", "last_cells", "three_scenes")

@@ -1144,3 +1144,118 @@ def test_patch_fan_variance_kernel_matches_twin_at_edges(name, C):
     want = patch_fan_variance_ref(*(a.cpu() if torch.is_tensor(a) else a
                                     for a in args))
     _variance_check(got.cpu(), want, 1e-5)
+
+
+# ------------------------------ the sampling forward and the GroupNorm forward
+def _tri_forward(case, C, device):
+    import _kernel_edge_cases as E
+
+    return [torch.from_numpy(a).to(device) if isinstance(a, np.ndarray)
+            else a for a in E.trilinear_forward_case(case, C)]
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN included."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4, 12, 64, 128, 256])
+@pytest.mark.parametrize("case", ["brick_faces", "grid_edges", "nonfinite",
+                                  "one_cell", "no_points", "four_channels",
+                                  "anchor_runs", "alternating", "ragged"])
+def test_trilinear_forward_kernel_matches_twin_at_edges(case, C):
+    """K6's forward against its twin on the edge inputs, written into a
+    channel slice of a wider output whose other channels stay untouched:
+    within 1e-5 of the twin's largest, NaN for NaN. C = 12 leaves a lane of
+    every four idle, C = 256 walks the channels in two slices of 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels.trilinear import (trilinear_sample,
+                                                trilinear_sample_ref)
+
+    grid, pts, c0, cell = _tri_forward(case, C, "cuda")
+    B, Q = pts.shape[:2]
+    out = torch.full((B, Q, C + 8), 7.0, device="cuda")
+    trilinear_sample(grid, pts, c0, cell, out, 4)
+    want = trilinear_sample_ref(grid.cpu(), pts.cpu(), c0.cpu(), cell)
+    got = out[..., 4:4 + C].cpu()
+    assert (out[..., :4] == 7).all() and (out[..., 4 + C:] == 7).all()
+    _variance_check(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4, 64, 128])
+@pytest.mark.parametrize("case", ["anchor_runs", "alternating", "ragged",
+                                  "grid_edges", "nonfinite"])
+def test_trilinear_forward_does_not_depend_on_anchor_runs(case, C):
+    """Each query's samples are the same bits whether its neighbours share
+    its anchor (the kernel then keeps the taps it holds) or not: the
+    queries sampled in a shuffled order, un-shuffled, equal the samples in
+    their own order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels.trilinear import trilinear_sample
+
+    grid, pts, c0, cell = _tri_forward(case, C, "cuda")
+    B, Q = pts.shape[:2]
+    perm = torch.randperm(Q, generator=torch.Generator().manual_seed(3))
+    perm = perm.to("cuda")
+    a = trilinear_sample(grid, pts, c0, cell,
+                         torch.empty(B, Q, C, device="cuda"), 0)
+    b = trilinear_sample(grid, pts[:, perm].contiguous(), c0, cell,
+                         torch.empty(B, Q, C, device="cuda"), 0)
+    back = torch.empty_like(b)
+    back[:, perm] = b
+    assert _same_bits(a, back)
+
+
+def _gn_inputs(name, C, G, device):
+    import _kernel_edge_cases as E
+
+    x, mask, skip, w, b, G = E.gn_case(name, C, G)
+    return [torch.from_numpy(a).to(device) for a in (x, mask, skip, w, b)] \
+        + [G]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,G", [(8, 2), (64, 4), (128, 8)])
+@pytest.mark.parametrize("name", ["one_voxel", "ragged", "level2", "level1",
+                                  "level0", "one_active", "empty",
+                                  "two_counts", "large_mean"])
+def test_masked_group_norm_kernel_matches_twin_at_edges(name, C, G):
+    """K5's forward against its twin on the edge inputs, at the CPU tests'
+    width and at the U-Net's (C/G = 16), in the three tails: within 1e-4 of
+    the twin's largest (the float64 sums run in another order), zero where
+    the mask is, the same bits when called again (a fixed reduction order,
+    whichever statistics block finishes last), and statistics (mean, rstd)
+    within one fp32 ulp of the float64 twin's, counts equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import groupnorm as K
+
+    x, mask, skip, w, b, G = _gn_inputs(name, C, G, "cuda")
+    B = x.shape[0]
+    for kw in ({}, {"relu": True}, {"skip": skip}):
+        got, stats = K._masked_group_norm(x, mask, G, w, b, 1e-5,
+                                          kw.get("relu", False),
+                                          kw.get("skip"))
+        want = K.masked_group_norm_ref(x.cpu(), mask.cpu(), G, w.cpu(),
+                                       b.cpu(), **{k: v.cpu() if
+                                                   torch.is_tensor(v) else v
+                                                   for k, v in kw.items()})
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) <= tol, list(kw)
+        assert not (got * (1 - mask)).any()
+        again, stats2 = K._masked_group_norm(x, mask, G, w, b, 1e-5,
+                                             kw.get("relu", False),
+                                             kw.get("skip"))
+        assert _same_bits(got, again) and _same_bits(stats, stats2)
+    _, mean, var, cnt = K._group_stats(x.cpu().double(), mask.cpu(), G)
+    rstd = torch.rsqrt(var.clamp(min=0.0) + 1e-5)
+    ref = torch.stack([mean.reshape(-1), rstd.reshape(-1)], -1).float()
+    bits = lambda a: a.contiguous().view(torch.int32).long()
+    assert int((bits(stats[:, :2].cpu()) - bits(ref)).abs().max()) <= 1
+    assert torch.equal(stats[:, 2].cpu(),
+                       cnt.expand(B, G).reshape(-1).float())

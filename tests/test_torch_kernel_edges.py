@@ -234,3 +234,140 @@ def test_patch_fan_variance_ref_matches_jax_at_edges(name):
         assert fin.all()
     assert np.abs(got[fin]).max() > 0.1
 
+
+
+# --------------------------------------------- the trilinear sampling forward
+@pytest.fixture(scope="module")
+def jax_forward_samples():
+    """The JAX package's `trilinear_sample` of every forward case on the
+    128-channel grid, in one jitted call: {case: [B, Q, 128]}. The node
+    coordinates (pts - center0) / cell are IEEE fp32 operations, the same
+    in numpy as in JAX."""
+    from tdvnet.ops.sampling import trilinear_sample_batched
+
+    qs, sizes = [], {}
+    for case in E.TRILINEAR_FORWARD_CASES:
+        _, pts, c0, cell = E.trilinear_forward_case(case, 4)
+        qs.append(((pts - c0[:, None]) / np.float32(cell)).astype(np.float32))
+        sizes[case] = pts.shape[1]
+    got = np.asarray(jax.jit(trilinear_sample_batched)(
+        jnp.asarray(E.forward_grid(128)), jnp.asarray(np.concatenate(qs, 1))))
+    out, q0 = {}, 0
+    for case, q in sizes.items():
+        out[case] = got[:, q0:q0 + q]
+        q0 += q
+    return out
+
+
+@pytest.mark.parametrize("case", E.TRILINEAR_FORWARD_CASES)
+def test_trilinear_forward_ref_matches_jax_at_edges(case,
+                                                     jax_forward_samples):
+    """K6's twin against the JAX package's `trilinear_sample` on the
+    forward's edge inputs (the backward's cases; runs of one anchor; anchors
+    that alternate, some with one cell index and other taps; B * Q not a
+    multiple of a tile) at C = 4, 64 and 128: within 1e-6 of the largest
+    sample (the same products and sums in the same order). The twin gives
+    NaN exactly where a coordinate is not finite (the port's rule); jitted
+    XLA gives 0 for an infinite one and NaN for NaN, so the twin's NaN must
+    cover JAX's, and the two are compared where the twin is finite."""
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_ref
+
+    for C in E.TRILINEAR_FORWARD_CHANNELS:
+        grid, pts, c0, cell = E.trilinear_forward_case(case, C)
+        got = n(trilinear_sample_ref(t(grid), t(pts), t(c0), cell))
+        want = jax_forward_samples[case][..., :C]
+        assert got.shape == want.shape == (*pts.shape[:2], C)
+        nan = ~E.finite_points(pts)[..., None].repeat(C, -1)
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        assert not np.isnan(want[~nan]).any()
+        fin = ~nan
+        if fin.any():
+            scale = max(1.0, float(np.abs(want[fin]).max()))
+            assert np.abs(got[fin] - want[fin]).max() <= 1e-6 * scale
+    if case == "nonfinite":
+        assert nan.any() and fin.any()
+    if case == "grid_edges":
+        assert (got == 0).all(-1).any()          # queries wholly outside
+
+
+# ------------------------------------------------------ the masked GroupNorm
+def _gn_f64(x, mask, skip, w, b, G, eps=1e-5):
+    """The three tails of the masked GroupNorm in float64 numpy (NCDHW)."""
+    B, C = x.shape[:2]
+    xg = x.reshape(B, G, -1).astype(np.float64)
+    m = np.broadcast_to(mask.reshape(B, 1, 1, -1).astype(np.float64),
+                        (B, 1, C // G, mask[0].size)).reshape(B, 1, -1)
+    cnt = np.maximum(m.sum(-1), 1.0)
+    mean = (xg * m).sum(-1) / cnt
+    var = np.maximum((xg * xg * m).sum(-1) / cnt - mean ** 2, 0.0)
+    xn = ((xg - mean[..., None]) / np.sqrt(var[..., None] + eps))
+    shape = (1, C) + (1,) * (x.ndim - 2)
+    y = (xn.reshape(x.shape) * w.reshape(shape) + b.reshape(shape)) * mask
+    return (y, np.maximum(y, 0) * mask, np.maximum(y + skip, 0) * mask)
+
+
+@pytest.fixture(scope="module")
+def jax_group_norms():
+    """The JAX package's `masked_group_norm` and its two U-Net tails on
+    every case, in one jitted call: the cases stacked along the batch, each
+    padded to GN_DIMS with inactive voxels (statistics run over the active
+    voxels only, so the padding adds nothing): {case: (none, relu, skip)}
+    NCDHW at the case's own dims."""
+    from tdvnet.models.layers import masked_group_norm as J
+
+    cases = {c[0]: E.gn_case(c[0]) for c in E.GN_CASES}
+    _, _, _, w, b, G = next(iter(cases.values()))
+    rows = sum(c[0].shape[0] for c in cases.values())
+    C = w.shape[0]
+    xs = np.zeros((rows, *E.GN_DIMS, C), np.float32)
+    ms = np.zeros((rows, *E.GN_DIMS, 1), np.float32)
+    ss = np.zeros_like(xs)
+    r0, at = 0, {}
+    for name, (x, mask, skip, _, _, _) in cases.items():
+        B, dims = x.shape[0], x.shape[2:]
+        sl = (slice(r0, r0 + B),) + tuple(slice(0, d) for d in dims)
+        cl = lambda a: np.moveaxis(a, 1, -1)
+        xs[sl], ms[sl], ss[sl] = cl(x), cl(mask), cl(skip)
+        at[name] = sl
+        r0 += B
+
+    def tails(x, m, s):
+        y = J(x, m, G, jnp.asarray(w), jnp.asarray(b))
+        return y, jax.nn.relu(y) * m, jax.nn.relu(y + s) * m
+
+    got = [np.asarray(a) for a in jax.jit(tails)(xs, ms, ss)]
+    return {name: tuple(np.moveaxis(a[sl], -1, 1) for a in got)
+            for name, sl in at.items()}
+
+
+@pytest.mark.parametrize("name", [c[0] for c in E.GN_CASES])
+def test_masked_group_norm_ref_matches_jax_at_edges(name, jax_group_norms):
+    """K5's twin against the JAX package's `masked_group_norm` (and the
+    U-Net's `relu(y) * mask` and `relu(y + skip) * mask` tails) on the
+    kernel's edge inputs: V = 1, V % 4 != 0, the scene U-Net's three level
+    sizes, one active voxel, an empty mask, two scenes with different
+    counts, a mean large against its spread. Within 1e-5 of the largest
+    output (fp32 statistics against float64 ones), except where the mean is
+    large: there the JAX package's one-pass fp32 variance is the less exact
+    side, so the twin must lie within 1e-6 of a float64 numpy reference and
+    no further from JAX than that reference does (plus 1e-6)."""
+    from tdvnet_torch.kernels.groupnorm import masked_group_norm_ref
+
+    x, mask, skip, w, b, G = E.gn_case(name)
+    f64 = _gn_f64(x, mask, skip, w, b, G)
+    for i, kw in enumerate(({}, {"relu": True}, {"skip": t(skip)})):
+        got = n(masked_group_norm_ref(t(x), t(mask), G, t(w), t(b), **kw))
+        want = jax_group_norms[name][i]
+        assert got.shape == want.shape == x.shape
+        scale = max(1.0, float(np.abs(f64[i]).max()))
+        assert np.abs(got - f64[i]).max() <= 1e-6 * scale
+        if name == "large_mean":
+            jax_err = np.abs(want - f64[i]).max()
+            assert np.abs(got - want).max() <= jax_err + 1e-6 * scale
+            assert jax_err > 1e-5 * scale     # the cancellation shows
+        else:
+            assert np.abs(got - want).max() <= 1e-5 * scale
+        # inactive voxels read 0 in every tail
+        assert not (got * (1 - mask)).any()
+    if name == "empty":
+        assert not got.any()
