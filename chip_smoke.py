@@ -43,8 +43,14 @@ Phases (any failure exits non-zero):
      n_iters=1: the variance at the scene cloud and the hypotheses, the
      dense scatter, the pools and concat-backs, the masked GroupNorm, the
      scene sampling, on uniform points and on one offset pass of the golden
-     batch's n_iters=1 step as it reaches the backward), and the source
-     variance's kernel and fp32 twin against its twin in float64; (b) three n_iters=0 steps and three
+     batch's n_iters=1 step as it reaches the backward; the order-free
+     ones also for the same bits on a second launch and with their points
+     shuffled), and the source variance's kernel and fp32 twin against its
+     twin in float64; (b'') two fresh runs of three n_iters=0 and three
+     n_iters=1 steps whose every parameter, gradient, Adam moment,
+     BatchNorm statistic and loss must repeat bit for bit (else the first
+     leaf that moved, in backward order, is named); (b) three n_iters=0
+     steps and three
      n_iters=1 steps (at the epoch-5 lambda) each against a float64 referee
      on the card and against its JAX golden
      (`tests/data/torch_golden_train_synth48.npz`,
@@ -228,11 +234,12 @@ GOLDEN_REFINE_GRAD_REL = {
 GOLDEN_REFINE_STATS_REL = 6e-3
 # the n_iters >= 1 steps against the float64 referee: TRAIN_GRAD_REL, but
 # for the quantities behind the PointNet's max pools. The fp32 step's
-# initial depth differs run to run (1e-6 in the loss) and from float64's;
-# the PointNet amplifies its points' noise (1.8e-6 m) to 3.4e-3 in its
-# activations, and 167 to 301 of a pool's 5.6M (row, channel) maxima then
-# sit on another row than in float64, which routes their gradient
-# elsewhere. Readings of two runs on the H100 80GB HBM3 at 700 W
+# initial depth differs from float64's (1e-6 in the loss; it repeats bit
+# for bit from run to run since the backward sums in fixed point, phase
+# 9b''); the PointNet amplifies its points' rounding (1.8e-6 m) to 3.4e-3
+# in its activations, and 167 to 301 of a pool's 5.6M (row, channel)
+# maxima then sit on another row than in float64, which routes their
+# gradient elsewhere. Readings of two runs on the H100 80GB HBM3 at 700 W
 # (n_iters=1; n_iters=2 lower; PERF.md, section 6):
 REFEREE_REFINE_GRAD_REL = {
     "": TRAIN_GRAD_REL,
@@ -252,16 +259,17 @@ CONTROL_LR = 1.01
 # backward kernels against their twins, relative to the twin's largest
 # magnitude; the variance backward's wider: the kernel's projection rounds
 # apart from the twin's matmul (a tap's weight moves by an ulp of the
-# coordinate), and its atomics sum in a run-dependent order. Against the
+# coordinate), and it sums in another order (fixed point) than the twin's
+# index_add_. Against the
 # twin in float64 with float64 geometry the kernel is as close as the fp32
 # twin (1.4e-5 to 3.4e-5 of the largest, both); kernel and twin read
 # 2.4e-5 (cost volume), 4.1e-5 (scene cloud) and 2.3e-5 (hypotheses) apart
 # on the H100 80GB HBM3 at 700 W (PERF.md, section 6)
 BACKWARD_TOL = 1e-5
 VARIANCE_BACKWARD_TOL = 6e-5
-# a backward kernel whose sums run on atomics in a run-dependent order
-# against a twin whose sums do too (index_add_ on the card), where many
-# terms meet in one element
+# a backward kernel that sums in fixed point (the same bits every run)
+# against a twin whose sums run on float atomics in a run-dependent order
+# (index_add_ on the card), where many terms meet in one element
 ATOMIC_BACKWARD_TOL = 1e-4
 
 # kernel -> (source, the TPU op it replaces, its wrappers in
@@ -436,14 +444,19 @@ class Case:
     the flops it does, its tolerance (0: every output tensor equal;
     BF16_ULP: every element within one bf16 ulp), and where one exists a
     single PyTorch call computing the same function. `run` and `ref`
-    return a tensor or a tuple of tensors."""
+    return a tensor or a tuple of tensors. With `repeat`, a second launch
+    must give the same bits; `shuffled`, where given, runs the kernel on
+    the inputs with their points in another order and returns the result
+    in the first order, which must be the same bits too."""
 
     def __init__(self, kernel, label, per_infer, run, ref, tol, nbytes,
-                 flops, library=None, path="infer_depth"):
+                 flops, library=None, path="infer_depth", repeat=False,
+                 shuffled=None):
         self.kernel, self.label, self.per_infer = kernel, label, per_infer
         self.run, self.ref, self.tol = run, ref, tol
         self.nbytes, self.flops, self.library = nbytes, flops, library
         self.path = path
+        self.repeat, self.shuffled = repeat, shuffled
 
     @property
     def bound_ms(self):
@@ -722,9 +735,10 @@ def kernel_cases(device, seed=0):
         args = (pts, feats, b.src_idx, b.src_mask, P_all, cfg.img_size)
         nbytes = 4 * (pts.numel() + feats.numel() + R * P * f + P_all.numel()
                       + R * S * 3)
+        plane = dc.size
         flops = (active / R) * R * P * (24 + 11 * f) + R * P * f * 4
         cases.append(Case("source_variance", label, per_infer,
-                          lambda a=args: source_variance(*a),
+                          lambda a=args, pl=plane: source_variance(*a, pl),
                           lambda a=args: source_variance_ref(*a),
                           1e-4, nbytes, flops))
 
@@ -831,7 +845,7 @@ def scene_cases(device, gen):
         S, f = src_idx.shape[1], feats.shape[-1]
         cases.append(Case(
             "source_variance", f"{name} [{R},{P},{f}] x {S} sources", per,
-            lambda a=args: source_variance(*a),
+            lambda a=args, pl=(1, P): source_variance(*a, pl),
             lambda a=args: source_variance_ref(*a), 1e-4,
             variance_bytes(args),
             R * S * P * (24 + 11 * f) + R * P * f * 4, path="scene"))
@@ -1017,8 +1031,18 @@ def check_case(case):
 
     got, want = case.run(), case.ref()
     torch.cuda.synchronize()
+    same = True
+    for what, again in (("a second launch", case.run if case.repeat
+                         else None),
+                        ("shuffled points", case.shuffled)):
+        if again is not None:
+            moved = not same_bits(got, again())
+            if moved:
+                log(f"  {case.kernel} {case.label}: {what} moved bits")
+            same &= not moved
     if callable(case.tol):
-        return case.tol(got, want)
+        err, ok = case.tol(got, want)
+        return err, ok and same
     if isinstance(got, torch.Tensor):
         got, want = (got,), (want,)
     err, ok = 0.0, len(got) == len(want)
@@ -1041,7 +1065,28 @@ def check_case(case):
             scale = max(1.0, float(b.abs().max()))
             ok &= d <= case.tol * scale
             case.rel_err = max(getattr(case, "rel_err", 0.0), d / scale)
-    return err, bool(ok)
+    return err, bool(ok and same)
+
+
+def same_bits(a, b):
+    """Whether two results (tensors or tuples of them) hold the same bits,
+    NaN payloads included."""
+    import torch
+
+    if torch.is_tensor(a):
+        a, b = (a,), (b,)
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        if x.is_floating_point():
+            x = x.contiguous().view(torch.int32 if x.element_size() == 4
+                                    else torch.int64)
+            y = y.contiguous().view(x.dtype)
+        if not torch.equal(x, y):
+            return False
+    return True
 
 
 def kernel_phase(device, cases=None):
@@ -1403,6 +1448,45 @@ def profile_phase(run, what, card, prefix="stage_"):
 
 
 # ------------------------------------------------------------------ training
+def shuffled_points(seed=99):
+    """A permutation maker for the order-free checks: perm(n, device), from
+    its own generator so that the cases' seeded inputs stay as they were."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return lambda n, device: torch.randperm(n, generator=gen).to(device)
+
+
+def variance_backward_case(label, per_step, args, path, perm, plane):
+    """K1's backward at `args` (grad, mean, pts, feats, src_idx, src_mask,
+    P_all, img_size) and `plane` as the main path calls it, checked for the
+    same bits on a second launch and with the points shuffled (the same
+    plane tiling then groups other points)."""
+    from tdvnet_torch.kernels import source_variance_backward
+    from tdvnet_torch.kernels.variance import source_variance_backward_ref
+
+    g, mean, pts, feats, sidx, smask, P_all, img = args
+    R, P, f = g.shape
+    S = sidx.shape[1]
+    active = float(smask.sum())
+
+    def shuffled(a=args):
+        i = perm(P, g.device)
+        return source_variance_backward(
+            a[0][:, i].contiguous(), a[1][:, i].contiguous(),
+            a[2][:, i].contiguous(), *a[3:], plane)
+
+    return Case(
+        "source_variance_backward", label, per_step,
+        lambda a=args: source_variance_backward(*a, plane),
+        lambda a=args: source_variance_backward_ref(*a),
+        VARIANCE_BACKWARD_TOL,
+        4 * (2 * R * P * f + 2 * feats.numel() + pts.numel() + P_all.numel()
+             + R * S * 3),
+        (active / R) * R * P * (24 + 19 * f), path=path, repeat=True,
+        shuffled=shuffled)
+
+
 def train_cases(device, seed=1):
     """The three backward kernels at the shapes the full-width n_iters=0
     train step gives them, on the golden batch's cameras with seeded
@@ -1412,14 +1496,12 @@ def train_cases(device, seed=1):
 
     from tdvnet_torch.config import ModelConfig
     from tdvnet_torch.kernels import (propagation_blend_backward,
-                                      softargmax_depth_backward,
-                                      source_variance_backward)
+                                      softargmax_depth_backward)
     from tdvnet_torch.kernels.propagation import (
         propagation_blend_backward_ref, propagation_blend_ref)
     from tdvnet_torch.kernels.softargmax import (
         softargmax_depth_backward_ref, softargmax_depth_ref)
-    from tdvnet_torch.kernels.variance import (source_variance_backward_ref,
-                                               source_variance_ref)
+    from tdvnet_torch.kernels.variance import source_variance_ref
     from tdvnet_torch.ops import camera
 
     cfg = ModelConfig()
@@ -1427,12 +1509,11 @@ def train_cases(device, seed=1):
     gen = torch.Generator().manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=gen).to(device)
     b = golden_batch(GOLDEN_SEEDS).to(device)
-    R, S = b.src_idx.shape
+    R = b.src_idx.shape[0]
     N = b.n_imgs
     H, W = cfg.img_size
     f = cfg.feat_dim
     ri = b.ref_idx
-    active = float(b.src_mask.sum())
     cases = []
 
     feats = rnd(N, H // 4, W // 4, f).contiguous()
@@ -1446,16 +1527,10 @@ def train_cases(device, seed=1):
     g = rnd(R, P, f)
     args = (g, mean, pts, feats, b.src_idx, b.src_mask, P_all, cfg.img_size)
     hw = f"{dc.size[0]}*{dc.size[1]}"
-    cases.append(Case(
-        "source_variance_backward",
+    cases.append(variance_backward_case(
         f"cost volume [{R},{dc.n_intervals}*{hw},{f}] -> [{N},{H // 4},"
-        f"{W // 4},{f}]", 1,
-        lambda a=args: source_variance_backward(*a),
-        lambda a=args: source_variance_backward_ref(*a),
-        VARIANCE_BACKWARD_TOL,
-        4 * (2 * R * P * f + 2 * feats.numel() + pts.numel()
-             + P_all.numel() + R * S * 3),
-        (active / R) * R * P * (24 + 19 * f), path="train"))
+        f"{W // 4},{f}]", 1, args, "train", shuffled_points(),
+        plane=dc.size))
 
     D = dc.n_intervals
     cost = (rnd(R, D, *dc.size) * 3).contiguous()
@@ -1501,14 +1576,12 @@ def train_refine_cases(device, seed=2, real=()):
                                       masked_group_norm_backward,
                                       scatter_anchors_to_dense_backward,
                                       segment_max, segment_max_backward,
-                                      source_variance_backward,
                                       trilinear_sample_backward)
     from tdvnet_torch.kernels import groupnorm, voxelize as vox
     from tdvnet_torch.kernels.segmax import (gather_concat_backward_ref,
                                              segment_max_backward_ref)
     from tdvnet_torch.kernels.trilinear import trilinear_sample_backward_ref
-    from tdvnet_torch.kernels.variance import (source_variance_backward_ref,
-                                               source_variance_ref)
+    from tdvnet_torch.kernels.variance import source_variance_ref
     from tdvnet_torch.ops import camera
     from tdvnet_torch.tools.time_k6_backward import (backward_bytes,
                                                      uniform_points)
@@ -1519,15 +1592,15 @@ def train_refine_cases(device, seed=2, real=()):
     gen = torch.Generator().manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=gen).to(device)
     b = golden_batch(GOLDEN_SEEDS).to(device)
-    R, S = b.src_idx.shape
+    R = b.src_idx.shape[0]
     N, B = b.n_imgs, b.n_scenes
     H, W = cfg.img_size
     f = cfg.feat_dim
     ri = b.ref_idx
-    active = float(b.src_mask.sum())
     hw = f"{dc.size[0]}*{dc.size[1]}"
     P_ref = dc.size[0] * dc.size[1]
     cases = []
+    perm = shuffled_points()
 
     # K2: the variance's backward at the scene cloud (one point per pixel)
     # and the hypotheses (seven), on plane-sweep points of those counts
@@ -1546,14 +1619,8 @@ def train_refine_cases(device, seed=2, real=()):
                                       P_all, cfg.img_size, with_mean=True)
         args = (rnd(R, P, f), mean, pts, feats, b.src_idx, b.src_mask, P_all,
                 cfg.img_size)
-        cases.append(Case(
-            "source_variance_backward", label, per_step,
-            lambda a=args: source_variance_backward(*a),
-            lambda a=args: source_variance_backward_ref(*a),
-            VARIANCE_BACKWARD_TOL,
-            4 * (2 * R * P * f + 2 * feats.numel() + pts.numel()
-                 + P_all.numel() + R * S * 3),
-            (active / R) * R * P * (24 + 19 * f), path="train1"))
+        cases.append(variance_backward_case(label, per_step, args, "train1",
+                                            perm, plane=dc.size))
 
     # the scene modelling of the step: the scene cloud's points voxelized
     # into the batch grid (seeded points in a box a little larger than it)
@@ -1594,10 +1661,17 @@ def train_refine_cases(device, seed=2, real=()):
         lambda a=margs: segment_max_backward(*a),
         lambda a=margs: segment_max_backward_ref(*a), BACKWARD_TOL,
         P * (4 * C + 8 + 1) + 2 * min(P, n_seg) * 4 * C + P * 4 * C, P * C,
-        path="train1"))
-    # its segment sum runs on atomics in a run-dependent order, as the twin's
-    # index_add_ on the card does; here the dump slot sums the ~27k points
-    # that overflow the anchors (1.95e-3 absolute in a sum of that size)
+        path="train1", repeat=True))
+    # its segment sum is an integer sum (fixed point); the twin's index_add_
+    # on the card runs on float atomics in a run-dependent order; here the
+    # dump slot sums the ~27k points that overflow the anchors
+
+    def concat_shuffled(a):
+        i = perm(P, device)
+        gy, gp = gather_concat_backward(a[0][i], a[1][i], a[2], a[3][i],
+                                        a[4])
+        return torch.empty_like(gy).index_copy_(0, i, gy), gp
+
     cargs = (rnd(P, 2 * C), y, pooled, p2a, True)
     cases.append(Case(
         "segment_max_backward", f"concat-back [{P},{2 * C}] -> [{P},{C}] + "
@@ -1605,7 +1679,8 @@ def train_refine_cases(device, seed=2, real=()):
         lambda a=cargs: gather_concat_backward(*a),
         lambda a=cargs: gather_concat_backward_ref(*a), ATOMIC_BACKWARD_TOL,
         P * (8 * C + 4 * C + 8) + min(P, n_seg) * 4 * C * 2 + P * 4 * C,
-        P * 2 * C, path="train1"))
+        P * 2 * C, path="train1", repeat=True,
+        shuffled=lambda a=cargs: concat_shuffled(a)))
 
     # the masked GroupNorm's backward at the three U-Net levels, both tails,
     # on the forward kernel's own output and statistics
@@ -1630,13 +1705,16 @@ def train_refine_cases(device, seed=2, real=()):
             cases.append(Case(
                 "masked_group_norm_backward",
                 f"{tail} [{B},{C},{dims[0]}^3] G={G}", count,
-                lambda a=a, kw=kw: some(masked_group_norm_backward(*a, **kw)),
+                # with the bias, as the main path calls it (the ReLU seen
+                # from the recomputed forward)
+                lambda a=a, kw=kw, bias=bias: some(
+                    masked_group_norm_backward(*a, **kw, bias=bias)),
                 lambda a=a, kw=kw: some(
                     groupnorm.masked_group_norm_backward_ref(
                         *a[:6], a[7], **kw)),
                 BACKWARD_TOL,
                 4 * (B * C * V * (3 + n_out) + B * V + 3 * C + B * G * 4),
-                B * C * V * 16, path="train1"))
+                B * C * V * 16, path="train1", repeat=True))
 
     def sampling_case(label, gq, pts_q, center0, cell, shape, path):
         B, X, Y, Z, C = shape
@@ -1648,6 +1726,12 @@ def train_refine_cases(device, seed=2, real=()):
         gs_g = gq.permute(0, 2, 1).reshape(B, C, -1, 1, 1)
         targs = (gq, pts_q, center0, cell, shape)
         Q = pts_q.shape[1]
+
+        def shuffled(a=targs):
+            i = perm(Q, device)
+            return trilinear_sample_backward(a[0][:, i].contiguous(),
+                                             a[1][:, i].contiguous(), *a[2:])
+
         return Case(
             "trilinear_sample_backward",
             f"{label} s={round(cell / edge)} [{B},{Q},{C}] -> "
@@ -1660,7 +1744,7 @@ def train_refine_cases(device, seed=2, real=()):
                 F.grid_sample(a[0], a[1], mode="bilinear",
                               padding_mode="zeros", align_corners=True),
                 a[0], a[2]),
-            path=path)
+            path=path, repeat=True, shuffled=shuffled)
 
     # the three scales' sampling backward at the hypotheses of one offset
     # pass (queries over the grid and a margin around it)
@@ -1750,7 +1834,7 @@ def variance_reading(device, seed=3):
         t_var, t_mean = source_variance_ref(*a32, with_mean=True)
         d_var, d_mean = source_variance_ref(*a64, with_mean=True)
         g_var, g_mean = source_variance_ref(*ag, with_mean=True)
-        k_bw = source_variance_backward(g, k_mean, *a32)
+        k_bw = source_variance_backward(g, k_mean, *a32, dc.size)
         t_bw = source_variance_backward_ref(g, t_mean, *a32)
         d_bw = source_variance_backward_ref(g.double(), d_mean, *a64)
         g_bw = source_variance_backward_ref(g.double(), g_mean, *ag)
@@ -2086,7 +2170,8 @@ def float64_twins():
         (mvsnet, "softargmax_depth", softargmax_depth_ref),
         (upsampling, "propagation_blend", propagation_blend_ref),
         (costvolume, "source_variance",
-         lambda pts, *a: source_variance_ref(fp32(pts), *a)),
+         lambda pts, feats, sidx, smask, P_all, img, plane:
+         source_variance_ref(fp32(pts), feats, sidx, smask, P_all, img)),
         (vox, "voxelize", lambda pts, *a: voxelize_ref(fp32(pts), *a)),
         (vox, "scatter_anchors_to_dense", scatter_anchors_to_dense_ref),
         (pointnet, "segment_max", segment_max_ref),
@@ -2353,6 +2438,79 @@ def repeat_phase(cfg, batch, lam, device, n_iters):
     return ok
 
 
+def train_run_record(cfg, batch, device, run):
+    """`run.steps` steps of `make_train_step` at `run.n_iters` from freshly
+    loaded weights: the losses of each step, and after the last every
+    parameter, gradient, Adam moment and buffer (the BatchNorm statistics),
+    with the order in which the last backward finished the parameters'
+    gradients."""
+    import torch
+
+    from tdvnet_torch.train import loop as L
+    from tdvnet_torch.weights import load_threedvnet
+
+    lam = L.lambda_for_epoch(cfg, run.epoch)
+    model = load_threedvnet(WEIGHTS, device=device)
+    state = L.TrainState(model, L.make_optimizer(cfg, model, 1))
+    step = L.make_train_step(model, cfg, run.n_iters)
+    order = []
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, k=k: order.append(k))
+        for k, p in model.named_parameters() if p.requires_grad]
+    leaves = {}
+    for i in range(run.steps):
+        order.clear()
+        _, mets = step(state, batch, lam)
+        leaves[f"step {i + 1} loss"] = mets["loss"].clone()
+        leaves[f"step {i + 1} loss_2d"] = mets["loss_2d"].clone()
+    for h in hooks:
+        h.remove()
+    adam = state.optimizer.adam.state
+    for k, p in model.named_parameters():
+        leaves[f"parameter {k}"] = p.detach().clone()
+        if p.grad is not None:
+            leaves[f"gradient {k}"] = p.grad.clone()
+        for m in ("exp_avg", "exp_avg_sq"):
+            if m in adam.get(p, {}):
+                leaves[f"Adam {m} {k}"] = adam[p][m].clone()
+    for k, t in model.named_buffers():
+        leaves[f"buffer {k}"] = t.clone()
+    del state, step, model
+    return leaves, list(dict.fromkeys(order))
+
+
+def train_repeat_phase(cfg, batch, device):
+    """Phase 9b'': two fresh runs from freshly loaded weights, each the
+    golden steps at n_iters 0 and 1: every parameter, gradient, Adam moment,
+    BatchNorm statistic and loss must be the same bits in both, or the first
+    leaf that moved is named, in the order the backward finished the
+    parameters' gradients (then the losses, then the rest)."""
+    import torch
+
+    ok = True
+    for run in TRAIN_RUNS[:2]:
+        (a, order), (b, _) = (train_run_record(cfg, batch, device, run)
+                              for _ in range(2))
+        torch.cuda.empty_cache()
+        moved = [k for k in a if k not in b or not same_bits(a[k], b[k])]
+        first = None
+        for k in order:
+            for what in ("gradient", "parameter", "Adam exp_avg",
+                         "Adam exp_avg_sq"):
+                if first is None and f"{what} {k}" in moved:
+                    first = f"{what} {k}"
+        first = first or (moved[0] if moved else None)
+        good = not moved and len(a) == len(b)
+        losses = [float(a[f"step {i + 1} loss"]) for i in range(run.steps)]
+        log(f"  two fresh runs of {run.steps} n_iters={run.n_iters} steps: "
+            f"losses {losses}; {len(moved)} of {len(a)} leaves moved"
+            + (f", the first in backward order {first}" if moved else "")
+            + f" {'ok' if good else 'FAIL'}")
+        ok &= good
+        del a, b
+    return ok
+
+
 def train_time_phase(state, step, batch, lam, card, n_iters):
     """TRAIN_TIMED warm steps, each timed on the host clock to a
     synchronise; peak device memory over them."""
@@ -2450,9 +2608,12 @@ def train_phase(device, card):
     v_ok, reading = variance_reading(device)
     cfg = Config()
     batch = golden_batch(GOLDEN_SEEDS).to(device)
+    log("phase 9b'': two fresh runs of the golden steps at n_iters 0 and 1 "
+        "must repeat bit for bit")
     out = {"kernels_ok": k_ok and v_ok, "per_kernel": per_kernel,
            "variance_reading": reading, "ok": {}, "counts": {},
-           "timing": {}, "trace": {}}
+           "timing": {}, "trace": {},
+           "repeat_ok": train_repeat_phase(cfg, batch, device)}
     for run in TRAIN_RUNS:
         lam = L.lambda_for_epoch(cfg, run.epoch)
         tag = "9b" if run.n_iters < 2 else "9b'"
@@ -2982,7 +3143,8 @@ def main():
               "backward kernels": train["kernels_ok"],
               "train n_iters=0": train["ok"][0],
               "train n_iters=1": train["ok"][1],
-              "train n_iters=2": train["ok"][2], "fit": train["fit_ok"],
+              "train n_iters=2": train["ok"][2],
+              "train repeats": train["repeat_ok"], "fit": train["fit_ok"],
               "probes": p_ok}
     if not all(phases.values()):
         return fail(json.dumps({k: v for k, v in phases.items() if not v}))

@@ -9,29 +9,56 @@
 // Math, per (b, g) with the forward's mean, rstd = rsqrt(max(var, 0) + eps)
 // and count n (its `stats`), xn = (x - mean) * rstd, the mask m in {0, 1}:
 //   g'  = g * m                      (mode 0: y = (xn w + b) m)
-//       = g * m * [out > 0]          (modes 1, 2: the ReLU, seen in the
-//                                     forward's output)
+//       = g * m * [y > 0]            (mode 1: the ReLU, y recomputed)
+//       = g * m * [out > 0]          (mode 2: the ReLU after the skip, seen
+//                                     in the forward's output)
 //   d skip = g'; d bias[c] = sum_{b, v} g'; d weight[c] = sum_{b, v} g' xn
 //   A = sum_{c in g, v} w[c] g', Bx = sum_{c in g, v} w[c] g' xn
 //   d x = rstd (w[c] g' - m (A + xn Bx [var >= 0]) / n)
 // (the mean and variance take their gradient from the active voxels only;
 // the clamp at 0 passes none below it).
 //
-// Bound on an H100: bytes. g, x, the output and the mask are read (twice:
-// the reductions, then the apply), d x and d skip written; at the finest
-// U-Net level [2, 64, 64^3] that is ~270 MB per call in the contract's
-// count (each input once, each output once), ~80 us.
+// Bound on an H100: bytes. g, x, the mask and (mode 2) the output read
+// once, d x and d skip written once: at the finest U-Net level of a train
+// step [2, 64, 64^3] ~270 MB (ReLU tail) to ~540 MB (skip tail) a call,
+// 80-160 us.
 //
-// Design, NCDHW as the forward:
-//   reduce    grid (chunks of V, B*C): a block sums g' and g' xn over its
-//             chunk of one channel; partials go to a [B*C, chunks, 2]
-//             scratch;
-//   channel   one warp per (b, c) adds the partials in a fixed order;
-//   finalize  one block: per channel d weight, d bias over b; per (b, g)
-//             A / n and Bx [var >= 0] / n over the group's channels, in a
-//             fixed order (no float atomics: repeatable run to run);
-//   apply     one thread per 4 voxels of a channel (16-byte accesses) when
-//             V % 4 == 0, else per voxel: d x and, in mode 2, d skip.
+// What held the first form (PERF.md section 6: 3.04 ms of an n_iters=1
+// step over 24 calls, 2.0x its bound): four launches a call
+// (reduce with one channel a block, a per-channel pass, a one-block
+// finalize, the apply); g, x and the output read twice from device memory
+// at the finest level (reduce, then apply: 137 + 169 us of a ReLU call);
+// the output read only to see where the ReLU passed; and at levels 1-2 a
+// host path of ~55 us a call against ~13 us on the device.
+//
+// Design, NCDHW as the forward, one cooperative launch a call: at most
+// as many blocks as the card holds at once, which the launch guarantees
+// are all resident (it fails, rather than hang, when they cannot be), each
+// taking the work items blockIdx.x, blockIdx.x + gridDim.x, ... in turn.
+// Items run (b, g) slice by slice, and a slice holds at most half the
+// resident blocks' items, so that a block waiting for its slice (below)
+// only waits for items that other blocks are sure to reach: every item
+// before it in its blocks' turns lies in an earlier slice.
+//   reduce   an item is VB voxels of a chunk of CC of a (b, g) slice's
+//            channels (CC from the group's size down until the items fill
+//            the card, VB up until a slice's items fit in half the
+//            resident blocks), and sums g' and g' xn per channel; the
+//            mode-1 ReLU is seen by recomputing the forward's y from x (its
+//            sign, bit for bit), not by reading the output;
+//   finalize the last item of a slice (a ticket) adds the slice's
+//            partials in index order, forms the (b, g) coefficients
+//            A / n and Bx [var >= 0] / n and publishes them with the call's
+//            epoch; the last slice of a group adds d weight and d bias over
+//            the batch in order. No float atomics: the same bits on every
+//            launch;
+//   apply    every item of the slice waits for its coefficients, then
+//            walks its voxels and channels again, in reverse, so that the
+//            data it read last (still in L2) comes first: d x and, in mode
+//            2, d skip.
+// Per-stream scratch (kernels/groupnorm.py `_BACKWARD_SCRATCH`): the
+// partials, per-(b, c) sums and coefficients, and the counters (zeroed
+// once; each launch leaves them zero: the last item of a slice and of a
+// group put theirs back).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -39,7 +66,32 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxCC = 32;                 // channels a block sums at most
+constexpr int kMaxGroup = 256;             // channels a group holds at most
 constexpr unsigned kFull = 0xffffffffu;
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+};
+template <>
+struct Vec<1> {
+  using T = float;
+};
+
+__device__ __forceinline__ float lane_of(float4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float lane_of(float v, int) { return v; }
+__device__ __forceinline__ void set_lane(float4& v, int j, float a) {
+  if (j == 0) v.x = a;
+  else if (j == 1) v.y = a;
+  else if (j == 2) v.z = a;
+  else v.w = a;
+}
+__device__ __forceinline__ void set_lane(float& v, int, float a) { v = a; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -47,184 +99,301 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// g' of one element: the gradient reaching (xn w + b)
-__device__ __forceinline__ float gprime(float g, float m, float out,
-                                        int mode) {
+struct Args {
+  const float *grad, *x, *mask, *out, *weight, *bias, *stats;
+  float *grad_x, *grad_w, *grad_b, *grad_skip;
+  float *partial, *chan, *coef;       // [B*G, n_vb, cg, 2], [B*C, 2], [B*G, 2]
+  unsigned* sync;                     // counters (see `Sync`), zero
+  unsigned* ready;                    // [B*G] the epoch each slice is at
+  unsigned epoch;
+  int B, C, G, CC, mode;
+  long long V, Vb;
+};
+
+// the counters, all zero between calls: per slice its arrivals, per group
+// its finished slices; and, apart (they keep their last epoch), per slice
+// its ready epoch
+struct Sync {
+  unsigned *arrive, *group_done, *ready;
+  __device__ Sync(unsigned* s, unsigned* r, int BG)
+      : arrive(s), group_done(s + BG), ready(r) {}
+};
+
+// g' of one element: the gradient reaching (xn w + b). In mode 1 the
+// forward's y = ((x - mean) * rstd * w + b) * m is recomputed (the same
+// expression, so the same bits) to see the ReLU; mode 2 reads the output.
+__device__ __forceinline__ float gprime(float g, float x, float m, float out,
+                                        float mean, float rstd, float w,
+                                        float bi, int mode) {
   const float gm = g * m;
-  return (mode == 0 || out > 0.f) ? gm : 0.f;
-}
-
-__global__ void masked_group_norm_backward_reduce_kernel(
-    const float* __restrict__ grad, const float* __restrict__ x,
-    const float* __restrict__ mask, const float* __restrict__ out,
-    const float* __restrict__ stats, float* __restrict__ partial, int C,
-    int G, long long V, int chunk, int n_chunks, int mode) {
-  __shared__ float smem[2][kThreads / 32];
-  const int bc = blockIdx.y;
-  const int b = bc / C, c = bc % C;
-  const int bg = b * G + c / (C / G);
-  const float mean = stats[bg * 4], rstd = stats[bg * 4 + 1];
-  const long long v0 = (long long)blockIdx.x * chunk;
-  const long long v1 = v0 + chunk < V ? v0 + chunk : V;
-  const long long row = (long long)bc * V;
-  const float* m = mask + (long long)b * V;
-  float sg = 0.f, sgx = 0.f;
-  for (long long v = v0 + threadIdx.x; v < v1; v += kThreads) {
-    const float gp = gprime(grad[row + v], m[v], out[row + v], mode);
-    sg += gp;
-    sgx += gp * ((x[row + v] - mean) * rstd);
+  if (mode == 0) return gm;
+  if (mode == 1) {
+    const float y = ((x - mean) * rstd * w + bi) * m;
+    return y > 0.f ? gm : 0.f;
   }
-  sg = warp_sum(sg);
-  sgx = warp_sum(sgx);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    smem[0][warp] = sg;
-    smem[1][warp] = sgx;
-  }
-  __syncthreads();
-  if (threadIdx.x < 2) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) t += smem[threadIdx.x][w];
-    partial[((long long)bc * n_chunks + blockIdx.x) * 2 + threadIdx.x] = t;
-  }
-}
-
-// one warp per (b, c): chan[bc] = (sum g', sum g' xn)
-__global__ void masked_group_norm_backward_channel_kernel(
-    const float* __restrict__ partial, float* __restrict__ chan,
-    int n_chunks) {
-  const int bc = blockIdx.x;
-  const int lane = threadIdx.x;
-  float sg = 0.f, sgx = 0.f;
-  for (int i = lane; i < n_chunks; i += 32) {
-    const float* p = partial + ((long long)bc * n_chunks + i) * 2;
-    sg += p[0];
-    sgx += p[1];
-  }
-  sg = warp_sum(sg);
-  sgx = warp_sum(sgx);
-  if (lane == 0) {
-    chan[bc * 2 + 0] = sg;
-    chan[bc * 2 + 1] = sgx;
-  }
-}
-
-// one block: d weight and d bias per channel; per (b, g) the coefficients
-// coef[bg] = (A / n, Bx [var >= 0] / n) of the apply
-__global__ void masked_group_norm_backward_finalize_kernel(
-    const float* __restrict__ chan, const float* __restrict__ weight,
-    const float* __restrict__ stats, float* __restrict__ grad_w,
-    float* __restrict__ grad_b, float* __restrict__ coef, int B, int C,
-    int G) {
-  const int cg = C / G;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float sw = 0.f, sb = 0.f;
-    for (int b = 0; b < B; ++b) {
-      sb += chan[(b * C + c) * 2 + 0];
-      sw += chan[(b * C + c) * 2 + 1];
-    }
-    grad_w[c] = sw;
-    grad_b[c] = sb;
-  }
-  for (int bg = threadIdx.x; bg < B * G; bg += blockDim.x) {
-    const int b = bg / G, g = bg % G;
-    float a = 0.f, bx = 0.f;
-    for (int k = 0; k < cg; ++k) {
-      const int c = g * cg + k;
-      a += weight[c] * chan[(b * C + c) * 2 + 0];
-      bx += weight[c] * chan[(b * C + c) * 2 + 1];
-    }
-    const float n = stats[bg * 4 + 2];
-    coef[bg * 2 + 0] = a / n;
-    coef[bg * 2 + 1] = stats[bg * 4 + 3] != 0.f ? bx / n : 0.f;
-  }
-}
-
-__device__ __forceinline__ void apply_one(float g, float x, float m,
-                                          float out, float mean, float rstd,
-                                          float w, float a, float bx,
-                                          int mode, float& dx, float& ds) {
-  const float gp = gprime(g, m, out, mode);
-  const float xn = (x - mean) * rstd;
-  dx = rstd * (w * gp - m * (a + xn * bx));
-  ds = gp;
+  return out > 0.f ? gm : 0.f;
 }
 
 template <int VEC>
-__global__ void masked_group_norm_backward_apply_kernel(
-    const float* __restrict__ grad, const float* __restrict__ x,
-    const float* __restrict__ mask, const float* __restrict__ out,
-    const float* __restrict__ weight, const float* __restrict__ stats,
-    const float* __restrict__ coef, float* __restrict__ grad_x,
-    float* __restrict__ grad_skip, int B, int C, int G, long long V,
-    int mode) {
-  const long long vq = V / VEC;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)B * C * vq) return;
-  const long long v = (t % vq) * VEC;
-  const long long bc = t / vq;
-  const int c = (int)(bc % C), b = (int)(bc / C);
-  const int bg = b * G + c / (C / G);
-  const float mean = stats[bg * 4], rstd = stats[bg * 4 + 1];
-  const float a = coef[bg * 2], bx = coef[bg * 2 + 1];
-  const float w = weight[c];
-  const long long xi = bc * V + v, mi = (long long)b * V + v;
-  if (VEC == 4) {
-    const float4 gv = *reinterpret_cast<const float4*>(grad + xi);
-    const float4 xv = *reinterpret_cast<const float4*>(x + xi);
-    const float4 mv = *reinterpret_cast<const float4*>(mask + mi);
-    const float4 ov = *reinterpret_cast<const float4*>(out + xi);
-    float4 dx, ds;
-    apply_one(gv.x, xv.x, mv.x, ov.x, mean, rstd, w, a, bx, mode, dx.x, ds.x);
-    apply_one(gv.y, xv.y, mv.y, ov.y, mean, rstd, w, a, bx, mode, dx.y, ds.y);
-    apply_one(gv.z, xv.z, mv.z, ov.z, mean, rstd, w, a, bx, mode, dx.z, ds.z);
-    apply_one(gv.w, xv.w, mv.w, ov.w, mean, rstd, w, a, bx, mode, dx.w, ds.w);
-    *reinterpret_cast<float4*>(grad_x + xi) = dx;
-    if (mode == 2) *reinterpret_cast<float4*>(grad_skip + xi) = ds;
-  } else {
-    float dx, ds;
-    apply_one(grad[xi], x[xi], mask[mi], out[xi], mean, rstd, w, a, bx, mode,
-              dx, ds);
-    grad_x[xi] = dx;
-    if (mode == 2) grad_skip[xi] = ds;
+__global__ void __launch_bounds__(kThreads) masked_group_norm_backward_kernel(
+    Args p) {
+  using T = typename Vec<VEC>::T;
+  __shared__ float smem[2][kMaxCC][kThreads / 32];
+  __shared__ float csum[2][kMaxGroup];
+  __shared__ bool last_s, group_last;
+  const int BG = p.B * p.G;
+  Sync sy(p.sync, p.ready, BG);
+  const int cg = p.C / p.G, n_cc = cg / p.CC;
+  const long long n_vb = (p.V + p.Vb - 1) / p.Vb;
+  const long long n_blk = n_vb * n_cc;              // items of a slice
+  const long long n_items = (long long)BG * n_blk;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const bool read_out = p.mode == 2;
+
+  for (long long blk = blockIdx.x; blk < n_items; blk += gridDim.x) {
+    const int bg = (int)(blk / n_blk);
+    const long long i = blk - (long long)bg * n_blk;
+    const int vb = (int)(i / n_cc), cc = (int)(i - (long long)vb * n_cc);
+    const int b = bg / p.G, g = bg - b * p.G;
+    const float mean = p.stats[bg * 4], rstd = p.stats[bg * 4 + 1];
+    const int c0 = g * cg + cc * p.CC;
+    const long long v0 = (long long)vb * p.Vb;
+    const long long v1 = v0 + p.Vb < p.V ? v0 + p.Vb : p.V;
+    const float* m = p.mask + (long long)b * p.V;
+
+    // reduce: per channel of the chunk, sum g' and g' xn over the voxels
+    for (int k = 0; k < p.CC; ++k) {
+      const int c = c0 + k;
+      const long long row = ((long long)b * p.C + c) * p.V;
+      const float w = p.weight[c], bi = p.mode == 1 ? p.bias[c] : 0.f;
+      float sg = 0.f, sgx = 0.f;
+      for (long long v = v0 + t * VEC; v < v1; v += VEC * kThreads) {
+        const T gv = __ldg(reinterpret_cast<const T*>(p.grad + row + v));
+        const T xv = __ldg(reinterpret_cast<const T*>(p.x + row + v));
+        const T mv = __ldg(reinterpret_cast<const T*>(m + v));
+        T ov = gv;
+        if (read_out) ov = __ldg(reinterpret_cast<const T*>(p.out + row + v));
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xj = lane_of(xv, j);
+          const float gp = gprime(lane_of(gv, j), xj, lane_of(mv, j),
+                                  lane_of(ov, j), mean, rstd, w, bi, p.mode);
+          sg += gp;
+          sgx += gp * ((xj - mean) * rstd);
+        }
+      }
+      sg = warp_sum(sg);
+      sgx = warp_sum(sgx);
+      if (lane == 0) {
+        smem[0][k][warp] = sg;
+        smem[1][k][warp] = sgx;
+      }
+    }
+    __syncthreads();
+    const long long prow = ((long long)bg * n_vb + vb) * cg + cc * p.CC;
+    if (t < 2 * p.CC) {
+      const int k = t >> 1, which = t & 1;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) s += smem[which][k][w];
+      p.partial[(prow + k) * 2 + which] = s;
+      __threadfence();
+    }
+    __syncthreads();
+    if (t == 0)
+      last_s = atomicAdd(sy.arrive + bg, 1u) == (unsigned)(n_blk - 1);
+    __syncthreads();
+
+    if (last_s) {
+      // finalize the slice: per (channel, sum) pair a warp adds the n_vb
+      // partials lane-strided then by a fixed shuffle tree
+      __threadfence();
+      for (int pair = warp; pair < 2 * cg; pair += kThreads / 32) {
+        const int k = pair >> 1, which = pair & 1;
+        float s = 0.f;
+        for (long long j = lane; j < n_vb; j += 32)
+          s += __ldcg(p.partial + ((((long long)bg * n_vb + j) * cg + k) * 2 +
+                                   which));
+        s = warp_sum(s);
+        if (lane == 0) {
+          csum[which][k] = s;
+          p.chan[((long long)b * p.C + g * cg + k) * 2 + which] = s;
+        }
+      }
+      __threadfence();
+      __syncthreads();
+      if (warp == 0) {
+        // the coefficients: lanes over the group's channels, a fixed tree
+        float a = 0.f, bx = 0.f;
+        for (int k = lane; k < cg; k += 32) {
+          a += p.weight[g * cg + k] * csum[0][k];
+          bx += p.weight[g * cg + k] * csum[1][k];
+        }
+        a = warp_sum(a);
+        bx = warp_sum(bx);
+        if (lane == 0) {
+          const float n = p.stats[bg * 4 + 2];
+          p.coef[bg * 2 + 0] = a / n;
+          p.coef[bg * 2 + 1] = p.stats[bg * 4 + 3] != 0.f ? bx / n : 0.f;
+          sy.arrive[bg] = 0u;
+          __threadfence();
+          atomicExch(sy.ready + bg, p.epoch);
+          group_last =
+              atomicAdd(sy.group_done + g, 1u) == (unsigned)(p.B - 1);
+        }
+        __syncwarp();
+        // the last slice of group g: d weight and d bias over the batch
+        if (group_last) {
+          __threadfence();
+          for (int k = lane; k < cg; k += 32) {
+            const int c = g * cg + k;
+            float sw = 0.f, sb = 0.f;
+            for (int bb = 0; bb < p.B; ++bb) {
+              sb += __ldcg(p.chan + ((long long)bb * p.C + c) * 2);
+              sw += __ldcg(p.chan + ((long long)bb * p.C + c) * 2 + 1);
+            }
+            p.grad_w[c] = sw;
+            p.grad_b[c] = sb;
+          }
+          if (lane == 0) sy.group_done[g] = 0u;
+        }
+      }
+    }
+
+    // wait for the slice's coefficients (every item of the slice is on a
+    // resident block and reaches its reduce; see the header)
+    if (t == 0) {
+      while (*reinterpret_cast<volatile unsigned*>(sy.ready + bg) != p.epoch)
+        __nanosleep(64);
+      __threadfence();
+    }
+    __syncthreads();
+    const float a = __ldcg(p.coef + bg * 2), bx = __ldcg(p.coef + bg * 2 + 1);
+
+    // apply, in reverse: the data read last comes first
+    for (int k = p.CC - 1; k >= 0; --k) {
+      const int c = c0 + k;
+      const long long row = ((long long)b * p.C + c) * p.V;
+      const float w = p.weight[c], bi = p.mode == 1 ? p.bias[c] : 0.f;
+      const long long n_v = (v1 - v0 + VEC * kThreads - 1) / (VEC * kThreads);
+      for (long long s = n_v - 1; s >= 0; --s) {
+        const long long v = v0 + (s * kThreads + t) * VEC;
+        if (v >= v1) continue;
+        const T gv = __ldg(reinterpret_cast<const T*>(p.grad + row + v));
+        const T xv = __ldg(reinterpret_cast<const T*>(p.x + row + v));
+        const T mv = __ldg(reinterpret_cast<const T*>(m + v));
+        T ov = gv;
+        if (read_out) ov = __ldg(reinterpret_cast<const T*>(p.out + row + v));
+        T dx = gv, ds = gv;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xj = lane_of(xv, j), mj = lane_of(mv, j);
+          const float gp = gprime(lane_of(gv, j), xj, mj, lane_of(ov, j),
+                                  mean, rstd, w, bi, p.mode);
+          const float xn = (xj - mean) * rstd;
+          set_lane(dx, j, rstd * (w * gp - mj * (a + xn * bx)));
+          set_lane(ds, j, gp);
+        }
+        *reinterpret_cast<T*>(p.grad_x + row + v) = dx;
+        if (p.mode == 2) *reinterpret_cast<T*>(p.grad_skip + row + v) = ds;
+      }
+    }
+    __syncthreads();     // the shared sums and flags of the next item
   }
+}
+
+// resident blocks of the kernel on the current device (once per device)
+template <int VEC>
+int resident_blocks() {
+  constexpr int kDevices = 64;
+  static int cached[kDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < kDevices && cached[dev] > 0) return cached[dev];
+  int n_sm = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, masked_group_norm_backward_kernel<VEC>, kThreads, 0);
+  const int n = per_sm * n_sm;
+  if (dev < kDevices) cached[dev] = n;
+  return n;
 }
 
 }  // namespace
 
+// The block shape of a call: CC channels (a divisor of C/G, at most 32)
+// and VB voxels (a multiple of 4 * 256) an item, chosen here from the
+// shape and the card: CC is halved from C/G until the items number 4 an
+// SM, then VB doubled until a slice's items fit in half the resident
+// blocks (the items of a slice wait for each other; see the kernel's
+// header). Writes (CC, VB, n_vb) to `shape` for the wrapper's scratch.
+extern "C" int tdv_masked_group_norm_backward_shape(int B, int C, int G,
+                                                    long long V,
+                                                    long long* shape) {
+  const int vec = V % 4 == 0 ? 4 : 1;
+  const int resident = vec == 4 ? resident_blocks<4>() : resident_blocks<1>();
+  const int half = resident / 2;
+  int n_sm = 0, dev = 0, coop = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  const int cg = C / G;
+  if (half < 1 || n_sm < 1 || cg > kMaxGroup)
+    return (int)cudaErrorInvalidConfiguration;
+  long long Vb = (long long)vec * kThreads;
+  int CC = cg;
+  while (CC > kMaxCC && CC % 2 == 0) CC /= 2;
+  if (CC > kMaxCC) return (int)cudaErrorInvalidValue;
+  auto items = [&](long long vb, int cc) {    // a slice's items
+    return (V + vb - 1) / vb * (cg / cc);
+  };
+  // the channel chunk halved until the items number 4 an SM (small levels
+  // fill the card; smaller chunks measured slower at level 1), then the
+  // voxel blocks grown, then the channel chunks, until a slice's items fit
+  // in half the resident blocks
+  while (CC % 2 == 0 && (long long)B * G * items(Vb, CC) < 4LL * n_sm)
+    CC /= 2;
+  while (items(Vb, CC) > half && Vb < V) Vb *= 2;
+  while (items(Vb, CC) > half && CC < kMaxCC && (cg / CC) % 2 == 0) CC *= 2;
+  if (items(Vb, CC) > half) return (int)cudaErrorInvalidConfiguration;
+  shape[0] = CC;
+  shape[1] = Vb;
+  shape[2] = (V + Vb - 1) / Vb;
+  return 0;
+}
+
 // grad, x, out, grad_x, grad_skip [B, C, V]; mask [B, V]; stats [B*G, 4]
-// from the forward; partial [B*C, n_chunks, 2], chan [B*C, 2] and coef
-// [B*G, 2] scratch; n_chunks = ceil(V / chunk). grad_skip is written only
-// in mode 2.
+// from the forward; bias [C] (read in mode 1); out read in mode 2 only;
+// partial [B*G, n_vb, C/G, 2], chan [B*C, 2], coef [B*G, 2] float scratch;
+// sync B*G + G uint32, zero before the first call (every call leaves them
+// zero); ready B*G uint32, never equal to `epoch` before the call (epochs
+// count up per scratch, from 1); (CC, Vb) from
+// tdv_masked_group_norm_backward_shape. grad_skip is written only in mode
+// 2. The launch is cooperative: it fails with an error, and runs nothing,
+// where the card cannot hold its blocks at once (a card shared with other
+// work).
 extern "C" int tdv_masked_group_norm_backward(
     const float* grad, const float* x, const float* mask, const float* out,
-    const float* weight, const float* stats, float* grad_x, float* grad_w,
-    float* grad_b, float* grad_skip, float* partial, float* chan,
-    float* coef, int B, int C, int G, long long V, int mode, int chunk,
+    const float* weight, const float* bias, const float* stats, float* grad_x,
+    float* grad_w, float* grad_b, float* grad_skip, float* partial,
+    float* chan, float* coef, unsigned* sync, unsigned* ready, int B, int C,
+    int G, long long V, int mode, int CC, long long Vb, unsigned epoch,
     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if ((long long)B * C * V == 0) return 0;
-  const int n_chunks = (int)((V + chunk - 1) / chunk);
-  masked_group_norm_backward_reduce_kernel<<<dim3(n_chunks, B * C), kThreads,
-                                             0, s>>>(
-      grad, x, mask, out, stats, partial, C, G, V, chunk, n_chunks, mode);
-  masked_group_norm_backward_channel_kernel<<<B * C, 32, 0, s>>>(
-      partial, chan, n_chunks);
-  masked_group_norm_backward_finalize_kernel<<<1, kThreads, 0, s>>>(
-      chan, weight, stats, grad_w, grad_b, coef, B, C, G);
-  if (V % 4 == 0) {
-    const long long total = (long long)B * C * (V / 4);
-    masked_group_norm_backward_apply_kernel<4>
-        <<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-            grad, x, mask, out, weight, stats, coef, grad_x, grad_skip, B, C,
-            G, V, mode);
-  } else {
-    const long long total = (long long)B * C * V;
-    masked_group_norm_backward_apply_kernel<1>
-        <<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-            grad, x, mask, out, weight, stats, coef, grad_x, grad_skip, B, C,
-            G, V, mode);
-  }
-  return (int)cudaGetLastError();
+  Args a{grad, x, mask, out, weight, bias, stats, grad_x, grad_w, grad_b,
+         grad_skip, partial, chan, coef, sync, ready, epoch, B, C, G, CC,
+         mode, V, Vb};
+  const long long items =
+      (long long)B * G * ((V + Vb - 1) / Vb) * (C / G / CC);
+  const bool v4 = V % 4 == 0;
+  const long long resident = v4 ? resident_blocks<4>() : resident_blocks<1>();
+  const unsigned grid = (unsigned)(items < resident ? items : resident);
+  void* args[] = {&a};
+  const void* fn =
+      v4 ? reinterpret_cast<const void*>(masked_group_norm_backward_kernel<4>)
+         : reinterpret_cast<const void*>(masked_group_norm_backward_kernel<1>);
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads),
+                                          args, 0, s);
 }

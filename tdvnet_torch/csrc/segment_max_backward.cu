@@ -23,39 +23,43 @@
 // the touched rows of d pooled.
 //
 // Design: points arrive in input order (no sort: VoxelGrid.order is None on
-// the card), one thread per (point, 4 channels) in both kernels.
-//   pool     a first pass counts ties per (segment, channel) with integer
-//            atomics (exact, order-free); a second writes each row's share
-//            with an IEEE division, so the result is deterministic and
-//            bit-equal to the twin;
-//   concat   the y half is a masked copy; the pooled half is a segment sum
-//            into d pooled by one 16-byte vector reduction
-//            (`red.global.add.v4.f32`) per thread. Atomics rather than a
-//            per-anchor gather over a CSR of K3's ranks: a CSR needs a
-//            count, a prefix sum and a fill over the points (three more
-//            passes and an index array) to replace adds that meet few
-//            others (at the train step ~3 points per occupied anchor), so
-//            it would cost more than the contention it avoids. The sum
-//            order of a segment's few rows changes from run to run.
+// the card).
+//   pool     one thread per (point, 4 channels); a first pass counts ties
+//            per (segment, channel) with integer atomics (exact,
+//            order-free); a second writes each row's share with an IEEE
+//            division, so the result is deterministic and bit-equal to the
+//            twin;
+//   concat   a warp takes 16 channels of 8 consecutive rows (64 bytes of
+//            each). The y half is a masked copy; the pooled half is a
+//            segment sum into d pooled, in fixed point (fixed_sum.cuh): the
+//            largest finite |g| of the pooled half (fx::amax_kernel) and
+//            the P rows that a segment can hold at most set the call's
+//            scale, each row's 4 terms are rounded, the lanes of a warp
+//            whose rows share a segment at the same 4 channels
+//            (__match_any_sync) add theirs by shuffles, and one lane of
+//            each such set adds the 4 sums into an int64 [n_seg, C] with
+//            `red.global.add.u64`; a last pass converts the sums to fp32.
+//            The result is the same bits whatever order the rows land in.
+//            The merge matters where many rows share a segment: with one
+//            row a warp, the slot that the rows past the anchors' capacity
+//            are clamped into took one atomic per row and channel on one
+//            address (PERF.md section 6). Atomics rather than a per-anchor
+//            gather over a CSR of K3's ranks: a CSR needs a count, a prefix
+//            sum and a fill over the points (three more passes and an index
+//            array) to replace adds that meet few others (at the train step
+//            ~3 points per occupied anchor). A non-finite term adds 0 there
+//            and raises a flag; the kernel's second launch then adds those
+//            terms alone, as floats, onto the result (non-finite sums do not
+//            depend on the order).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fixed_sum.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ void red_add4(float4* addr, float4 v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(addr),
-               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-#else
-  atomicAdd(&addr->x, v.x);
-  atomicAdd(&addr->y, v.y);
-  atomicAdd(&addr->z, v.z);
-  atomicAdd(&addr->w, v.w);
-#endif
-}
+constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void segment_max_backward_count_kernel(
     const float* __restrict__ y, const long long* __restrict__ seg,
@@ -112,28 +116,99 @@ __device__ __forceinline__ float pass(float g, float v, int relu) {
   return (!relu || v > 0.f) ? g : 0.f;
 }
 
+// fx words: amax |g| of the pooled half, the non-finite flag
+// NF false: the y half, and the pooled half's fixed-point sums into `acc`;
+// NF true: only the pooled half's non-finite terms, as float adds into
+// grad_pooled (nothing unless the flag is up)
+// A warp is 8 consecutive rows at 16 channels: lane 4 r + i takes row
+// 8 (warp / n4) + r at channels 4 (4 (warp % n4) + i) + 0..3, n4 =
+// ceil(C / 16), so that a warp reads 64 contiguous bytes of each row.
+template <bool NF>
 __global__ void segment_max_backward_concat_kernel(
     const float* __restrict__ grad, const float* __restrict__ y,
     const float* __restrict__ pooled, const long long* __restrict__ seg,
-    float* __restrict__ grad_y, float* __restrict__ grad_pooled, long long P,
+    float* __restrict__ grad_y, float* __restrict__ grad_pooled,
+    long long* __restrict__ acc, unsigned* __restrict__ fxw, long long P,
     int C, long long n_seg, int relu) {
-  const int cq = C >> 2;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= P * cq) return;
-  const long long p = t / cq;
-  const int q = (int)(t % cq);
-  const float4* g = reinterpret_cast<const float4*>(grad + p * 2 * C);
-  const float4 gy = g[q], gp = g[cq + q];
-  const float4 v = reinterpret_cast<const float4*>(y + p * C)[q];
-  reinterpret_cast<float4*>(grad_y + p * C)[q] =
-      make_float4(pass(gy.x, v.x, relu), pass(gy.y, v.y, relu),
-                  pass(gy.z, v.z, relu), pass(gy.w, v.w, relu));
-  long long s = seg[p];        // the forward's clamp
-  s = s < 0 ? 0 : (s >= n_seg ? n_seg - 1 : s);
-  const float4 m = __ldg(reinterpret_cast<const float4*>(pooled + s * C) + q);
-  red_add4(reinterpret_cast<float4*>(grad_pooled + s * C) + q,
-           make_float4(pass(gp.x, m.x, relu), pass(gp.y, m.y, relu),
-                       pass(gp.z, m.z, relu), pass(gp.w, m.w, relu)));
+  if (NF && *reinterpret_cast<volatile unsigned*>(fxw + 1) == 0u) return;
+  const int cq = C >> 2, n4 = (cq + 3) >> 2;
+  const long long w =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long p = (w / n4) * 8 + (lane >> 2);
+  const int q = (int)(w % n4) * 4 + (lane & 3);
+  if ((w / n4) * 8 >= P) return;             // uniform over the warp
+  const bool row = p < P && q < cq;
+  long long s = -1;
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  if (row) {
+    const float4* g = reinterpret_cast<const float4*>(grad + p * 2 * C);
+    const float4 gp = g[cq + q];
+    if (!NF) {
+      const float4 gy = g[q];
+      const float4 v = reinterpret_cast<const float4*>(y + p * C)[q];
+      reinterpret_cast<float4*>(grad_y + p * C)[q] =
+          make_float4(pass(gy.x, v.x, relu), pass(gy.y, v.y, relu),
+                      pass(gy.z, v.z, relu), pass(gy.w, v.w, relu));
+    }
+    s = seg[p];                  // the forward's clamp
+    s = s < 0 ? 0 : (s >= n_seg ? n_seg - 1 : s);
+    const float4 m =
+        __ldg(reinterpret_cast<const float4*>(pooled + s * C) + q);
+    d[0] = pass(gp.x, m.x, relu);
+    d[1] = pass(gp.y, m.y, relu);
+    d[2] = pass(gp.z, m.z, relu);
+    d[3] = pass(gp.w, m.w, relu);
+  }
+  if (NF) {
+    if (row) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (!isfinite(d[c])) atomicAdd(grad_pooled + s * C + 4 * q + c, d[c]);
+    }
+    return;
+  }
+  // every term |g| < 2^(e + 1), at most P of them a segment
+  const float scale =
+      fx::pow2(fx::scale_exp(fx::exp_of(fxw[0]) + 1, fx::log2_ceil_dev(P)));
+  long long v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    v[c] = row ? fx::quantize(d[c], scale, fxw + 1) : 0;
+  // the lanes whose rows share a segment, at the same channels, sum their
+  // terms (integers: in any order), and the lowest of them adds the sums
+  const unsigned peers =
+      __match_any_sync(kFull, row ? s * 4 + (lane & 3) : -1 - lane);
+  if (__popc(peers) > 1) {
+    long long sum[4] = {0, 0, 0, 0};
+    for (unsigned rest = peers; rest; rest &= rest - 1) {
+      const int from = __ffs(rest) - 1;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sum[c] += __shfl_sync(peers, v[c], from);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = sum[c];
+  }
+  if (!row || lane != __ffs(peers) - 1) return;
+  long long* a = acc + s * C + 4 * q;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (v[c]) fx::red_add(a + c, v[c]);
+}
+
+// grad_pooled = acc * 2^-k, 4 elements a thread
+__global__ void segment_max_backward_convert_kernel(
+    const long long* __restrict__ acc, float* __restrict__ out, long long n4,
+    const unsigned* __restrict__ fxw, long long P) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float inv = fx::pow2(
+      -fx::scale_exp(fx::exp_of(fxw[0]) + 1, fx::log2_ceil_dev(P)));
+  const longlong2 a = reinterpret_cast<const longlong2*>(acc)[2 * i];
+  const longlong2 b = reinterpret_cast<const longlong2*>(acc)[2 * i + 1];
+  reinterpret_cast<float4*>(out)[i] =
+      make_float4(fx::dequantize(a.x, inv), fx::dequantize(a.y, inv),
+                  fx::dequantize(b.x, inv), fx::dequantize(b.y, inv));
 }
 
 inline unsigned blocks_for(long long n) {
@@ -161,19 +236,36 @@ extern "C" int tdv_segment_max_backward(
   return (int)cudaGetLastError();
 }
 
-// grad [P, 2C]; y, grad_y [P, C]; pooled, grad_pooled [n_seg, C] (the
-// latter zeroed here); C % 4 == 0.
+// grad [P, 2C]; y, grad_y [P, C]; pooled, grad_pooled [n_seg, C]; acc
+// [n_seg, C] int64 and fxw 2 uint32 scratch (set here); C % 4 == 0.
 extern "C" int tdv_gather_concat_backward(
     const float* grad, const float* y, const float* pooled,
-    const long long* seg, float* grad_y, float* grad_pooled, long long P,
-    int C, long long n_seg, int relu, void* stream) {
+    const long long* seg, float* grad_y, float* grad_pooled, long long* acc,
+    unsigned* fxw, long long P, int C, long long n_seg, int relu,
+    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(grad_pooled, 0,
-                                    sizeof(float) * (size_t)n_seg * C, s);
+  cudaError_t err =
+      cudaMemsetAsync(acc, 0, sizeof(long long) * (size_t)n_seg * C, s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(fxw, 0, 2 * sizeof(unsigned), s);
   if (err != cudaSuccess) return (int)err;
-  const long long total = P * (C / 4);
-  if (total == 0) return 0;
-  segment_max_backward_concat_kernel<<<blocks_for(total), kThreads, 0, s>>>(
-      grad, y, pooled, seg, grad_y, grad_pooled, P, C, n_seg, relu);
+  // a warp per 8 rows and 16 channels
+  const long long total = (P + 7) / 8 * ((C / 4 + 3) / 4) * 32;
+  if (total > 0) {
+    fx::amax(grad + C, P, C, 2LL * C, fxw, s);
+    segment_max_backward_concat_kernel<false>
+        <<<blocks_for(total), kThreads, 0, s>>>(grad, y, pooled, seg, grad_y,
+                                                grad_pooled, acc, fxw, P, C,
+                                                n_seg, relu);
+  }
+  const long long n4 = n_seg * (C / 4);
+  if (n4 > 0)
+    segment_max_backward_convert_kernel<<<blocks_for(n4), kThreads, 0, s>>>(
+        acc, grad_pooled, n4, fxw, P);
+  if (total > 0)
+    segment_max_backward_concat_kernel<true>
+        <<<blocks_for(total), kThreads, 0, s>>>(grad, y, pooled, seg, grad_y,
+                                                grad_pooled, acc, fxw, P, C,
+                                                n_seg, relu);
   return (int)cudaGetLastError();
 }

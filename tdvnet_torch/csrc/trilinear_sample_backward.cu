@@ -16,7 +16,9 @@
 // per (point, tap, 4 channels), ~197M an offset pass over the three
 // scales, landing dozens to hundreds at a time on the same coarse cells.
 //
-// Design: owner bricks in shared memory. The grid is cut into bricks of
+// Design: owner bricks in shared memory, summed in fixed point
+// (fixed_sum.cuh) so that the result is the same bits in every run. The
+// grid is cut into bricks of
 // 8 x 8 x 8 nodes (4 x 8 x 8 measured 2-6% slower a pass on both point sets
 // of PERF.md; partial bricks at the grid's high faces). Each brick owns its
 // nodes, so the sum for a node is formed in one block's shared memory and
@@ -37,61 +39,74 @@
 //            cell is done here once, not again per channel group. Binned per
 //            call, so per scale: a coarse anchor from its own division need
 //            not be the fine anchor halved.
+//   amax     the largest finite |d out| (fx::amax_kernel): a term
+//            g * w_tap is at most that, and a node takes at most Q terms
+//            (one per point of its scene), which sets the call's
+//            power-of-two scale;
 //   sum      a persistent grid of blocks takes work items (brick, chunk of
-//            at most 4096 of its entries, group of 64 channels). A block
-//            zeroes a tile of the brick's nodes x 64 channels in dynamic
-//            shared memory (128 KB for 8 x 8 x 8, after
+//            at most 4096 of its entries, group of 32 channels). A block
+//            zeroes an int64 tile of the brick's nodes x 32 channels in
+//            dynamic shared memory (128 KB for 8 x 8 x 8, after
 //            cudaFuncSetAttribute; one block of 32 warps an SM) and sorts
 //            the chunk in shared memory by anchor (a counting sort over the
 //            9 x 9 x 9 anchors that touch the brick), keeping per entry the
 //            point's index, its three weights and its key. Each warp then
 //            walks a contiguous run of the sorted chunk, a lane taking two
 //            neighbouring channels (a warp reads a point's 256-byte
-//            gradient row in one request), eight rows requested together.
-//            The entries of one anchor (a cell's points: tens to hundreds at
-//            the coarse scales) sum their eight taps in registers and add
-//            them into the tile once, with shared-memory float atomics; a
-//            lane's two channels sit 32 words apart in the tile, so a
-//            warp's 32 adds fall in 32 banks. Taps outside the grid or in
-//            another brick add nothing (that brick's own entry takes them).
-//            Hopper's shared-memory float atomics are compare-and-swap loops
-//            (ATOMS.CAST.SPIN); measured on the H100 (PERF.md, PR 8), this
-//            phase is bound by instruction issue and those loops' round
-//            trips, not by the gathers: a parity-class order that let
-//            most runs add without atomics, swaps issued together, 512
-//            threads with deeper prefetch, tap weights formed in the sort
-//            (which halves the chunk to fit), and an unsorted chunk were
-//            all slower.
-//   flush    a brick held by one chunk stores its tile with plain 16-byte
-//            stores, zeros included: the finest grid needs no zero fill and
-//            no global atomic where no brick holds more than a chunk. A
-//            brick of several chunks adds its tile with
-//            `red.global.add.v4.f32` (at the coarsest scale ~2M 16-byte
-//            reductions a pass instead of 79M).
+//            gradient row in one request; two entries a warp at 32
+//            channels), eight rows requested together. Each term g * w_tap
+//            is rounded to the call's fixed point in double arithmetic (g
+//            2^k times the weight, one fma with 1.5 * 2^52: five
+//            conversions an entry where a float-to-int64 conversion a term
+//            measured slower); the entries of one
+//            anchor (a cell's points: tens to hundreds at the coarse
+//            scales) sum their eight taps' integers in registers and add
+//            them into the tile once, with 64-bit shared-memory integer
+//            atomics; a lane's two channels sit 16 words apart in the tile.
+//            Taps outside the grid or in another brick add nothing (that
+//            brick's own entry takes them). Measured on the H100 (PERF.md
+//            section 6), the float form of this phase was bound by instruction
+//            issue and its compare-and-swap loops (float atomics in shared
+//            memory are ATOMS.CAST.SPIN on sm_90): a parity-class order,
+//            swaps issued together, 512 threads with deeper prefetch, tap
+//            weights formed in the sort and an unsorted chunk were all
+//            slower.
+//   flush    a brick held by one chunk converts its tile to fp32 and stores
+//            it with plain 16-byte stores, zeros included: the finest grid
+//            needs no zero fill and no global atomic where no brick holds
+//            more than a chunk. A brick of several chunks adds its tile
+//            into an int64 copy of the brick (`red.global.add.u64`; zeroed
+//            by the placement, indexed by the brick's rank among such
+//            bricks), and the last of its chunks to finish (a ticket per
+//            brick and channel group) converts the copy and stores it.
+//   nonfinite a last launch exits at once unless a term was non-finite, and
+//            then adds only those terms, as floats, onto the result.
 // The chunk (entries per work item) is sized from B * Q so that about two
 // work items run per resident block: long lists (the coarse scales' few
 // bricks) split, short ones (the finest scale's) do not. A point with
 // non-finite coordinates or an anchor off the grid takes nothing (its
 // forward sample is NaN or zero); bounds are tested on the float before any
-// float-to-int conversion. Shared-memory float atomics, the in-block sort
-// and the chunks' reductions sum in a run-dependent order: the result moves
-// at rounding level from run to run.
+// float-to-int conversion. The placement, the in-block sort and the chunks
+// take a run-dependent order, but every sum is an integer sum.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "block_scan.cuh"
+#include "fixed_sum.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kB = 8;               // brick nodes along each axis
-constexpr int kGroup = 64;          // channels of one work item
+constexpr int kGroup = 32;          // channels of one work item
 constexpr int kBinThreads = 1024;
 constexpr int kSharedBins = 12288;  // bricks a shared histogram holds (48 KB)
 constexpr int kMinChunk = 1024;     // entries: a flush is 8192 reductions
 constexpr int kMaxChunk = 4096;     // entries a block sorts (64 KB)
 constexpr int kBatch = 8;           // gradient rows a warp requests at once
+
+constexpr int kNodes = kB * kB * kB;
 
 struct Geo {
   int B;
@@ -100,19 +115,6 @@ struct Geo {
   float cell;
   int nbx, nby, nbz;    // bricks along each axis
 };
-
-__device__ __forceinline__ void red_add4(float4* addr, float4 v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(addr),
-               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-#else
-  atomicAdd(&addr->x, v.x);
-  atomicAdd(&addr->y, v.y);
-  atomicAdd(&addr->z, v.z);
-  atomicAdd(&addr->w, v.w);
-#endif
-}
 
 // The forward's node coordinates of point bq of scene b; false when the
 // point takes no gradient (coordinates not finite, or an anchor outside
@@ -173,13 +175,18 @@ __device__ __forceinline__ float4* node_row(float* grid, const Geo& g,
 }
 
 // The scratch of one call: per brick its entry count (then the placement's
-// running offset), a done counter, the entry offsets and the chunk offsets
-// (n_bricks + 1 each).
+// running offset), a done counter, the entry offsets, the chunk offsets and
+// the rank among the bricks of several chunks (n_bricks + 1 each), a ticket
+// per brick and channel group, and the fixed point's words (amax |d out|,
+// the non-finite flag).
 struct Bins {
   int* counts;
   int* done;
   int* offs;
   int* chunk_start;
+  int* multi;
+  int* tickets;
+  unsigned* fx;
 };
 
 // A point's bricks: n (0 when it takes no gradient) and the r-th brick's id.
@@ -222,7 +229,7 @@ template <bool kPlace>
 __global__ void __launch_bounds__(kBinThreads)
     trilinear_sample_backward_bin_kernel(
         const float* __restrict__ pts, const float* __restrict__ center0, Geo g,
-    Bins bins, float4* __restrict__ entries, float* __restrict__ grad_grid,
+    Bins bins, float4* __restrict__ entries, long long* __restrict__ multi,
     int n_bricks, int chunk, bool shared_bins) {
   extern __shared__ int sh_bins[];
   const long long bq = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -266,50 +273,48 @@ __global__ void __launch_bounds__(kBinThreads)
       last = atomicAdd(bins.done, 1) == (int)gridDim.x - 1;
     __syncthreads();
     if (!last) return;
-    int carry_e = 0, carry_c = 0;
+    int carry_e = 0, carry_c = 0, carry_m = 0;
     for (int b0 = 0; b0 < n_bricks; b0 += kBinThreads) {
       const int i = b0 + threadIdx.x;
       const int c = i < n_bricks ? __ldcg(bins.counts + i) : 0;
       const int nch = i < n_bricks ? (c > chunk ? 1 + (c - 1) / chunk : 1)
                                    : 0;
-      int tot_e, tot_c;
+      int tot_e, tot_c, tot_m;
       const int ex_e = tdv::block_exclusive_scan<kBinThreads>(c, smem, &tot_e);
       const int ex_c =
           tdv::block_exclusive_scan<kBinThreads>(nch, smem, &tot_c);
+      const int ex_m =
+          tdv::block_exclusive_scan<kBinThreads>(nch > 1, smem, &tot_m);
       if (i < n_bricks) {
         bins.offs[i] = bins.counts[i] = carry_e + ex_e;
         bins.chunk_start[i] = carry_c + ex_c;
+        bins.multi[i] = carry_m + ex_m;
       }
       carry_e += tot_e;
       carry_c += tot_c;
+      carry_m += tot_m;
     }
     if (threadIdx.x == 0) {
       bins.offs[n_bricks] = carry_e;
       bins.chunk_start[n_bricks] = carry_c;
+      bins.multi[n_bricks] = carry_m;
     }
   } else {
     const int id = blockIdx.x;
     if (id >= n_bricks || bins.offs[id + 1] - bins.offs[id] <= chunk) return;
-    const Brick k = brick_at(id, g);
-    const int cq = g.C >> 2;
-    const int m_all = k.ex * k.ey * k.ez * cq;
-    for (int i = threadIdx.x; i < m_all; i += blockDim.x) {
-      const int node = i / cq, m = i - node * cq;
-      const int lz = node % k.ez, ly = (node / k.ez) % k.ey,
-                lx = node / (k.ez * k.ey);
-      node_row(grad_grid, g, k, lx, ly, lz)[m] =
-          make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    longlong2* dst = reinterpret_cast<longlong2*>(
+        multi + (size_t)bins.multi[id] * kNodes * g.C);
+    for (int i = threadIdx.x; i < kNodes * g.C / 2; i += blockDim.x)
+      dst[i] = make_longlong2(0, 0);
   }
 }
 
-constexpr int kNodes = kB * kB * kB;
 constexpr int kKeys = (kB + 1) * (kB + 1) * (kB + 1);  // anchors [-1, 7]^3
 constexpr int kSumThreads = 1024;
-// the tile (w channels), the anchor histogram, the chunk's sorted entries
-// and keys
+// the int64 tile (w channels), the anchor histogram, the chunk's sorted
+// entries and keys
 constexpr int sum_smem_bytes(int w) {
-  return kNodes * w * 4 + 1024 * 4 + kMaxChunk * (16 + 2);
+  return kNodes * w * 8 + 1024 * 4 + kMaxChunk * (16 + 2);
 }
 
 // an entry's sort key: its anchor in brick-local nodes, each in
@@ -322,9 +327,9 @@ __device__ __forceinline__ int local_key(const float4& r, const Brick& k) {
 
 // Add a run's eight register sums (anchor (cx, cy, cz) in brick-local
 // nodes, channels 2j and 2j + 1 of the group) into the tile.
-__device__ __forceinline__ void add_run(float* tile, const float2 (&acc)[8],
-                                        int key, const Brick& k, int w,
-                                        int lane_j) {
+__device__ __forceinline__ void add_run(long long* tile,
+                                        const longlong2 (&acc)[8], int key,
+                                        const Brick& k, int w, int lane_j) {
   const int cz = key % (kB + 1) - 1, cy = key / (kB + 1) % (kB + 1) - 1,
             cx = key / ((kB + 1) * (kB + 1)) - 1;
   const int half = w >> 1;
@@ -334,27 +339,37 @@ __device__ __forceinline__ void add_run(float* tile, const float2 (&acc)[8],
     if (lx < 0 || lx >= k.ex || ly < 0 || ly >= k.ey || lz < 0 ||
         lz >= k.ez)
       continue;
-    float* dst = tile + ((lx * kB + ly) * kB + lz) * w + lane_j;
-    atomicAdd(dst, acc[t].x);
-    atomicAdd(dst + half, acc[t].y);
+    long long* dst = tile + ((lx * kB + ly) * kB + lz) * w + lane_j;
+    if (acc[t].x) fx::shared_add(dst, acc[t].x);
+    if (acc[t].y) fx::shared_add(dst + half, acc[t].y);
   }
 }
 
 __global__ void __launch_bounds__(kSumThreads, 1)
     trilinear_sample_backward_sum_kernel(
         const float* __restrict__ grad, const float4* __restrict__ entries,
-        Bins bins, float* __restrict__ grad_grid, Geo g, int n_bricks,
-        int chunk, int n_groups, int w_max) {
+        Bins bins, float* __restrict__ grad_grid,
+        long long* __restrict__ multi, Geo g, int n_bricks, int chunk,
+        int n_groups, int w_max, int log2_terms) {
   constexpr int kThreads = kSumThreads;
-  extern __shared__ float4 tile4[];
-  float* tile = reinterpret_cast<float*>(tile4);
+  extern __shared__ longlong2 tile2l[];
+  long long* tile = reinterpret_cast<long long*>(tile2l);
   int* hist = reinterpret_cast<int*>(tile + kNodes * w_max);
   float4* srec = reinterpret_cast<float4*>(hist + 1024);
   uint16_t* skey = reinterpret_cast<uint16_t*>(srec + kMaxChunk);
   __shared__ int item[4];       // brick, first entry, end, several chunks
   __shared__ int scan_smem[33];
+  __shared__ bool last;
   const int n_items = bins.chunk_start[n_bricks] * n_groups;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // every term |g w| < 2^(e + 1), at most 2^log2_terms of them a node
+  // every term |g w| < 2^(e + 1), at most 2^log2_terms of them a node, and
+  // below 2^51 after the scale (the rounding below adds 1.5 * 2^52)
+  const int e = fx::exp_of(bins.fx[0]);
+  const int kx = max(min(fx::scale_exp(e + 1, log2_terms), 50 - e), -120);
+  const double scale = (double)fx::pow2(kx);
+  const float inv = fx::pow2(-kx);
+  unsigned* nf = bins.fx + 1;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
     const int cid = it / n_groups, grp = it - cid * n_groups;
     const int c0 = grp * kGroup;
@@ -380,8 +395,8 @@ __global__ void __launch_bounds__(kSumThreads, 1)
         item[3] = e_end - bins.offs[lo] > chunk;
       }
     }
-    for (int i = threadIdx.x; i < kNodes * w / 4; i += kThreads)
-      tile4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = threadIdx.x; i < kNodes * w / 2; i += kThreads)
+      tile2l[i] = make_longlong2(0, 0);
     for (int i = threadIdx.x; i < kKeys; i += kThreads) hist[i] = 0;
     __syncthreads();
     const Brick k = brick_at(item[0], g);
@@ -426,7 +441,7 @@ __global__ void __launch_bounds__(kSumThreads, 1)
       const int j0 = (warp * epw + sub) * per;
       const int stop = min(j0 + per, n);
       const float* gp = grad + c0 + 2 * lane_j;
-      float2 acc[8];
+      longlong2 acc[8];
       int cur = -1;
       for (int jb = j0; jb < stop; jb += kBatch) {
         float2 gv[kBatch];
@@ -443,17 +458,31 @@ __global__ void __launch_bounds__(kSumThreads, 1)
             if (cur >= 0) add_run(tile, acc, cur, k, w, lane_j);
             cur = key;
 #pragma unroll
-            for (int t = 0; t < 8; ++t) acc[t] = make_float2(0.f, 0.f);
+            for (int t = 0; t < 8; ++t) acc[t] = make_longlong2(0, 0);
           }
           const float4 r = srec[jb + u];      // point, wx, wy, wz
+          // a term g * w is finite wherever g is (0 <= w <= 1): one test an
+          // entry; a non-finite g adds 0 here and raises the flag
+          float2 gg = gv[u];
+          if (!(isfinite(gg.x) && isfinite(gg.y))) {
+            *reinterpret_cast<volatile unsigned*>(nf) = 1u;
+            gg = make_float2(isfinite(gg.x) ? gg.x : 0.f,
+                             isfinite(gg.y) ? gg.y : 0.f);
+          }
+          // the terms in double: g 2^k (exact) times the tap's weight
+          // (the three fractions' product), rounded once to an integer by
+          // an fma with 1.5 * 2^52; five conversions an entry instead of a
+          // float-to-int64 conversion a term (the throughput of both is a
+          // quarter of the double rate)
+          const double g0 = (double)gg.x * scale, g1 = (double)gg.y * scale;
+          const double fx1 = r.y, fy1 = r.z, fz1 = r.w;
+          const double wxy[4] = {(1.0 - fx1) * (1.0 - fy1), (1.0 - fx1) * fy1,
+                                 fx1 * (1.0 - fy1), fx1 * fy1};
 #pragma unroll
           for (int t = 0; t < 8; ++t) {
-            // the forward's product order: (w_x * w_y) * w_z
-            const float wt = ((t >> 2) ? r.y : 1.f - r.y) *
-                             (((t >> 1) & 1) ? r.z : 1.f - r.z) *
-                             ((t & 1) ? r.w : 1.f - r.w);
-            acc[t].x += gv[u].x * wt;
-            acc[t].y += gv[u].y * wt;
+            const double wt = wxy[t >> 1] * ((t & 1) ? fz1 : 1.0 - fz1);
+            acc[t].x += fx::rint_to_ll(g0, wt);
+            acc[t].y += fx::rint_to_ll(g1, wt);
           }
         }
       }
@@ -463,19 +492,92 @@ __global__ void __launch_bounds__(kSumThreads, 1)
 
     // the tile leaves once: channel 2j + h of the group sits at h * w / 2 + j
     const int nq = w >> 2;
-    const float2* tile2 = reinterpret_cast<const float2*>(tile);
+    long long* copy = several ? multi + (size_t)bins.multi[item[0]] *
+                                            kNodes * g.C
+                              : nullptr;
     for (int i = threadIdx.x; i < kNodes * nq; i += kThreads) {
       const int node = i / nq, m = i - node * nq;
       const int lz = node % kB, ly = (node / kB) % kB, lx = node / (kB * kB);
       if (lx >= k.ex || ly >= k.ey || lz >= k.ez) continue;
-      const float2 lo = tile2[(node * w >> 1) + m];           // 4m, 4m + 2
-      const float2 hi = tile2[((node * w + lpe) >> 1) + m];   // 4m + 1, 4m + 3
-      const float4 v = make_float4(lo.x, hi.x, lo.y, hi.y);
-      float4* dst = node_row(grad_grid, g, k, lx, ly, lz) + (c0 >> 2) + m;
-      if (several) red_add4(dst, v);
-      else *dst = v;
+      const longlong2 lo = tile2l[(node * w >> 1) + m];          // 4m, 4m + 2
+      const longlong2 hi = tile2l[((node * w + lpe) >> 1) + m];  // 4m + 1, + 3
+      if (several) {
+        long long* dst = copy + (size_t)node * g.C + c0 + 4 * m;
+        if (lo.x) fx::red_add(dst + 0, lo.x);
+        if (hi.x) fx::red_add(dst + 1, hi.x);
+        if (lo.y) fx::red_add(dst + 2, lo.y);
+        if (hi.y) fx::red_add(dst + 3, hi.y);
+      } else {
+        node_row(grad_grid, g, k, lx, ly, lz)[(c0 >> 2) + m] = make_float4(
+            fx::dequantize(lo.x, inv), fx::dequantize(hi.x, inv),
+            fx::dequantize(lo.y, inv), fx::dequantize(hi.y, inv));
+      }
+    }
+    if (several) {
+      // the last of the brick's chunks (for this channel group) converts
+      // the int64 copy and stores it
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        const int n_ch = bins.chunk_start[item[0] + 1] -
+                         bins.chunk_start[item[0]];
+        last = atomicAdd(bins.tickets + (size_t)item[0] * n_groups + grp,
+                         1) == n_ch - 1;
+      }
+      __syncthreads();
+      if (last) {
+        __threadfence();
+        for (int i = threadIdx.x; i < kNodes * nq; i += kThreads) {
+          const int node = i / nq, m = i - node * nq;
+          const int lz = node % kB, ly = (node / kB) % kB,
+                    lx = node / (kB * kB);
+          if (lx >= k.ex || ly >= k.ey || lz >= k.ez) continue;
+          const longlong2* src = reinterpret_cast<const longlong2*>(
+              copy + (size_t)node * g.C + c0 + 4 * m);
+          const longlong2 a = __ldcg(src), b = __ldcg(src + 1);
+          node_row(grad_grid, g, k, lx, ly, lz)[(c0 >> 2) + m] = make_float4(
+              fx::dequantize(a.x, inv), fx::dequantize(a.y, inv),
+              fx::dequantize(b.x, inv), fx::dequantize(b.y, inv));
+        }
+      }
     }
     __syncthreads();
+  }
+}
+
+// the non-finite terms alone, as float adds onto the finished result: one
+// thread per (point, 4 channels), grid-stride; nothing unless the flag is up
+__global__ void trilinear_sample_backward_nonfinite_kernel(
+    const float* __restrict__ grad, const float* __restrict__ pts,
+    const float* __restrict__ center0, const unsigned* __restrict__ nf,
+    float* __restrict__ grad_grid, Geo g) {
+  if (*reinterpret_cast<const volatile unsigned*>(nf) == 0u) return;
+  const int cq = g.C >> 2;
+  const long long n = (long long)g.B * g.Q * cq;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long bq = i / cq;
+    const int q = (int)(i - bq * cq), b = (int)(bq / g.Q);
+    float qx, qy, qz;
+    if (!node_coords(pts, center0, bq, b, g, qx, qy, qz)) continue;
+    const float4 gv = reinterpret_cast<const float4*>(grad)[i];
+    const float fx0 = floorf(qx), fy0 = floorf(qy), fz0 = floorf(qz);
+    const float wx = qx - fx0, wy = qy - fy0, wz = qz - fz0;
+    const int ax = (int)fx0, ay = (int)fy0, az = (int)fz0;
+    for (int t = 0; t < 8; ++t) {
+      const int x = ax + (t >> 2), y = ay + ((t >> 1) & 1), z = az + (t & 1);
+      if (x < 0 || x >= g.X || y < 0 || y >= g.Y || z < 0 || z >= g.Z)
+        continue;
+      const float wt = ((t >> 2) ? wx : 1.f - wx) *
+                       (((t >> 1) & 1) ? wy : 1.f - wy) *
+                       ((t & 1) ? wz : 1.f - wz);
+      float* dst = grad_grid +
+                   ((((size_t)b * g.X + x) * g.Y + y) * g.Z + z) * g.C + 4 * q;
+      const float v[4] = {gv.x * wt, gv.y * wt, gv.z * wt, gv.w * wt};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (!isfinite(v[c])) atomicAdd(dst + c, v[c]);
+    }
   }
 }
 
@@ -505,14 +607,16 @@ int sum_blocks(int smem_bytes) {
 }  // namespace
 
 // grad [B, Q, C]; grad_grid [B, X, Y, Z, C], uninitialised (every element is
-// written); C % 4 == 0; `scratch` 3 * n_bricks + 3 ints (the counts, a done
-// counter, the entry offsets and the chunk offsets, n_bricks + 1 each) for
-// the n_bricks bricks of 8^3 nodes; `entries` 8 * B * Q float4;
-// B * Q * 8 < 2^31.
+// written); C % 4 == 0; `scratch` scratch_ints(n_bricks, C) ints (the counts,
+// a done counter, the entry offsets, the chunk offsets and the ranks, n_bricks
+// + 1 each, the tickets, n_bricks * ceil(C / 32), and the fixed point's two
+// words) for the n_bricks bricks of 8^3 nodes; `entries` 8 * B * Q float4;
+// `multi` int64, 8^3 * C for each brick that can hold several chunks (at
+// most min(n_bricks, 8 B Q / 1025 + 1)); B * Q * 8 < 2^31.
 extern "C" int tdv_trilinear_sample_backward(
     const float* grad, const float* pts, const float* center0,
-    float* grad_grid, int* scratch, float* entries, int B, long long Q, int X,
-    int Y, int Z, int C, float cell, void* stream) {
+    float* grad_grid, int* scratch, float* entries, long long* multi, int B,
+    long long Q, int X, int Y, int Z, int C, float cell, void* stream) {
   if (B <= 0 || X <= 0 || Y <= 0 || Z <= 0 || C <= 0) return 0;
   const Geo g{B, Q, X, Y, Z, C, cell, (X + kB - 1) / kB, (Y + kB - 1) / kB,
               (Z + kB - 1) / kB};
@@ -530,26 +634,34 @@ extern "C" int tdv_trilinear_sample_backward(
                                              : want);
   cudaStream_t s = (cudaStream_t)stream;
   float4* ent = reinterpret_cast<float4*>(entries);
+  int* tickets = scratch + 4 * n_bricks + 4;
+  unsigned* fxw =
+      reinterpret_cast<unsigned*>(tickets + (size_t)n_bricks * n_groups);
   const Bins bins{scratch, scratch + n_bricks, scratch + n_bricks + 1,
-                  scratch + 2 * n_bricks + 2};
+                  scratch + 2 * n_bricks + 2, scratch + 3 * n_bricks + 3,
+                  tickets, fxw};
   cudaMemsetAsync(scratch, 0, (n_bricks + 1) * sizeof(int), s);
+  cudaMemsetAsync(tickets, 0,
+                  ((size_t)n_bricks * n_groups + 2) * sizeof(int), s);
+  fx::amax(grad, n_pts, C, C, fxw, s);
   const long long bin_blocks = (n_pts + kBinThreads - 1) / kBinThreads;
   const bool shared_bins = n_bricks <= kSharedBins;
   const int sh = shared_bins ? n_bricks * (int)sizeof(int) : 0;
   trilinear_sample_backward_bin_kernel<false>
       <<<(unsigned)(bin_blocks > 0 ? bin_blocks : 1), kBinThreads, sh, s>>>(
-          pts, center0, g, bins, ent, grad_grid, n_bricks, chunk,
-          shared_bins);
+          pts, center0, g, bins, ent, multi, n_bricks, chunk, shared_bins);
   trilinear_sample_backward_bin_kernel<true>
       <<<(unsigned)(bin_blocks > n_bricks ? bin_blocks : n_bricks),
-         kBinThreads, sh, s>>>(pts, center0, g, bins, ent, grad_grid,
-                               n_bricks, chunk, shared_bins);
+         kBinThreads, sh, s>>>(pts, center0, g, bins, ent, multi, n_bricks,
+                               chunk, shared_bins);
   // at most every brick once plus one chunk per `chunk` entries (8 a point)
   const long long max_items =
       (n_bricks + (8 * n_pts + chunk - 1) / chunk) * (long long)n_groups;
   const int blocks = (int)(max_items < resident ? max_items : resident);
   trilinear_sample_backward_sum_kernel<<<blocks, kSumThreads, smem, s>>>(
-      grad, ent, bins, grad_grid, g, n_bricks, chunk, n_groups,
-      min(C, kGroup));
+      grad, ent, bins, grad_grid, multi, g, n_bricks, chunk, n_groups,
+      min(C, kGroup), fx::log2_ceil(Q > 0 ? Q : 1));
+  trilinear_sample_backward_nonfinite_kernel<<<132 * 4, 256, 0, s>>>(
+      grad, pts, center0, fxw + 1, grad_grid, g);
   return (int)cudaGetLastError();
 }

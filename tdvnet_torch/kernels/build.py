@@ -35,8 +35,8 @@ _F = ctypes.c_float
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
     "tdv_source_variance": [_P] * 7 + [_I, _L, _I, _I, _I, _I, _F, _F, _P],
-    "tdv_source_variance_backward": [_P] * 8 + [_I, _L, _I, _I, _I, _I, _F,
-                                                _F, _P],
+    "tdv_source_variance_backward": [_P] * 10 + [_I, _L, _I, _I, _I, _I, _I,
+                                                 _L, _L, _F, _F, _P],
     "tdv_trilinear_sample": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _F, _I,
                              _I, _P],
     "tdv_trilinear_sample_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
@@ -60,10 +60,11 @@ SIGNATURES = {
     "tdv_consistency_fuse": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     "tdv_scatter_dense_backward": [_P] * 5 + [_I] * 5 + [_P],
     "tdv_segment_max_backward": [_P] * 7 + [_L, _I, _L, _P],
-    "tdv_gather_concat_backward": [_P] * 6 + [_L, _I, _L, _I, _P],
-    "tdv_masked_group_norm_backward": [_P] * 13 + [_I, _I, _I, _L, _I, _I,
-                                                   _P],
-    "tdv_trilinear_sample_backward": [_P] * 6 + [_I, _L, _I, _I, _I, _I, _F,
+    "tdv_gather_concat_backward": [_P] * 8 + [_L, _I, _L, _I, _P],
+    "tdv_masked_group_norm_backward": [_P] * 16 + [_I, _I, _I, _L, _I, _I,
+                                                   _L, _I, _P],
+    "tdv_masked_group_norm_backward_shape": [_I, _I, _I, _L, _P],
+    "tdv_trilinear_sample_backward": [_P] * 7 + [_I, _L, _I, _I, _I, _I, _F,
                                                  _P],
 }
 

@@ -7,12 +7,14 @@ designs). The forward is two launches: a statistics pass whose blocks
 (sized by `stats_blocks` from the shape and the SM count, so that every
 U-Net level fills the card) sum float64 partials, the last block of each
 (batch, group) adding them in a fixed order into the statistics; then the
-apply pass with the tail. `masked_group_norm_ref` and
-`masked_group_norm_backward_ref` are the plain PyTorch twins; the wrappers
-run them only for CPU tensors. When autograd records a call (grad mode on
-and an input requiring grad), it goes through `MaskedGroupNormFn`, which
-keeps the forward's statistics and output for
-`masked_group_norm_backward`.
+apply pass with the tail. The backward is one cooperative launch: its
+reductions, in a fixed order with a ticket per (batch, group), then the
+apply, each work item waiting for its (batch, group)'s coefficients.
+`masked_group_norm_ref` and `masked_group_norm_backward_ref` are the plain
+PyTorch twins; the wrappers run them only for CPU tensors. When autograd
+records a call (grad mode on and an input requiring grad), it goes through
+`MaskedGroupNormFn`, which keeps the forward's statistics, bias and output
+for `masked_group_norm_backward`.
 """
 from __future__ import annotations
 
@@ -23,7 +25,6 @@ import torch.nn.functional as F
 
 from tdvnet_torch.kernels._launch import check, launch, on_cpu, wants_grad
 
-CHUNK = 4096              # voxels per block of the backward's reductions
 # the forward's statistics blocks: each sums STATS_VOXELS voxels of a
 # (batch, group) slice over a chunk of the group's channels, the chunks cut
 # until there are at least STATS_BLOCKS_PER_SM blocks an SM
@@ -34,6 +35,12 @@ _SM_COUNT = {}            # multiprocessors per device index
 # (device index, stream): the statistics pass's scratch, float64 partials
 # and uint32 tickets, reused by every call on that stream
 _SCRATCH = {}
+# (device index, stream): the backward's scratch, [float32 partials, sums
+# and coefficients; uint32 counters (zero between calls); uint32 ready
+# epochs; the last epoch], reused by every call on that stream
+_BACKWARD_SCRATCH = {}
+# (device index, B, C, G, V): the backward's block shape (CC, VB, n_vb)
+_BACKWARD_SHAPE = {}
 
 
 def _group_stats(x, mask, num_groups):
@@ -197,24 +204,25 @@ def _masked_group_norm(x, mask, num_groups, weight, bias, eps, relu, skip):
 
 
 class MaskedGroupNormFn(torch.autograd.Function):
-    """`masked_group_norm` with its hand backward; the forward's statistics
-    and output are kept for it (the output shows where the ReLU passed)."""
+    """`masked_group_norm` with its hand backward; the forward's statistics,
+    bias and output are kept for it (the backward recomputes the ReLU's
+    input from x and the bias, or after a skip reads the output)."""
 
     @staticmethod
     def forward(ctx, x, mask, weight, bias, skip, num_groups, eps, relu):
         out, stats = _masked_group_norm(x, mask, num_groups, weight, bias,
                                         eps, relu, skip)
-        ctx.save_for_backward(x, mask, weight, out, stats)
+        ctx.save_for_backward(x, mask, weight, bias, out, stats)
         ctx.num_groups, ctx.eps, ctx.relu = num_groups, eps, relu
         ctx.has_skip = skip is not None
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        x, mask, weight, out, stats = ctx.saved_tensors
+        x, mask, weight, bias, out, stats = ctx.saved_tensors
         dx, dw, db, ds = masked_group_norm_backward(
             grad.contiguous(), x, mask, ctx.num_groups, weight, out, stats,
-            ctx.eps, ctx.relu, ctx.has_skip)
+            ctx.eps, ctx.relu, ctx.has_skip, bias=bias)
         return dx, None, dw, db, ds, None, None, None
 
 
@@ -245,42 +253,94 @@ def masked_group_norm_backward(grad: torch.Tensor, x: torch.Tensor,
                                weight: torch.Tensor, out: torch.Tensor,
                                stats: Optional[torch.Tensor],
                                eps: float = 1e-5, relu: bool = False,
-                               skip: bool = False):
-    """Same contract as `masked_group_norm_backward_ref`; launches the CUDA
-    kernel for CUDA tensors, which reads the forward kernel's `stats`
-    [B*G, 4] (the twin recomputes them and ignores the argument)."""
+                               skip: bool = False, *, bias: torch.Tensor):
+    """Same contract as `masked_group_norm_backward_ref`, with the forward's
+    `bias` besides; launches the CUDA kernel for CUDA tensors, which reads
+    the forward kernel's `stats` [B*G, 4] (the twin recomputes them and
+    ignores the argument). A ReLU tail without skip is seen by recomputing
+    the forward's output from x and the bias (the same bits), one after a
+    skip by reading `out`."""
     if on_cpu(grad, x, mask, weight, out):
         return masked_group_norm_backward_ref(grad, x, mask, num_groups,
                                               weight, out, eps, relu, skip)
     B, C = x.shape[:2]
     G = num_groups
-    dims = tuple(x.shape[2:])
-    V = 1
-    for d in dims:
-        V *= d
+    shp = x.shape
+    V = x.numel() // (B * C) if B * C else 0
     for name, tsr in (("grad", grad), ("x", x), ("out", out)):
-        check(tsr, name, torch.float32, tuple(x.shape))
-    check(mask, "mask", torch.float32, (B, 1, *dims))
+        check(tsr, name, torch.float32, shp)
+    check(mask, "mask", torch.float32, (B, 1, *shp[2:]))
     check(weight, "weight", torch.float32, (C,))
     check(stats, "stats", torch.float32, (B * G, 4))
+    check(bias, "bias", torch.float32, (C,))
     dev = x.device
     dx = torch.empty_like(x)
     ds = torch.empty_like(x) if skip else None
     dw = torch.empty((C,), dtype=torch.float32, device=dev)
     db = torch.empty_like(dw)
-    n_chunks = -(-V // CHUNK)
-    partial = torch.empty((B * C, n_chunks, 2), dtype=torch.float32,
-                          device=dev)
-    chan = torch.empty((B * C, 2), dtype=torch.float32, device=dev)
-    coef = torch.empty((B * G, 2), dtype=torch.float32, device=dev)
     mode = 2 if skip else int(relu)
+    cc, vb, n_vb = _backward_shape(dev, B, C, G, V)
+    part, sync, ready, epoch = _backward_scratch(
+        dev, B * G * n_vb * (C // G) * 2 + B * C * 2 + B * G * 2,
+        B * G + G, B * G)
+    n_part = B * G * n_vb * (C // G) * 2
     launch("tdv_masked_group_norm_backward", dev, grad.data_ptr(),
            x.data_ptr(), mask.data_ptr(), out.data_ptr(), weight.data_ptr(),
+           bias.data_ptr(),
            stats.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-           ds.data_ptr() if skip else None, partial.data_ptr(),
-           chan.data_ptr(), coef.data_ptr(), B, C, G, V, mode, CHUNK)
+           ds.data_ptr() if skip else None, part,
+           part + 4 * n_part, part + 4 * (n_part + B * C * 2), sync, ready,
+           B, C, G, V, mode, cc, vb, epoch)
     masked_group_norm_backward.launches += 1
     return dx, dw, db, ds
+
+
+def _backward_shape(dev, B, C, G, V):
+    """(CC, VB, n_vb) of the backward kernel for this shape on this card
+    (`tdv_masked_group_norm_backward_shape`), cached."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, B, C, G, V)
+    have = _BACKWARD_SHAPE.get(key)
+    if have is None:
+        if C % G or C // G > 32 and (C // G) % 2:
+            raise ValueError(f"masked_group_norm_backward: C={C}, G={G} "
+                             f"not supported")
+        import ctypes
+
+        from tdvnet_torch.kernels.build import library
+
+        out = (ctypes.c_longlong * 3)()
+        with torch.cuda.device(index):
+            err = library().tdv_masked_group_norm_backward_shape(
+                B, C, G, V, out)
+        if err:
+            raise RuntimeError(f"masked_group_norm_backward: no block shape "
+                               f"for {(B, C, G, V)} (CUDA error {err})")
+        have = _BACKWARD_SHAPE[key] = (int(out[0]), int(out[1]), int(out[2]))
+    return have
+
+
+def _backward_scratch(dev, n_float, n_sync, n_ready):
+    """Pointers to the backward's scratch on `dev`'s current stream (float
+    partials, zeroed counters, ready epochs) and this call's epoch. The
+    counters are zeroed once, when made, and every launch leaves them zero;
+    the ready epochs keep the last call's, which the next epoch never
+    equals."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    have = _BACKWARD_SCRATCH.get(key)
+    if have is None or have[0].numel() < n_float \
+            or have[1].numel() < n_sync or have[2].numel() < n_ready:
+        epoch = have[3] if have is not None else 0
+        have = _BACKWARD_SCRATCH[key] = [
+            torch.empty((max(n_float, 1 << 14),), dtype=torch.float32,
+                        device=dev),
+            torch.zeros((max(n_sync, 256),), dtype=torch.int32, device=dev),
+            torch.zeros((max(n_ready, 256),), dtype=torch.int32, device=dev),
+            epoch]
+    have[3] = have[3] % 0x7fffffff + 1
+    return (have[0].data_ptr(), have[1].data_ptr(), have[2].data_ptr(),
+            have[3])
 
 
 masked_group_norm_backward.launches = 0

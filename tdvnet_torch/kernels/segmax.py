@@ -188,8 +188,8 @@ def gather_concat_backward(grad: torch.Tensor, y: torch.Tensor,
                            relu: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same contract as `gather_concat_backward_ref`; launches the CUDA
-    kernel for CUDA tensors (the segment sum by vector atomics, so its
-    order changes from run to run)."""
+    kernel for CUDA tensors (the segment sum in fixed point, so it is the
+    same bits on every launch)."""
     if on_cpu(grad, y, pooled, seg):
         return gather_concat_backward_ref(grad, y, pooled, seg, relu)
     P, C = y.shape
@@ -199,9 +199,12 @@ def gather_concat_backward(grad: torch.Tensor, y: torch.Tensor,
     check(grad, "grad", torch.float32, (P, 2 * C))
     gy = torch.empty_like(y)
     gp = torch.empty_like(pooled)
+    acc = torch.empty((n_seg, C), dtype=torch.int64, device=y.device)
+    fxw = torch.empty((2,), dtype=torch.int32, device=y.device)
     launch("tdv_gather_concat_backward", y.device, grad.data_ptr(),
            y.data_ptr(), pooled.data_ptr(), seg.data_ptr(), gy.data_ptr(),
-           gp.data_ptr(), P, C, n_seg, int(relu))
+           gp.data_ptr(), acc.data_ptr(), fxw.data_ptr(), P, C, n_seg,
+           int(relu))
     gather_concat_backward.launches += 1
     return gy, gp
 

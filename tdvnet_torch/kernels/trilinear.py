@@ -16,7 +16,8 @@ of a wider output, which autograd cannot follow: a sampling that must carry
 the grid's gradient goes through `trilinear_sample_scale`, which returns
 the scale's own [B, Q, C] from `TrilinearSampleFn` (backward:
 `trilinear_sample_backward`, which sums each brick of BRICK^3 nodes in one
-block's shared memory; see the kernel's header).
+block's shared memory, in fixed point so that it repeats bit for bit; see
+the kernel's header).
 """
 from __future__ import annotations
 
@@ -27,8 +28,11 @@ from tdvnet_torch.kernels._launch import (check, launch, no_backward,
 from tdvnet_torch.ops.sampling import _floor_in, trilinear_sample_batched
 
 # the backward kernel's bricks of BRICK^3 nodes, each summed in one block's
-# shared memory
+# shared memory, GROUP channels at a time; a brick whose list holds more
+# than one chunk of entries (at least MIN_CHUNK) adds into an int64 copy
 BRICK = 8
+GROUP = 32
+MIN_CHUNK = 1024
 
 
 def _node_coords(pts, center0, cell, cell_offset):
@@ -188,8 +192,8 @@ def trilinear_sample_backward(grad: torch.Tensor, pts: torch.Tensor,
                               center0: torch.Tensor, cell: float,
                               grid_shape) -> torch.Tensor:
     """Same contract as `trilinear_sample_backward_ref`; launches the CUDA
-    kernel for CUDA tensors (shared-memory atomics: the sum order changes
-    from run to run)."""
+    kernel for CUDA tensors (fixed-point integer sums: the same bits on
+    every launch, whatever order the points come in)."""
     if on_cpu(grad, pts, center0):
         return trilinear_sample_backward_ref(grad, pts, center0, cell,
                                              grid_shape)
@@ -206,13 +210,20 @@ def trilinear_sample_backward(grad: torch.Tensor, pts: torch.Tensor,
     n_bricks = brick_count(grid_shape)
     # every element of the output is written by the kernel
     out = torch.empty(tuple(grid_shape), dtype=torch.float32, device=dev)
-    scratch = torch.empty((3 * n_bricks + 3,), dtype=torch.int32, device=dev)
+    n_groups = -(-C // GROUP)
+    scratch = torch.empty((4 * n_bricks + 4 + n_bricks * n_groups + 2,),
+                          dtype=torch.int32, device=dev)
     # one 16-byte entry per (point, brick): at most 8 a point
     entries = torch.empty((8 * B * Q, 4), dtype=torch.float32, device=dev)
+    # an int64 copy of each brick whose entries fill several chunks (of at
+    # least MIN_CHUNK + 1 entries each); only those bricks are touched
+    n_multi = min(n_bricks, 8 * B * Q // (MIN_CHUNK + 1) + 1)
+    multi = torch.empty((n_multi, BRICK ** 3 * C), dtype=torch.int64,
+                        device=dev)
     launch("tdv_trilinear_sample_backward", dev, grad.data_ptr(),
            pts.data_ptr(), center0.data_ptr(), out.data_ptr(),
-           scratch.data_ptr(), entries.data_ptr(), B, Q, X, Y, Z, C,
-           float(cell))
+           scratch.data_ptr(), entries.data_ptr(), multi.data_ptr(), B, Q, X,
+           Y, Z, C, float(cell))
     trilinear_sample_backward.launches += 1
     return out
 

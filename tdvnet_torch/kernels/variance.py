@@ -7,7 +7,8 @@ Kernels: `csrc/source_variance.cu` and `csrc/source_variance_backward.cu`
 PyTorch twins; the wrappers run them only for CPU tensors. When autograd
 records a call (grad mode on and `feats` requiring grad), `source_variance`
 goes through `SourceVarianceFn`, whose backward is
-`source_variance_backward`.
+`source_variance_backward`, whose kernel sums in fixed point so that the
+gradient is the same bits on every launch (`csrc/fixed_sum.cuh`).
 """
 from __future__ import annotations
 
@@ -144,12 +145,13 @@ class SourceVarianceFn(torch.autograd.Function):
     per-point mean for `source_variance_backward`."""
 
     @staticmethod
-    def forward(ctx, pts_world, feats, src_idx, src_mask, P_all, img_size):
+    def forward(ctx, pts_world, feats, src_idx, src_mask, P_all, img_size,
+                plane):
         var, mean = _source_variance(pts_world, feats, src_idx, src_mask,
                                      P_all, img_size, True)
         ctx.save_for_backward(pts_world, feats, src_idx, src_mask, P_all,
                               mean)
-        ctx.img_size = img_size
+        ctx.img_size, ctx.plane = img_size, plane
         return var
 
     @staticmethod
@@ -157,25 +159,30 @@ class SourceVarianceFn(torch.autograd.Function):
         pts_world, feats, src_idx, src_mask, P_all, mean = ctx.saved_tensors
         g = source_variance_backward(grad.contiguous(), mean, pts_world,
                                      feats, src_idx, src_mask, P_all,
-                                     ctx.img_size)
-        return None, g, None, None, None, None
+                                     ctx.img_size, ctx.plane)
+        return None, g, None, None, None, None, None
 
 
 def source_variance(pts_world: torch.Tensor, feats: torch.Tensor,
                     src_idx: torch.Tensor, src_mask: torch.Tensor,
-                    P_all: torch.Tensor,
-                    img_size: Tuple[int, int]) -> torch.Tensor:
+                    P_all: torch.Tensor, img_size: Tuple[int, int],
+                    plane: Tuple[int, int]) -> torch.Tensor:
     """Same contract as `source_variance_ref`; launches the CUDA kernel for
     CUDA tensors. Differentiable in `feats` only: the JAX package stops the
     gradient of every point set it samples at, so a call where the points
-    or projections require grad raises rather than drop their gradient."""
+    or projections require grad raises rather than drop their gradient.
+    `plane` (h, w) says that the points are planes of h x w pixels (the
+    plane-sweep volume's depths, or the hypotheses over a depth map; (1, P)
+    for points in no such order): the backward
+    kernel tiles them by pixels and neighbouring planes, whose taps crowd
+    together."""
     if wants_grad(pts_world, P_all):
         raise NotImplementedError(
             "source_variance: no gradient with respect to the points or the "
             "projections (the JAX package stops it); detach them")
     if wants_grad(feats):
         return SourceVarianceFn.apply(pts_world, feats, src_idx, src_mask,
-                                      P_all, img_size)
+                                      P_all, img_size, plane)
     return _source_variance(pts_world, feats, src_idx, src_mask, P_all,
                             img_size, False)
 
@@ -186,10 +193,13 @@ source_variance.launches = 0
 def source_variance_backward(grad: torch.Tensor, mean: torch.Tensor,
                              pts_world: torch.Tensor, feats: torch.Tensor,
                              src_idx: torch.Tensor, src_mask: torch.Tensor,
-                             P_all: torch.Tensor,
-                             img_size: Tuple[int, int]) -> torch.Tensor:
+                             P_all: torch.Tensor, img_size: Tuple[int, int],
+                             plane: Tuple[int, int]) -> torch.Tensor:
     """Same contract as `source_variance_backward_ref`; launches the CUDA
-    kernel for CUDA tensors."""
+    kernel for CUDA tensors. Its sums are fixed-point integer sums, so the
+    result is the same bits on every launch, whatever order the points come
+    in; `plane` as for `source_variance` (it changes how the kernel tiles
+    the points, not the result)."""
     if on_cpu(grad, mean, pts_world, feats, src_idx, src_mask, P_all):
         return source_variance_backward_ref(grad, mean, pts_world, feats,
                                             src_idx, src_mask, P_all,
@@ -198,13 +208,19 @@ def source_variance_backward(grad: torch.Tensor, mean: torch.Tensor,
                                         P_all, "source_variance_backward")
     check(grad, "grad", torch.float32, (R, P, C))
     check(mean, "mean", torch.float32, (R, P, C))
+    h, w = plane
+    if h < 1 or w < 1:
+        raise ValueError(f"source_variance_backward: plane {plane} is empty")
     src_w = src_mask.to(torch.float32).contiguous()
     sx, sy = _feature_scale(feats, img_size)
-    out = torch.zeros_like(feats)
+    out = torch.empty_like(feats)
+    acc = torch.empty(feats.shape, dtype=torch.int64, device=feats.device)
+    scratch = torch.empty((4,), dtype=torch.int32, device=feats.device)
     launch("tdv_source_variance_backward", feats.device, grad.data_ptr(),
            mean.data_ptr(), feats.data_ptr(), pts_world.data_ptr(),
            src_idx.data_ptr(), src_w.data_ptr(), P_all.data_ptr(),
-           out.data_ptr(), R, P, S, Hf, Wf, C, sx, sy)
+           out.data_ptr(), acc.data_ptr(), scratch.data_ptr(), R, P, S, N,
+           Hf, Wf, C, h * w, w, sx, sy)
     source_variance_backward.launches += 1
     return out
 

@@ -102,7 +102,8 @@ class ThreeDVNet(nn.Module):
                                       self.cfg.img_size)
         feats = costvolume.hypothesis_point_variance(
             pts.detach(), feats_quarter, batch.src_idx, batch.src_mask,
-            batch.rotmats, batch.tvecs, batch.K, self.cfg.img_size)
+            batch.rotmats, batch.tvecs, batch.K, self.cfg.img_size,
+            plane=tuple(depth_pred.shape[-2:]))
         return pts, feats
 
     def scene_dense(self, depth_pred, feats_quarter, batch: FrameBatch,
@@ -174,7 +175,8 @@ class ThreeDVNet(nn.Module):
             var = costvolume.hypothesis_point_variance(
                 pts_hyp.reshape(R, H * P, 3), feats_quarter, batch.src_idx,
                 batch.src_mask, batch.rotmats, batch.tvecs, batch.K,
-                self.cfg.img_size)                                # [R, HP, C]
+                self.cfg.img_size,
+                plane=tuple(depth_pred.shape[-2:]))               # [R, HP, C]
         scene_feats = sample_scales(scales, pts_hyp.reshape(B, n_ref * H * P, 3),
                                     origins, g.edge_len)
         # as in the JAX package, the variance takes the scene features'

@@ -34,7 +34,7 @@ def plane_sweep_cost_volume(feats: torch.Tensor, rotmats: torch.Tensor,
                                     K[ref_idx], img_size, plane_size)
     P_all = camera.projection_matrix(K, rotmats, tvecs)
     var = source_variance(pts.contiguous(), feats.contiguous(), src_idx,
-                          src_mask, P_all.contiguous(), img_size)
+                          src_mask, P_all.contiguous(), img_size, (h, w))
     return var.reshape(ref_idx.shape[0], n_planes, h, w, -1)
 
 
@@ -42,11 +42,15 @@ def hypothesis_point_variance(pts_world: torch.Tensor, feats: torch.Tensor,
                               src_idx: torch.Tensor, src_mask: torch.Tensor,
                               rotmats: torch.Tensor, tvecs: torch.Tensor,
                               K: torch.Tensor,
-                              img_size: Tuple[int, int]) -> torch.Tensor:
-    """Variance feature [R, P, C] at world points [R, P, 3] owned by ref r."""
+                              img_size: Tuple[int, int],
+                              plane: Tuple[int, int]) -> torch.Tensor:
+    """Variance feature [R, P, C] at world points [R, P, 3] owned by ref r;
+    `plane` (h, w): the points are planes of an h x w pixel grid (see
+    `source_variance`)."""
     P_all = camera.projection_matrix(K, rotmats, tvecs)
     return source_variance(pts_world.contiguous(), feats.contiguous(),
-                           src_idx, src_mask, P_all.contiguous(), img_size)
+                           src_idx, src_mask, P_all.contiguous(), img_size,
+                           plane)
 
 
 def hypothesis_patch_variance(pts_hyp: torch.Tensor, feats: torch.Tensor,

@@ -5,7 +5,7 @@
 From the synth48 weights (`weights/3dvnet_synth48.npz`) and the synthetic
 golden batch of `chip_smoke.py` (two scenes x 9 views, 7 refs each):
 `infer_depth` at the chip_smoke offsets, then warm train steps at n_iters
-0 and 1 (the non-finetune regime, lambda 0.5), each timed on the host
+0, 1 and 2 (the non-finetune regime, lambda 0.5), each timed on the host
 clock to a synchronise after two warm-up calls. Prints one JSON line with
 every time and the medians. To compare two trees in one call, run it from
 each tree's root with that root first on the path, alternating:
@@ -65,7 +65,7 @@ def run(root: str, batches: int, steps: int):
         rec["infer_ms"] = _times(lambda: model.infer_depth(batch, OFFSETS),
                                  batches)
     cfg = Config()
-    for n_iters in (0, 1):
+    for n_iters in (0, 1, 2):
         model = load_threedvnet(weights, device=device)
         state = L.TrainState(model, L.make_optimizer(cfg, model, 1))
         step = L.make_train_step(model, cfg, n_iters)

@@ -96,7 +96,7 @@ def _variance_args(pts, feats, src_idx, P_all):
 def variance_bytes(args) -> int:
     """The byte bound's count: points, feature maps and projections read
     once, the source table read once, the output written once."""
-    pts, feats, src_idx, _, P_all, _ = args
+    pts, feats, src_idx, _, P_all = args[:5]
     out = pts[..., 0].numel() * feats.shape[-1]
     return 4 * (pts.numel() + feats.numel() + out + P_all.numel()
                 + src_idx.numel() * 3)
@@ -246,6 +246,10 @@ def time_inputs(named, iters, ablate):
     for label, (kernel, args) in named.items():
         mod = modules[kernel]
         fn = getattr(mod, kernel)
+        # a synthetic call takes a plane of all its points (the forward
+        # does not read it); a captured one has the caller's
+        if kernel == "source_variance" and len(args) == 6:
+            args = args + ((1, args[0].shape[1]),)
         shape = list(args[0].shape[:-1]) + [args[1].shape[-1]]
         bound = 1e3 * variance_bytes(args) / HBM_BYTES_PER_S
         runs = [("", args)]

@@ -16,6 +16,7 @@ new state.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -137,13 +138,33 @@ def n_iters_for_epoch(cfg: Config, epoch: int) -> int:
     return t.n_iters_early
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithm picks inside the block, the caller's
+    flags restored after it. cuDNN's default weight- and data-gradient picks
+    for convolutions sum through atomics in a run-dependent order; the
+    deterministic ones do not. The flags are process-wide, so they also
+    reach the autograd engine's device thread, where the backward's
+    convolutions run."""
+    cd = torch.backends.cudnn
+    saved = cd.deterministic, cd.benchmark
+    cd.deterministic, cd.benchmark = True, False
+    try:
+        yield
+    finally:
+        cd.deterministic, cd.benchmark = saved
+
+
 def make_train_step(model: ThreeDVNet, cfg: Config, n_iters: int):
     """A train step for a fixed n_iters: step(state, batch, lam) runs the
     forward in train mode (the backbone's BatchNorm in eval mode unless
     finetuning), the backward and one optimizer update, and returns
     (state, {"loss", "loss_2d"}) with the losses as device scalars. The
     three phases are profiler spans: train_forward, train_backward,
-    train_optimizer."""
+    train_optimizer. The backward runs under `deterministic_cudnn` and the
+    port's backward kernels sum in fixed point, so a step repeats bit for
+    bit on the card; the forward (as inference) keeps cuDNN's default
+    picks, and already repeats."""
     offsets = list(cfg.train.offsets)
     bb_train = bool(cfg.train.finetune)
     span = torch.profiler.record_function
@@ -154,7 +175,7 @@ def make_train_step(model: ThreeDVNet, cfg: Config, n_iters: int):
         with span("train_forward"):
             out = model(batch, offsets, n_iters, lam, with_metrics=False,
                         backbone_train=bb_train)
-        with span("train_backward"):
+        with span("train_backward"), deterministic_cudnn():
             out["loss"].backward()
         with span("train_optimizer"):
             state.optimizer.step()

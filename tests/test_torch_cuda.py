@@ -73,7 +73,7 @@ def test_kernels_match_twins_at_hostile_coordinates():
     smask = torch.tensor([[True, True, False], [True, True, True]],
                          device=dev)
     args = (pts, feats, sidx, smask, P_all.contiguous(), (64, 80))
-    got, want = source_variance(*args), source_variance_ref(*args)
+    got, want = source_variance(*args, (1, 9)), source_variance_ref(*args)
     assert torch.isnan(want[:, -1]).all()       # z = 3e38 overflows
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)
 
@@ -504,15 +504,16 @@ def test_source_variance_backward_kernel_matches_twin_small():
     img = (64, 80)
     _, mean = source_variance_ref(pts, feats, sidx, smask, P_all, img,
                                   with_mean=True)
+    plane = (1, pts.shape[1])
     got = K.source_variance_backward(grad, mean, pts, feats, sidx, smask,
-                                     P_all, img)
+                                     P_all, img, plane)
     want = K.source_variance_backward(*(x.cpu() for x in (
-        grad, mean, pts, feats, sidx, smask, P_all)), img)
+        grad, mean, pts, feats, sidx, smask, P_all)), img, plane)
     # atomics sum in a run-dependent order
     assert torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5)
     # the forward's mean output equals the twin's
     f = feats.clone().requires_grad_()
-    K.source_variance(pts, f, sidx, smask, P_all, img).backward(grad)
+    K.source_variance(pts, f, sidx, smask, P_all, img, plane).backward(grad)
     assert torch.allclose(f.grad.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
@@ -581,14 +582,16 @@ def test_wrappers_raise_or_differentiate_when_inputs_require_grad():
                               torch.zeros(1, 10, 8, dtype=torch.bfloat16,
                                           device=dev), 0)
     with pytest.raises(NotImplementedError, match="points"):
-        K.source_variance(rg(pts), feats, sidx, smask, P_all, (64, 80))
+        K.source_variance(rg(pts), feats, sidx, smask, P_all, (64, 80),
+                          (1, pts.shape[1]))
     from tdvnet_torch.kernels.trilinear import trilinear_sample_scale
 
     with pytest.raises(NotImplementedError, match="points"):
         trilinear_sample_scale(grid, rg(q), c0, 0.5)
     # the eight with a hand backward carry a grad_fn and count both launches
     K.reset_launch_counts()
-    v = K.source_variance(pts, rg(feats), sidx, smask, P_all, (64, 80))
+    v = K.source_variance(pts, rg(feats), sidx, smask, P_all, (64, 80),
+                          (1, pts.shape[1]))
     d = K.softargmax_depth(rg(torch.randn(2, 8, 4, 4, device=dev)),
                            torch.linspace(0.5, 1, 8, device=dev))
     p = K.propagation_blend(rg(torch.randn(2, 4, 5, 9, device=dev)),
@@ -1259,3 +1262,215 @@ def test_masked_group_norm_kernel_matches_twin_at_edges(name, C, G):
     assert int((bits(stats[:, :2].cpu()) - bits(ref)).abs().max()) <= 1
     assert torch.equal(stats[:, 2].cpu(),
                        cnt.expand(B, G).reshape(-1).float())
+
+
+# --------------------------------------------- order-free backward sums
+# K1/K2's, K6's and the concat-back's backward kernels sum in fixed point
+# (csrc/fixed_sum.cuh) and K5's in a fixed order: each must give the same
+# bits on a second launch and, where the sum runs over points, with the
+# points shuffled; a NaN or an Inf in the incoming gradient must come out
+# where the twin's float sum puts it.
+def _poison(g, seed):
+    """A copy of g with a NaN, a +Inf and a -Inf at seeded places."""
+    g = g.clone()
+    flat = g.view(-1)
+    if flat.numel() < 3:
+        return g
+    i = torch.randperm(flat.numel(),
+                       generator=torch.Generator().manual_seed(seed))[:3]
+    for j, v in zip(i.tolist(), (float("nan"), float("inf"),
+                                 float("-inf"))):
+        flat[j] = v
+    return g
+
+
+def _nonfinite_check(got, want, tol):
+    """NaN and each signed Inf where the twin has them; elsewhere within
+    `tol` of the twin's largest finite magnitude (at least 1)."""
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    if fin.any():
+        scale = max(1.0, float(want[fin].abs().max()))
+        assert float((got[fin] - want[fin]).abs().max()) <= tol * scale
+
+
+def _perm(n, device, seed=5):
+    return torch.randperm(n, generator=torch.Generator().manual_seed(
+        seed)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4, 12, 32, 64])
+@pytest.mark.parametrize("name", ["scattered", "edges", "nonfinite",
+                                  "ragged"])
+def test_source_variance_backward_is_order_free_at_edges(name, C):
+    """K1's backward against its twin on the edge inputs (NaN for NaN,
+    within the variance backward's tolerance), and the same bits on a
+    second launch, with the points shuffled and with the points tiled as
+    planes of pixels; a non-finite incoming gradient gives the twin's
+    non-finite pattern. C = 12 shares no projections across lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import _kernel_edge_cases as E
+    import chip_smoke
+    from tdvnet_torch.kernels import variance as K
+
+    pts, feats, sidx, smask, P_all, img = _variance_inputs(
+        E.variance_case(name, C), "cuda")
+    _, mean = K._source_variance(pts, feats, sidx, smask, P_all, img, True)
+    R, P = pts.shape[:2]
+    grad = torch.randn(R, P, C, generator=torch.Generator().manual_seed(
+        1)).cuda()
+    cpu = lambda *a: tuple(x.cpu() if torch.is_tensor(x) else x for x in a)
+    rest = (sidx, smask, P_all, img)
+    tol = chip_smoke.VARIANCE_BACKWARD_TOL
+    got = K.source_variance_backward(grad, mean, pts, feats, *rest, (1, P))
+    want = K.source_variance_backward_ref(*cpu(grad, mean, pts, feats,
+                                               *rest))
+    _variance_check(got.cpu(), want, tol)
+    assert _same_bits(got, K.source_variance_backward(grad, mean, pts,
+                                                      feats, *rest, (1, P)))
+    assert _same_bits(got, K.source_variance_backward(
+        grad, mean, pts, feats, *rest, (1, max(P // 3, 1))))
+    assert _same_bits(got, K.source_variance_backward(
+        grad, mean, pts, feats, *rest, (3, max(P // 9, 1))))
+    i = _perm(P, "cuda")
+    shuf = K.source_variance_backward(
+        grad[:, i].contiguous(), mean[:, i].contiguous(),
+        pts[:, i].contiguous(), feats, *rest, (1, P))
+    assert _same_bits(got, shuf)
+    bad = _poison(grad, 2)
+    _nonfinite_check(K.source_variance_backward(bad, mean, pts, feats,
+                                                *rest, (1, P)),
+                     K.source_variance_backward_ref(
+                         *cpu(bad, mean, pts, feats, *rest)), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crowded", [False, True])
+@pytest.mark.parametrize("case", ["brick_faces", "grid_edges", "nonfinite",
+                                  "one_cell", "no_points", "four_channels"])
+def test_trilinear_backward_is_order_free_at_edges(case, crowded):
+    """K6's grid backward on the edge inputs, as they are and crowded into
+    bricks of several chunks (which add into an int64 copy of the brick):
+    the same bits on a second launch and with the points shuffled, and a
+    non-finite incoming gradient gives the twin's non-finite pattern."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import trilinear as T
+
+    dev = torch.device("cuda")
+    (grad, pts, c0), cell, shape = _tri_inputs(case, dev)
+    Q = pts.shape[1]
+    if crowded and Q:
+        reps = -(-120000 // Q)
+        pts = pts.repeat(1, reps, 1)
+        grad = torch.randn(grad.shape[0], Q * reps, grad.shape[2],
+                           generator=torch.Generator().manual_seed(3)).to(dev)
+        Q = pts.shape[1]
+    got = T.trilinear_sample_backward(grad, pts, c0, cell, shape)
+    _tri_check(got, T.trilinear_sample_backward_ref(grad, pts, c0, cell,
+                                                    shape))
+    assert _same_bits(got, T.trilinear_sample_backward(grad, pts, c0, cell,
+                                                       shape))
+    i = _perm(Q, dev)
+    assert _same_bits(got, T.trilinear_sample_backward(
+        grad[:, i].contiguous(), pts[:, i].contiguous(), c0, cell, shape))
+    bad = _poison(grad, 4)
+    _nonfinite_check(T.trilinear_sample_backward(bad, pts, c0, cell, shape),
+                     T.trilinear_sample_backward_ref(bad, pts, c0, cell,
+                                                     shape),
+                     chip_smoke.BACKWARD_TOL)
+
+
+def _concat_case(P, C, n_seg, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn(P, C, generator=g)
+    # a few segments hold most rows, some none
+    seg = torch.randint(0, n_seg, (P,), generator=g)
+    seg[: P // 2] = torch.randint(0, 3, (P // 2,), generator=g)
+    pooled = torch.randn(n_seg, C, generator=g)
+    grad = torch.randn(P, 2 * C, generator=g)
+    return [t.to(device) for t in (grad, y, pooled, seg)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("P,C,n_seg", [(1, 4, 1), (37, 8, 9),
+                                       (5000, 128, 700)])
+def test_concat_back_is_order_free(P, C, n_seg, relu):
+    """K4's concat-back against its twin: its segment sum in fixed point is
+    the same bits on a second launch and with the rows shuffled, and a
+    non-finite incoming gradient gives the twin's non-finite pattern."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import segmax as K
+
+    grad, y, pooled, seg = _concat_case(P, C, n_seg, 7, "cuda")
+    tol = chip_smoke.ATOMIC_BACKWARD_TOL
+    gy, gp = K.gather_concat_backward(grad, y, pooled, seg, relu)
+    wy, wp = K.gather_concat_backward_ref(grad.cpu(), y.cpu(), pooled.cpu(),
+                                          seg.cpu(), relu)
+    assert torch.equal(gy.cpu(), wy)
+    _nonfinite_check(gp, wp, tol)
+    gy2, gp2 = K.gather_concat_backward(grad, y, pooled, seg, relu)
+    assert _same_bits(gy, gy2) and _same_bits(gp, gp2)
+    i = _perm(P, "cuda")
+    gy3, gp3 = K.gather_concat_backward(grad[i], y[i], pooled, seg[i], relu)
+    assert _same_bits(gp, gp3) and _same_bits(gy[i], gy3)
+    bad = _poison(grad, 6)
+    _nonfinite_check(K.gather_concat_backward(bad, y, pooled, seg, relu)[1],
+                     K.gather_concat_backward_ref(bad.cpu(), y.cpu(),
+                                                  pooled.cpu(), seg.cpu(),
+                                                  relu)[1], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,G", [(8, 2), (64, 4), (128, 8)])
+@pytest.mark.parametrize("name", ["one_voxel", "ragged", "level2", "level1",
+                                  "level0", "one_active", "empty",
+                                  "two_counts", "large_mean"])
+def test_masked_group_norm_backward_repeats_at_edges(name, C, G):
+    """K5's one-launch backward against its twin on the edge inputs (the
+    three U-Net level sizes among them) in the three tails: within
+    BACKWARD_TOL of the twin's largest, the same bits on a second launch,
+    and a non-finite incoming gradient gives the twin's non-finite
+    pattern."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import groupnorm as K
+
+    x, mask, skip, w, b, G = _gn_inputs(name, C, G, "cuda")
+    grad = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        8)).cuda()
+    tol = chip_smoke.BACKWARD_TOL
+    for tail, kw in (("none", {}), ("relu", {"relu": True}),
+                     ("skip", {"skip": skip})):
+        relu, sk = kw.get("relu", False), kw.get("skip")
+        out, stats = K._masked_group_norm(x, mask, G, w, b, 1e-5, relu, sk)
+        args = (x, mask, G, w, out, stats, 1e-5, relu, sk is not None)
+        got = K.masked_group_norm_backward(grad, *args, bias=b)
+        want = K.masked_group_norm_backward_ref(
+            grad.cpu(), x.cpu(), mask.cpu(), G, w.cpu(), out.cpu(), 1e-5,
+            relu, sk is not None)
+        for a, c in zip(got, want):
+            if c is not None:
+                _nonfinite_check(a, c, tol)
+        again = K.masked_group_norm_backward(grad, *args, bias=b)
+        for a, c in zip(got, again):
+            if a is not None:
+                assert _same_bits(a, c), tail
+        bad = _poison(grad, 9)
+        got = K.masked_group_norm_backward(bad, *args, bias=b)
+        want = K.masked_group_norm_backward_ref(
+            bad.cpu(), x.cpu(), mask.cpu(), G, w.cpu(), out.cpu(), 1e-5,
+            relu, sk is not None)
+        for a, c in zip(got, want):
+            if c is not None:
+                _nonfinite_check(a, c, tol)

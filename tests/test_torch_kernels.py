@@ -58,7 +58,8 @@ def test_source_variance_ref_matches_point_variance(scene):
                                     jb.tvecs, jb.K, cfg.model.img_size)
     b = T.hypothesis_point_variance(t(pts), t(feats), tb.src_idx,
                                     t(np.asarray(mask)), tb.rotmats,
-                                    tb.tvecs, tb.K, cfg.model.img_size)
+                                    tb.tvecs, tb.K, cfg.model.img_size,
+                                    (1, pts.shape[1]))
     np.testing.assert_allclose(np.asarray(a), n(b), rtol=1e-4, atol=2e-5)
     assert np.abs(n(b)[:, 2:]).max() > 0.1     # not all out of view
     np.testing.assert_array_equal(n(b)[:, 0], 0.0)

@@ -91,7 +91,8 @@ def test_wrappers_run_their_twin_on_cpu_and_count_nothing():
     P_all = torch.cat([torch.eye(3).expand(3, 3, 3) * 5,
                        torch.zeros(3, 3, 1)], -1)
     args = (pts, feats, sidx, smask, P_all, (24, 28))
-    assert torch.equal(K.source_variance(*args), source_variance_ref(*args))
+    assert torch.equal(K.source_variance(*args, (1, 5)),
+                       source_variance_ref(*args))
     grid, q = r(2, 4, 5, 6, 8), r(2, 9, 3)
     c0 = r(2, 3)
     out = torch.zeros(2, 9, 12)
@@ -184,7 +185,7 @@ def test_wrappers_run_their_twin_on_cpu_and_count_nothing():
     go, bias = r(2, 8, 3, 4, 5), r(8)
     out = masked_group_norm_ref(x, m, 4, w, bias, relu=True)
     for a, c in zip(K.masked_group_norm_backward(go, x, m, 4, w, out, None,
-                                                 relu=True),
+                                                 relu=True, bias=bias),
                     masked_group_norm_backward_ref(go, x, m, 4, w, out,
                                                    relu=True)):
         assert (a is None and c is None) or torch.equal(a, c)

@@ -111,8 +111,9 @@ def test_source_variance_wrapper_differentiates_feats_only(variance_case):
     P_t = TC.projection_matrix(tb.K, tb.rotmats, tb.tvecs)
     f1, f2 = t(feats).requires_grad_(), t(feats).requires_grad_()
     K.reset_launch_counts()
-    K.source_variance(t(pts), f1, tb.src_idx, t(mask), P_t, img).backward(
-        t(g))
+    plane = (1, pts.shape[1])
+    K.source_variance(t(pts), f1, tb.src_idx, t(mask), P_t, img,
+                      plane).backward(t(g))
     source_variance_ref(t(pts), f2, tb.src_idx, t(mask), P_t, img).backward(
         t(g))
     assert _rel_l2(n(f1.grad), n(f2.grad)) < 1e-5
@@ -120,10 +121,10 @@ def test_source_variance_wrapper_differentiates_feats_only(variance_case):
     assert all(v == 0 for v in K.launch_counts().values())
     with pytest.raises(NotImplementedError, match="points"):
         K.source_variance(t(pts).requires_grad_(), t(feats), tb.src_idx,
-                          t(mask), P_t, img)
+                          t(mask), P_t, img, plane)
     with torch.no_grad():
         K.source_variance(t(pts).requires_grad_(), f1, tb.src_idx, t(mask),
-                          P_t, img)
+                          P_t, img, plane)
 
 
 def test_softargmax_backward_ref_matches_autograd_and_jax():
