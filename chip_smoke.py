@@ -293,6 +293,9 @@ KERNEL_META = {
                          ("softargmax_depth",)),
     "voxelize": ("tdvnet_torch/csrc/voxelize.cu", "tdvnet/ops/voxelize.py:60",
                  ("voxelize", "scatter_anchors_to_dense")),
+    "segment_plan": ("tdvnet_torch/csrc/segment_plan.cu",
+                     "tdvnet/models/pointnet.py:19 (the segments of "
+                     "`_segmax`)", ("segment_plan",)),
     "segment_max": ("tdvnet_torch/csrc/segment_max.cu",
                     "tdvnet/models/pointnet.py:19",
                     ("segment_max", "gather_concat")),
@@ -355,8 +358,8 @@ def expected_launches(offsets_list, n_chunks, unet_res, fast_patch=False,
     """Launches per wrapper in one inference over `n_chunks` ref chunks
     (`infer_depth` is the one-chunk case), counted from the code: the cost
     volume per chunk; per refinement iteration one scene model (point
-    cloud variance, voxelize, PointNet with 4 pools and 3 concat-backs,
-    scatter, U-Net) and per chunk and offset pass one variance and three
+    cloud variance, voxelize, PointNet with one segment plan, 4 pools and
+    3 concat-backs, scatter, U-Net) and per chunk and offset pass one variance and three
     scale samplings; three propagation blends per chunk. On the fast path
     (`n_tables`, the int8 tables left per iteration: 1 when the scales
     merge into one grid) each pass samples every table with
@@ -374,6 +377,7 @@ def expected_launches(offsets_list, n_chunks, unet_res, fast_patch=False,
             "propagation_blend": 3 * n_chunks,
             "softargmax_depth": n_chunks,
             "voxelize": n_iters, "scatter_anchors_to_dense": n_iters,
+            "segment_plan": n_iters,
             "segment_max": 4 * n_iters, "gather_concat": 3 * n_iters,
             "masked_group_norm": gn * n_iters,
             "source_variance_backward": 0, "softargmax_depth_backward": 0,
@@ -387,10 +391,11 @@ def train_expected_launches(n_steps, n_iters=0, n_offsets=0, unet_res=()):
     """Launches per wrapper in `n_steps` train steps at `n_iters`, counted
     from the code: per step the forward's cost volume, soft-argmax and three
     propagation blends; per refinement iteration one scene cloud variance,
-    one voxelize, one scatter, four pools, three concat-backs and the
-    U-Net's GroupNorms; per offset pass one hypothesis variance and three
-    scale samplings. Every one of them but the voxelize has its backward's
-    launch too (voxelization takes no gradient)."""
+    one voxelize, one scatter, one segment plan, four pools, three
+    concat-backs and the U-Net's GroupNorms; per offset pass one hypothesis
+    variance and three scale samplings. Every one of them but the voxelize
+    and the plan has its backward's launch too (neither takes a
+    gradient)."""
     out = {w: 0 for w in expected_launches((), 1, ())}
     gn = sum(a + b for a, b in group_norm_calls(unet_res))
     forward = {"source_variance": 1 + n_iters * (1 + n_offsets),
@@ -401,7 +406,7 @@ def train_expected_launches(n_steps, n_iters=0, n_offsets=0, unet_res=()):
                "trilinear_sample": 3 * n_iters * n_offsets}
     for k, n in forward.items():
         out[k] = out[k + "_backward"] = n * n_steps
-    out["voxelize"] = n_iters * n_steps
+    out["voxelize"] = out["segment_plan"] = n_iters * n_steps
     return out
 
 
@@ -486,22 +491,24 @@ MAIN_PATHS = {"trilinear_sample_i8": "fast", "patch_fan_variance": "fast",
               "batched_dot": "probe", "take_along_axis": "probe"}
 
 
-def fast_cases(device, gen, fan_args):
-    """The fast path's kernels at one chunk pass (16 refs) of the fast golden
-    scene, counted per inference of that scene (its chunks x 4 passes, as
-    phase 7a launches them): the patch-fan variance of a chunk's hypothesis
-    fans (`fan_args`: the first streamed scene's cameras and depths, from
-    `time_variance.scene_inputs`), and the int8 sampling of the merged,
-    projected table of the golden scene's grid."""
+def fast_cases(device, gen, inputs):
+    """The fast path's kernels at one chunk pass (16 refs), counted per
+    inference of the fast golden scene (its chunks x 4 passes, as phase 7a
+    launches them): the patch-fan variance of a chunk's hypothesis fans and
+    the int8 sampling of a merged, projected table at the chunk's
+    hypothesis points (`inputs`: `time_variance.scene_inputs` of the first
+    streamed scene's cameras and depths)."""
     import torch
 
-    from tdvnet_torch.config import EvalConfig, ModelConfig
+    from tdvnet_torch.config import EvalConfig
     from tdvnet_torch.kernels import patch_fan_variance, trilinear_sample_i8
     from tdvnet_torch.kernels.patchfan import patch_fan_variance_ref
     from tdvnet_torch.kernels.trilinear import trilinear_sample_i8_ref
+    from tdvnet_torch.tools.time_pool_i8 import i8_bytes, i8_cases
     from tdvnet_torch.tools.time_variance import variance_bytes
 
-    cfg, ev = ModelConfig(), EvalConfig()
+    ev = EvalConfig()
+    fan_args = inputs["patch_fan"]
     rec = scene_golden_record(FAST_SCENE_GOLDEN)
     per_scene = -(-rec["n_refs"] // ev.fused_chunk) * sum(
         len(o) for o in rec["offsets"])
@@ -517,39 +524,35 @@ def fast_cases(device, gen, fan_args):
         variance_bytes(fan_args),
         R * S * Hh * P * (24 + 11 * f) + R * Hh * P * f * 4, path="fast")]
 
-    # the merged grid of the golden scene, padded by 3 low-side nodes,
-    # projected to fast_rank channels; a fifth of the cells active
-    dims = tuple(d + 3 for d in rec["grid_size"])
-    C = ev.fast_rank
-    edge = cfg.grid.edge_len
-    active = torch.rand(1, *dims, 1, generator=gen) < 0.2
-    grid = (torch.randint(-127, 128, (1, *dims, C), generator=gen)
-            * active).to(torch.int8).to(device).contiguous()
-    scale = (torch.rand(1, C, generator=gen) * 0.05 + 1e-3).to(device)
-    Q = R * Hh * P
-    center0 = (torch.randn(1, 3, generator=gen) * 0.1).to(device)
-    extent = torch.tensor(dims, dtype=torch.float32) * edge
-    # queries over the grid and a margin around it, so some fall outside
-    pts_q = (center0.cpu()[:, None, :] - 3.3 * edge
-             + torch.rand(1, Q, 3, generator=gen) * (extent + 0.6)
-             ).to(device).contiguous()
-    out = torch.empty(1, Q, C, dtype=torch.bfloat16, device=device)
-    a = (grid, scale, pts_q, center0, edge)
-    cases.append(Case(
-        "trilinear_sample_i8", f"int8 [1,{dims[0]}x{dims[1]}x{dims[2]},{C}]"
-        f" x {Q} queries", per_scene,
-        lambda a=a: trilinear_sample_i8(*a, out, 0, cell_offset=3.0),
-        lambda a=a: trilinear_sample_i8_ref(*a, cell_offset=3.0), BF16_ULP,
-        grid.numel() + 4 * (scale.numel() + pts_q.numel() + 3) + 2 * Q * C,
-        Q * (30 + 17 * C), path="fast"))
+    # the int8 sampling of one fast chunk pass at C = fast_rank in a merged
+    # table padded by 3 low-side nodes (`time_pool_i8.i8_cases`): counted on
+    # the chunk's hypothesis points of the first streamed scene in the grid
+    # sized for its cloud; on uniform queries over the golden scene's grid
+    # and a margin around it, checked and timed, counted 0 times. The bound
+    # counts the int8 nodes the taps touch
+    for name, a in i8_cases(device, gen, inputs).items():
+        grid, scale, pts_q, center0, cell, n_ch, off, c_off = a
+        B, Q = pts_q.shape[:2]
+        C = grid.shape[-1]
+        out = torch.empty(B, Q, n_ch, dtype=torch.bfloat16, device=device)
+        cases.append(Case(
+            "trilinear_sample_i8", f"{name} int8 [1,{grid.shape[1]}x"
+            f"{grid.shape[2]}x{grid.shape[3]},{C}] x {Q} queries",
+            per_scene if name.startswith("hypothesis") else 0,
+            lambda a=a, out=out: trilinear_sample_i8(
+                *a[:5], out, a[6], cell_offset=a[7]),
+            lambda a=a: trilinear_sample_i8_ref(*a[:5], cell_offset=a[7]),
+            0.0, i8_bytes(a), Q * (30 + 17 * C), path="fast"))
     return cases
 
 
-def scene_model_cases(device, gen, label, path, P, B, grid, A, unet):
-    """The calls one scene modelling makes to the voxelize, segment-max and
-    masked-GroupNorm kernels: P points of B scenes into `grid` with A
-    anchors, on seeded random points in a box a little larger than the
-    grid (some fall outside; a tenth are invalid)."""
+def scene_model_cases(device, gen, label, path, P, B, grid, A, unet, cloud):
+    """The calls one scene modelling makes to the voxelize, segment-plan,
+    segment-max and masked-GroupNorm kernels: P points of B scenes into
+    `grid` with A anchors, on seeded random points in a box a little larger
+    than the grid (some fall outside; a tenth are invalid); K4's counted
+    calls on `cloud`, the (y, seg, valid, n_seg) of the main path's own
+    cloud (`time_pool_i8.cloud_pool_cases`)."""
     import torch
 
     from tdvnet_torch.kernels import groupnorm, segmax, voxelize as vox
@@ -592,27 +595,13 @@ def scene_model_cases(device, gen, label, path, P, B, grid, A, unet):
         library=lambda c=C: torch.zeros(n_cells, c, device=device)
         .index_put_((seg_a,), feats_a), path=path))
 
-    C = 128
-    y = rnd(P, C)
-    n_seg = A + 1
-    p2a, pv = vg.point2anchor, vg.point_valid
-    idx = p2a[:, None].expand(P, C).contiguous()
-    pool0 = torch.full((n_seg, C), -1e30, device=device)
-    cases.append(Case(
-        "segment_max", f"pool {label} [{P},{C}] -> [{n_seg},{C}]",
-        4 * n_iters,
-        lambda a=(y, p2a, pv, n_seg): segmax.segment_max(*a),
-        lambda a=(y, p2a, pv, n_seg): segmax.segment_max_ref(*a),
-        0.0, P * (4 * C + 8 + 1) + n_seg * 4 * C, P * C,
-        library=lambda: pool0.scatter_reduce(0, idx, y, "amax"), path=path))
-    pooled = segmax.segment_max(y, p2a, pv, n_seg)
-    cases.append(Case(
-        "segment_max", f"concat-back {label} [{P},{C}] -> [{P},{2 * C}]",
-        3 * n_iters,
-        lambda a=(y, pooled, p2a): segmax.gather_concat(*a, relu=True),
-        lambda a=(y, pooled, p2a): segmax.gather_concat_ref(*a, relu=True),
-        0.0, P * (4 * C + 8) + min(P, n_seg) * 4 * C + P * 8 * C, P * 2 * C,
-        path=path))
+    # K4 on these uniform points (checked and timed, counted 0 times) and
+    # on the main path's own cloud (`cloud`: the scene cloud at
+    # ground-truth depth voxelized by K3 into this grid, counted)
+    y = rnd(P, 128)
+    cases += pool_cases(device, f"uniform {label}", path,
+                        (y, vg.point2anchor, vg.point_valid, A + 1), 0)
+    cases += pool_cases(device, f"cloud {label}", path, cloud, n_iters)
 
     dims_c, groups, res = unet
     for lvl, ((n_relu, n_skip), C, G) in enumerate(
@@ -639,6 +628,73 @@ def scene_model_cases(device, gen, label, path, P, B, grid, A, unet):
                 1e-4, 4 * (B * C * V * (n_in + 1) + B * V + 2 * C),
                 B * C * V * 8, path=path))
     return cases
+
+
+def plan_check(got, want):
+    """The segment plan against its twin: the same offsets, each segment's
+    rows the same set (their order within a segment is the kernel's own),
+    the same long segments in any order, the same work partition. Returns
+    (0, ok)."""
+    import torch
+
+    from tdvnet_torch.kernels.segmax import SEGMENT_WORK
+
+    ok = torch.equal(got.offsets, want.offsets)
+    n_seg = len(want.offsets) - 1
+    total = int(want.offsets[-1])
+    ids = torch.repeat_interleave(
+        torch.arange(n_seg, device=want.rows.device),
+        want.offsets.diff().long())
+    P = len(want.rows)
+    key = lambda rows: torch.sort(ids * P + rows[:total].long())[0]
+    ok &= torch.equal(key(got.rows), key(want.rows))
+    n_long = int(want.longs[0])
+    ok &= int(got.longs[0]) == n_long and torch.equal(
+        torch.sort(got.longs[1:1 + n_long])[0], want.longs[1:1 + n_long])
+    last = (total + n_seg) // SEGMENT_WORK + 1
+    ok &= torch.equal(got.first[:last + 1], want.first[:last + 1])
+    return 0.0, bool(ok)
+
+
+def pool_cases(device, label, path, args, n_iters):
+    """The PointNet's K4 calls on one input (y, seg, valid, n_seg): its
+    segment plan, a pool through it (`scatter_reduce` as the library
+    yardstick) and a concat-back on the pool's output, counted per
+    inference of `path` as `PointNet` makes them (one plan, four pools,
+    three concat-backs an iteration). The bounds count what each call
+    moves (`time_pool_i8`): the plan the ids, flags, offsets and row list;
+    a pool the counted rows of y, its output and the plan; a concat-back
+    y, the pooled rows the points name and its output."""
+    import torch
+
+    from tdvnet_torch.kernels import segmax
+    from tdvnet_torch.tools.time_pool_i8 import (concat_bytes, plan_bytes,
+                                                 pool_bytes)
+
+    y, seg, valid, n_seg = args
+    P, C = y.shape
+    plan = segmax.segment_plan(seg, valid, n_seg)
+    pooled = segmax.segment_max(y, seg, valid, n_seg, plan)
+    idx = seg.clamp(0, n_seg - 1)[:, None].expand(P, C).contiguous()
+    yv = torch.where(valid[:, None], y, torch.full_like(y, -1e30))
+    pool0 = torch.full((n_seg, C), -1e30, device=device)
+    return [
+        Case("segment_plan", f"plan {label} [{P}] -> {n_seg} segments",
+             n_iters, lambda: segmax.segment_plan(seg, valid, n_seg),
+             lambda: segmax.segment_plan_ref(seg, valid, n_seg), plan_check,
+             plan_bytes(seg, valid, n_seg), 0, path=path),
+        Case("segment_max", f"pool {label} [{P},{C}] -> [{n_seg},{C}]",
+             4 * n_iters,
+             lambda: segmax.segment_max(y, seg, valid, n_seg, plan),
+             lambda: segmax.segment_max_ref(y, seg, valid, n_seg), 0.0,
+             pool_bytes(y, seg, valid, n_seg), P * C,
+             library=lambda: pool0.scatter_reduce(0, idx, yv, "amax"),
+             path=path, repeat=True),
+        Case("segment_max", f"concat-back {label} [{P},{C}] -> "
+             f"[{P},{2 * C}]", 3 * n_iters,
+             lambda: segmax.gather_concat(y, pooled, seg, relu=True),
+             lambda: segmax.gather_concat_ref(y, pooled, seg, relu=True),
+             0.0, concat_bytes(y, pooled, seg), P * 2 * C, path=path)]
 
 
 def sampling_cases(device, gen, label, B, dims0, pts_q, center0, per_infer,
@@ -791,18 +847,29 @@ def kernel_cases(device, seed=0):
     # golden scene gets
     from tdvnet_torch.config import EvalConfig
 
+    # K4 counted on the main path's clouds: the golden batch's and the
+    # first streamed scene's scene clouds at ground-truth depth, voxelized
+    # by K3 into the grids the main path gives them (its own generator, so
+    # the other cases' inputs stay as they were)
+    from tdvnet_torch.tools.time_pool_i8 import cloud_pool_cases
+    from tdvnet_torch.tools.time_variance import scene_inputs
+
+    g2 = torch.Generator().manual_seed(seed + 11)
+    clouds = cloud_pool_cases(device, g2, scene_inputs(device, g2))
     unet = (cfg.unet_dims, cfg.unet_groups, cfg.unet_res)
     P_ref = dc.size[0] * dc.size[1]
     cases += scene_model_cases(device, gen, "infer_depth", "infer_depth",
-                               R * P_ref, B, g.grid_size, g.max_anchors, unet)
+                               R * P_ref, B, g.grid_size, g.max_anchors, unet,
+                               clouds["cloud/infer_depth"])
     ev, rec = EvalConfig(), scene_golden_record()
     n_refs = STREAM_VIEWS - 2 * ev.n_src_on_either_side
     n_slots = -(-n_refs // ev.fused_chunk) * ev.fused_chunk
     cases += scene_model_cases(device, gen, "scene", "scene",
                                n_slots * P_ref, 1, tuple(rec["grid_size"]),
-                               ev.eval_max_anchors, unet)
-    scene, fan_args = scene_cases(device, gen)
-    return cases + scene + fast_cases(device, gen, fan_args) \
+                               ev.eval_max_anchors, unet,
+                               clouds["cloud/scene"])
+    scene, inputs = scene_cases(device, gen)
+    return cases + scene + fast_cases(device, gen, inputs) \
         + eval3d_cases(device)
 
 
@@ -814,7 +881,7 @@ def scene_cases(device, gen):
     sampling (one chunk pass's three U-Net scales in the golden scene's
     grid), and to the propagation blend and the soft-argmax (a chunk), each
     counted per inference of that scene as `expected_launches` counts them.
-    Also returns the chunk's hypothesis fans for the patch-fan case."""
+    Also returns those inputs for the fast path's cases."""
     import torch
 
     from tdvnet_torch.config import EvalConfig, ModelConfig
@@ -891,7 +958,7 @@ def scene_cases(device, gen):
         lambda a=(cost, dvals): softargmax_depth_ref(*a),
         1e-5, 4 * (cost.numel() + D + R * dc.size[0] * dc.size[1]),
         cost.numel() * 5, path="scene"))
-    return cases, inputs["patch_fan"]
+    return cases, inputs
 
 
 def eval3d_preds(poses, K0, depth_gt, scene):
@@ -2158,7 +2225,9 @@ def float64_twins():
     import tdvnet_torch.ops.voxelize as vox
     from tdvnet_torch.kernels.groupnorm import masked_group_norm_ref
     from tdvnet_torch.kernels.propagation import propagation_blend_ref
-    from tdvnet_torch.kernels.segmax import gather_concat_ref, segment_max_ref
+    from tdvnet_torch.kernels.segmax import (gather_concat_ref,
+                                             segment_max_ref,
+                                             segment_plan_ref)
     from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
     from tdvnet_torch.kernels.trilinear import trilinear_sample_ref
     from tdvnet_torch.kernels.variance import source_variance_ref
@@ -2174,7 +2243,10 @@ def float64_twins():
          source_variance_ref(fp32(pts), feats, sidx, smask, P_all, img)),
         (vox, "voxelize", lambda pts, *a: voxelize_ref(fp32(pts), *a)),
         (vox, "scatter_anchors_to_dense", scatter_anchors_to_dense_ref),
-        (pointnet, "segment_max", segment_max_ref),
+        (pointnet, "segment_plan", segment_plan_ref),
+        (pointnet, "segment_max",
+         lambda y, seg, valid, n_seg, plan=None:
+         segment_max_ref(y, seg, valid, n_seg)),
         (pointnet, "gather_concat", gather_concat_ref),
         (layers, "masked_group_norm", masked_group_norm_ref),
         (hypothesis, "trilinear_sample_scale",

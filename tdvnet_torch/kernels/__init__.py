@@ -22,7 +22,7 @@ from tdvnet_torch.kernels.propagation import (propagation_blend,
                                               propagation_blend_backward)
 from tdvnet_torch.kernels.segmax import (gather_concat,
                                          gather_concat_backward, segment_max,
-                                         segment_max_backward)
+                                         segment_max_backward, segment_plan)
 from tdvnet_torch.kernels.softargmax import (softargmax_depth,
                                              softargmax_depth_backward)
 from tdvnet_torch.kernels.variance import (source_variance,
@@ -45,6 +45,7 @@ WRAPPERS = {
     "softargmax_depth": softargmax_depth,
     "voxelize": voxelize_points,
     "scatter_anchors_to_dense": scatter_anchors_to_dense,
+    "segment_plan": segment_plan,
     "segment_max": segment_max,
     "gather_concat": gather_concat,
     "masked_group_norm": masked_group_norm,

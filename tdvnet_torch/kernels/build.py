@@ -40,7 +40,7 @@ SIGNATURES = {
     "tdv_trilinear_sample": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _F, _I,
                              _I, _P],
     "tdv_trilinear_sample_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
-                                _F, _F, _I, _I, _P],
+                                _F, _F, _I, _I, _I, _P],
     "tdv_patch_fan_variance": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I,
                                _I, _I, _F, _F, _P],
     "tdv_propagation_blend": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
@@ -52,7 +52,8 @@ SIGNATURES = {
     "tdv_scene_origins": [_P, _P, _P, _P, _P, _L, _I, _P],
     "tdv_voxelize": [_P] * 14 + [_L, _I, _I, _I, _I, _F, _I, _P],
     "tdv_scatter_dense": [_P] * 7 + [_I] * 6 + [_P],
-    "tdv_segment_max": [_P, _P, _P, _P, _L, _I, _L, _P],
+    "tdv_segment_plan": [_P] * 5 + [_I, _I, _I, _P],
+    "tdv_segment_max": [_P] * 8 + [_I, _I, _I, _I, _P],
     "tdv_gather_concat": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
     "tdv_masked_group_norm": [_P] * 9 + [_I, _I, _I, _L, _F, _I, _L, _I,
                                          _P],

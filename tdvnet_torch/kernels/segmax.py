@@ -1,17 +1,21 @@
 """The PointNet's per-voxel max pool and its concat-back (K4), and their
 gradients.
 
-Kernels: `csrc/segment_max.cu` and `csrc/segment_max_backward.cu` (see
-their headers for the TPU ops they replace, their bounds and their
-designs). `segment_max_ref`, `gather_concat_ref` and their `*_backward_ref`
-are the plain PyTorch twins; the wrappers run them only for CPU tensors.
+Kernels: `csrc/segment_plan.cu`, `csrc/segment_max.cu` and
+`csrc/segment_max_backward.cu` (see their headers for the TPU ops they
+replace, their bounds and their designs). The pool walks segments over a
+plan, a CSR view of the rows that count (`segment_plan`), which `PointNet`
+builds once per call and hands to its four pools; a pool given no plan
+builds its own. `segment_plan_ref`, `segment_max_ref`, `gather_concat_ref`
+and the `*_backward_ref` are the plain PyTorch twins; the wrappers run them
+only for CPU tensors.
 When autograd records a pool or a concat-back (grad mode on and an input
 requiring grad), it goes through `SegmentMaxFn` or `GatherConcatFn`, whose
 backwards are `segment_max_backward` and `gather_concat_backward`.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,16 +23,95 @@ import torch.nn.functional as F
 from tdvnet_torch.kernels._launch import check, launch, on_cpu, wants_grad
 
 NEG = -1e30
+# a segment of more rows than this is pooled by the kernel's long path
+# (many blocks), not one warp; a pool warp's share of the work (a segment
+# costs 1 + its rows); `csrc/segment_plan.cuh` kSegmentLong, kSegmentWork
+SEGMENT_LONG = 256
+SEGMENT_WORK = 32
+# the pool kernel's blocks for the long path (each takes a share of every
+# long segment's rows); they exit at once when the plan lists none
+LONG_BLOCKS = 264
+
+
+class SegmentPlan(NamedTuple):
+    """The rows that count for a segment max (valid, 0 <= seg < n_seg), by
+    segment: segment s holds rows[offsets[s]:offsets[s + 1]] (int32; past
+    offsets[n_seg] `rows` is unspecified); `longs` [1 + cap] int32 the
+    number of segments of more than SEGMENT_LONG rows, then their ids; and
+    `first` [n_work + 1] int32 the pools' work partition: segment s costs
+    1 + its rows and starts at offsets[s] + s, and first[w] is the first
+    segment that starts at or past w * SEGMENT_WORK (n_seg past the last;
+    specified for w up to (offsets[n_seg] + n_seg) // SEGMENT_WORK + 1).
+    The order of rows within a segment and of the long ids is unspecified
+    (the kernel's changes from run to run); a max does not depend on
+    it."""
+    offsets: torch.Tensor
+    rows: torch.Tensor
+    longs: torch.Tensor
+    first: torch.Tensor
+
+
+def long_capacity(P: int) -> int:
+    """Entries of a plan's long list: every segment of more than
+    SEGMENT_LONG of P rows fits."""
+    return P // (SEGMENT_LONG + 1) + 1
+
+
+def work_items(P: int, n_seg: int) -> int:
+    """Pool warps for P rows and n_seg segments (an upper bound of the
+    plan's partition)."""
+    return (P + n_seg) // SEGMENT_WORK + 1
+
+
+def segment_plan_ref(seg: torch.Tensor, valid: torch.Tensor,
+                     n_seg: int) -> SegmentPlan:
+    """The plan by a stable argsort of the ids (the rows that do not count
+    sorted past the end), a bincount and a search; long ids ascending."""
+    ok = valid & (seg >= 0) & (seg < n_seg)
+    key = torch.where(ok, seg, torch.full_like(seg, n_seg))
+    rows = torch.argsort(key, stable=True).to(torch.int32)
+    counts = torch.bincount(seg[ok], minlength=n_seg)
+    offsets = torch.zeros(n_seg + 1, dtype=torch.int64, device=seg.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    ids = torch.nonzero(counts > SEGMENT_LONG).flatten()
+    longs = torch.zeros(1 + long_capacity(seg.shape[0]), dtype=torch.int32,
+                        device=seg.device)
+    longs[0] = len(ids)
+    longs[1:1 + len(ids)] = ids.to(torch.int32)
+    starts = offsets + torch.arange(n_seg + 1, device=seg.device)
+    at = torch.arange(work_items(seg.shape[0], n_seg) + 1,
+                      device=seg.device) * SEGMENT_WORK
+    first = torch.searchsorted(starts, at).clamp(max=n_seg)
+    return SegmentPlan(offsets.to(torch.int32), rows, longs,
+                       first.to(torch.int32))
+
+
+def segment_max_plan_ref(y: torch.Tensor, plan: SegmentPlan,
+                         n_seg: int) -> torch.Tensor:
+    """`segment_max_ref` through a plan: each segment's max over its listed
+    rows (a plain model of the pool kernel's walk, for the tests)."""
+    offsets = plan.offsets.long()
+    total = int(offsets[-1])
+    ids = torch.repeat_interleave(torch.arange(n_seg, device=y.device),
+                                  offsets[1:] - offsets[:-1])
+    x = y[plan.rows[:total].long()]
+    out = y.new_full((n_seg, y.shape[1]), NEG)
+    out = out.scatter_reduce(0, ids[:, None].expand_as(x), x, "amax",
+                             include_self=True)
+    return torch.where(out <= NEG / 2, torch.zeros_like(out), out)
 
 
 def segment_max_ref(y: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
                     n_seg: int) -> torch.Tensor:
     """Max of the valid rows of y [P, C] per segment id, [n_seg, C]; 0 for a
-    segment with no valid row. As in the JAX package, masked rows hold NEG
-    and a maximum at or below NEG / 2 reads as empty."""
-    x = torch.where(valid[:, None], y, torch.full_like(y, NEG))
+    segment with no valid row. As in the JAX package, masked rows hold NEG,
+    a row whose id is outside [0, n_seg) counts nowhere, a NaN of either
+    sign wins, and a maximum at or below NEG / 2 reads as empty."""
+    ok = valid & (seg >= 0) & (seg < n_seg)
+    x = torch.where(ok[:, None], y, torch.full_like(y, NEG))
+    idx = torch.where(ok, seg, torch.zeros_like(seg))
     out = x.new_full((n_seg, x.shape[1]), NEG)
-    out = out.scatter_reduce(0, seg[:, None].expand_as(x), x, "amax",
+    out = out.scatter_reduce(0, idx[:, None].expand_as(x), x, "amax",
                              include_self=True)
     return torch.where(out <= NEG / 2, torch.zeros_like(out), out)
 
@@ -49,9 +132,12 @@ def segment_max_backward_ref(grad: torch.Tensor, y: torch.Tensor,
 
 def gather_concat_ref(y: torch.Tensor, pooled: torch.Tensor,
                       seg: torch.Tensor, relu: bool = False) -> torch.Tensor:
-    """cat([y, pooled[seg]], -1), [P, 2C]; with `relu`, the ReLU that the
-    PointNet applies before its next linear layer is part of the write."""
-    out = torch.cat([y, pooled[seg]], dim=-1)
+    """cat([y, pooled[seg]], -1), [P, 2C], an id outside [0, n_seg) clamped
+    into it (the JAX package's gather clamps one past the end and wraps a
+    negative one; the main path's ids lie in range); with `relu`, the ReLU
+    that the PointNet applies before its next linear layer is part of the
+    write."""
+    out = torch.cat([y, pooled[seg.clamp(0, pooled.shape[0] - 1)]], dim=-1)
     return F.relu(out) if relu else out
 
 
@@ -78,13 +164,100 @@ def _check_rows(y, seg, P, C, name):
     check(seg, "seg", torch.int64, (P,))
 
 
-def _segment_max(y, seg, valid, n_seg):
+def segment_plan(seg: torch.Tensor, valid: torch.Tensor,
+                 n_seg: int) -> SegmentPlan:
+    """Same contract as `segment_plan_ref`; launches the CUDA kernels for
+    CUDA tensors (rows within a segment, and the long ids, in an order that
+    changes from run to run)."""
+    if on_cpu(seg, valid):
+        return segment_plan_ref(seg, valid, n_seg)
+    P = seg.shape[0]
+    if P >= 2 ** 31 or not 0 < n_seg + 1 < 2 ** 31 \
+            or P + n_seg >= 2 ** 31:
+        raise ValueError(f"segment_plan: {P} rows and {n_seg} segments are "
+                         f"outside the kernel's int32 indices")
+    check(seg, "seg", torch.int64, (P,))
+    check(valid, "valid", torch.bool, (P,))
+    n = n_seg + 1
+    cap = long_capacity(P)
+    n_work = work_items(P, n_seg)
+    # offsets, rows, the long list and the work partition, one allocation
+    sizes = (n, P, 1 + cap, n_work + 1)
+    buf = torch.empty((sum(sizes),), dtype=torch.int32, device=seg.device)
+    counts, tiles = _plan_scratch(seg.device, n, -(-n // PLAN_SCAN_TILE))
+    launch("tdv_segment_plan", seg.device, seg.data_ptr(), valid.data_ptr(),
+           buf.data_ptr(), counts, tiles, P, n_seg, cap)
+    segment_plan.launches += 1
+    return SegmentPlan(*torch.split(buf, sizes))
+
+
+segment_plan.launches = 0
+# counts the plan kernel's scan takes a block (`segment_plan.cu` kScanTile)
+PLAN_SCAN_TILE = 1024
+# (device index, stream): the plan's scratch, [int32 counts (zeroed once and
+# left zero by every launch); int32 tile sums of the scan]; and the pools' long
+# path scratch, [uint32 rows of C maxima; uint32 tickets], zeroed once and
+# left zero by every launch. Calls on one stream run in order, so they
+# share them.
+_PLAN_SCRATCH = {}
+_LONG_SCRATCH = {}
+
+
+def _stream_key(dev):
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return index, torch._C._cuda_getCurrentRawStream(index)
+
+
+def _plan_scratch(dev, n, n_tiles):
+    """Pointers to n zero int32 counts and n_tiles int32 tile sums of the
+    plan's scratch on `dev`'s current stream."""
+    key = _stream_key(dev)
+    have = _PLAN_SCRATCH.get(key)
+    if have is None or have[0].numel() < n or have[1].numel() < n_tiles:
+        n = max(n, 1 << 16)
+        have = _PLAN_SCRATCH[key] = (
+            torch.zeros((n,), dtype=torch.int32, device=dev),
+            torch.empty((-(-n // PLAN_SCAN_TILE),), dtype=torch.int32,
+                        device=dev))
+    return have[0].data_ptr(), have[1].data_ptr()
+
+
+def _long_scratch(dev, n_rows, C):
+    """Pointers to the pool's long-path scratch for n_rows segments of C
+    channels on `dev`'s current stream."""
+    key = _stream_key(dev)
+    have = _LONG_SCRATCH.get(key)
+    if have is None or have[0].numel() < n_rows * C \
+            or have[1].numel() < n_rows:
+        n_rows = max(n_rows, 64)
+        have = _LONG_SCRATCH[key] = (
+            torch.zeros((n_rows * max(C, 128),), dtype=torch.int32,
+                        device=dev),
+            torch.zeros((n_rows,), dtype=torch.int32, device=dev))
+    return have[0].data_ptr(), have[1].data_ptr()
+
+
+def _segment_max(y, seg, valid, n_seg, plan):
     P, C = y.shape
     _check_rows(y, seg, P, C, "segment_max")
     check(valid, "valid", torch.bool, (P,))
+    if C > 12288:
+        raise ValueError(f"segment_max: C={C} is more than the long path's "
+                         f"48 KB of shared memory holds")
+    if plan is None:
+        plan = segment_plan(seg, valid, n_seg)
+    cap = long_capacity(P)
+    n_work = work_items(P, n_seg)
+    check(plan.offsets, "plan.offsets", torch.int32, (n_seg + 1,))
+    check(plan.rows, "plan.rows", torch.int32, (P,))
+    check(plan.longs, "plan.longs", torch.int32, (1 + cap,))
+    check(plan.first, "plan.first", torch.int32, (n_work + 1,))
     out = torch.empty((n_seg, C), dtype=torch.float32, device=y.device)
-    launch("tdv_segment_max", y.device, y.data_ptr(), seg.data_ptr(),
-           valid.data_ptr(), out.data_ptr(), P, C, n_seg)
+    acc, tickets = _long_scratch(y.device, cap, C)
+    launch("tdv_segment_max", y.device, y.data_ptr(),
+           plan.offsets.data_ptr(), plan.rows.data_ptr(),
+           plan.longs.data_ptr(), plan.first.data_ptr(), acc, tickets,
+           out.data_ptr(), C, n_seg, n_work, LONG_BLOCKS)
     segment_max.launches += 1
     return out
 
@@ -93,24 +266,27 @@ class SegmentMaxFn(torch.autograd.Function):
     """`segment_max` with its hand backward."""
 
     @staticmethod
-    def forward(ctx, y, seg, valid, n_seg):
-        pooled = _segment_max(y, seg, valid, n_seg)
+    def forward(ctx, y, seg, valid, n_seg, plan):
+        pooled = _segment_max(y, seg, valid, n_seg, plan)
         ctx.save_for_backward(y, seg, valid, pooled)
         return pooled
 
     @staticmethod
     def backward(ctx, grad):
         return (segment_max_backward(grad.contiguous(), *ctx.saved_tensors),
-                None, None, None)
+                None, None, None, None)
 
 
 def segment_max(y: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
-                n_seg: int) -> torch.Tensor:
+                n_seg: int, plan: Optional[SegmentPlan] = None
+                ) -> torch.Tensor:
+    """`segment_max_ref`; on the card through `plan`, the ids' segment plan
+    (`segment_plan(seg, valid, n_seg)`, built here when not given)."""
     if on_cpu(y, seg, valid):
         return segment_max_ref(y, seg, valid, n_seg)
     if wants_grad(y):
-        return SegmentMaxFn.apply(y, seg, valid, n_seg)
-    return _segment_max(y, seg, valid, n_seg)
+        return SegmentMaxFn.apply(y, seg, valid, n_seg, plan)
+    return _segment_max(y, seg, valid, n_seg, plan)
 
 
 segment_max.launches = 0

@@ -8,7 +8,9 @@ replace, their bounds and their designs). The fp32 forward computes each
 query's coordinates once, in a lane of a warp that takes 32 consecutive
 queries, hands them to the C/4 lanes that sample its channels, and keeps a
 query's 8 taps in registers for the next query that shares its anchor; its
-sums are bit-equal to those of one thread per (query, 4 channels).
+sums are bit-equal to those of one thread per (query, 4 channels). The int8
+forward has the same design (a lane's taps are 16 int8 channels of a cell
+row where C allows, C = 96 six lanes a query), bit-equal to its first form.
 `trilinear_sample_ref`, `trilinear_sample_backward_ref` and
 `trilinear_sample_i8_ref` are the plain PyTorch twins; the wrappers run
 them only for CPU tensors. `trilinear_sample` writes into a channel slice
@@ -251,19 +253,34 @@ def trilinear_sample_i8(grid: torch.Tensor, scale: torch.Tensor,
             grid, scale, pts, center0, cell, cell_offset)
         return out
     no_backward("trilinear_sample_i8", scale, pts, center0)
+    return _trilinear_sample_i8(grid, scale, pts, center0, cell, out,
+                                ch_off, cell_offset)
+
+
+def _trilinear_sample_i8(grid, scale, pts, center0, cell, out, ch_off,
+                         cell_offset=0.0, vw=0):
+    """The launch; `vw` the int8 channels a lane loads a tap (16, 8 or 4;
+    0: the widest that C and the grid's address allow). Every `vw` gives
+    the same bits (the card tests hold them to it)."""
     B, X, Y, Z, C = grid.shape
     Q = pts.shape[1]
     Ctot = out.shape[-1]
     _check_slice("trilinear_sample_i8", C, Ctot, ch_off)
+    if B * X * Y * Z >= 2 ** 31 or B >= 2 ** 23:
+        raise ValueError(f"trilinear_sample_i8: {B} grids of {X}x{Y}x{Z} "
+                         f"nodes are outside the kernel's int32 cell "
+                         f"indices")
     check(grid, "grid", torch.int8, (B, X, Y, Z, C))
     check(scale, "scale", torch.float32, (B, C))
     check(pts, "pts", torch.float32, (B, Q, 3))
     check(center0, "center0", torch.float32, (B, 3))
     check(out, "out", torch.bfloat16, (B, Q, Ctot))
+    if out.data_ptr() % 8:
+        raise ValueError("trilinear_sample_i8: out must start on 8 bytes")
     launch("tdv_trilinear_sample_i8", grid.device, grid.data_ptr(),
            scale.data_ptr(), pts.data_ptr(), center0.data_ptr(),
            out.data_ptr(), B, Q, X, Y, Z, C, float(cell), float(cell_offset),
-           Ctot, ch_off)
+           Ctot, ch_off, vw)
     trilinear_sample_i8.launches += 1
     return out
 

@@ -1,9 +1,11 @@
 """Seeded numpy inputs at the edges that the trilinear sampling forward
-(`csrc/trilinear_sample.cu`) and its brick-binned backward
-(`csrc/trilinear_sample_backward.cu`), the map-based dense scatter
-(`csrc/voxelize.cu`), the two variance kernels
-(`csrc/source_variance.cu`, `csrc/patch_fan_variance.cu`) and the masked
-GroupNorm forward (`csrc/masked_group_norm.cu`) must keep. Numpy only: the
+(`csrc/trilinear_sample.cu`), its int8 form (`csrc/trilinear_sample_i8.cu`)
+and its brick-binned backward (`csrc/trilinear_sample_backward.cu`), the
+map-based dense scatter (`csrc/voxelize.cu`), the two variance kernels
+(`csrc/source_variance.cu`, `csrc/patch_fan_variance.cu`), the masked
+GroupNorm forward (`csrc/masked_group_norm.cu`) and the PointNet's segment
+plan, pools and concat-back (`csrc/segment_plan.cu`, `csrc/segment_max.cu`)
+must keep. Numpy only: the
 CPU tests hand them to the JAX functions and the twins, the card tests to
 the kernels."""
 import numpy as np
@@ -413,3 +415,98 @@ def fan_case(name, C=None, seed=0):
                 src_idx=SRC_IDX.copy(), src_mask=mask, K=K, rotmats=Rs,
                 tvecs=ts, img_size=img)
 
+
+
+# ------------------------------------------- the int8 sampling (K6-int8)
+# the forward's points in an int8 grid padded by I8_PAD low-side nodes, as
+# the fast path's merged grid is (node coordinates (pts - center0) / cell +
+# I8_PAD): the anchors at -1 and dim - 1 and the pad's nodes, outside the
+# grid, non-finite points, runs of one anchor, anchors that alternate, a
+# ragged last tile; C = 96 is the fast path's rank
+I8_CHANNELS = (4, 96, 128, 160)
+I8_PAD = 3
+
+
+def i8_case(name, C, seed=0):
+    """(grid [2, X, Y, Z, C] int8, scale [2, C] fp32, pts [2, Q, 3],
+    center0 [2, 3], cell, cell_offset): `trilinear_forward_case`'s points,
+    whose node coordinates stay exact (multiples of 1/64, the cell 0.25, the
+    centre moved by the pad), in the first C channels of one seeded
+    160-channel table, so that one JAX call covers every width."""
+    _, pts, c0, cell = trilinear_forward_case(name, 4, seed)
+    rng = np.random.default_rng(777)
+    grid = rng.integers(-127, 128, (2, *TRI_DIMS, 160)).astype(np.int8)
+    grid[:, 4:6] = 0                       # a slab of empty cells
+    scale = rng.uniform(1e-3, 5e-2, (2, 160)).astype(np.float32)
+    return (np.ascontiguousarray(grid[..., :C]),
+            np.ascontiguousarray(scale[:, :C]), pts,
+            (c0 + np.float32(I8_PAD * cell)).astype(np.float32), cell,
+            float(I8_PAD))
+
+
+# --------------------------------------- the PointNet's pools (K4 forward)
+# (name, P, n_seg): NaN of either sign, +-inf, -0.0 and maxima at and
+# around the empty threshold -5e29; every row invalid; ids below 0 and at
+# or past n_seg; one segment of ~10^5 rows; many empty trailing segments;
+# segments of 256 and 257 rows (either side of the pools' long path) and a
+# dump slot that overflowing points fill, as the main path's
+POOL_CASES = (("specials", 600, 40), ("all_invalid", 300, 20),
+              ("out_of_range", 500, 30), ("one_long", 100000, 50),
+              ("trailing_empty", 400, 5000), ("long_threshold", 3000, 257))
+POOL_CHANNELS = (4, 128, 160)
+NEG_NAN = np.frombuffer(np.uint32(0xffc00000).tobytes(), np.float32)[0]
+
+
+def pool_case(name, C=160, seed=0):
+    """(y [P, C] fp32, seg [P] int64, valid [P] bool, n_seg): the first C
+    channels of one seeded 160-channel case, so that one JAX call covers
+    every width."""
+    names = [c[0] for c in POOL_CASES]
+    _, P, n_seg = POOL_CASES[names.index(name)]
+    rng = np.random.default_rng(500 + seed + names.index(name))
+    y = rng.normal(size=(P, 160)).astype(np.float32)
+    seg = rng.integers(0, n_seg, P)
+    valid = rng.uniform(size=P) < 0.8
+    if name == "specials":
+        seg[:80] = np.repeat(np.arange(8), 10)    # segments 0-7, ten rows
+        seg[80:] = rng.integers(8, n_seg, P - 80)
+        valid[:80] = True
+        y[0:10] = -0.0                            # only -0.0
+        y[10, 0] = np.nan                         # a NaN beside finite rows
+        y[20, 1] = NEG_NAN                        # a NaN with its sign set
+        y[30:40] = -np.inf                        # reads 0
+        y[40:50] = -6e29
+        y[45] = -5e29                             # at the threshold: 0
+        y[50:60] = -6e29
+        y[55] = -4.9e29                           # above it: kept
+        y[60, :] = np.inf
+        y[70:75] = -0.0
+        y[75:80] = 0.0                            # -0.0 beside +0.0
+        y[100::40, 3] = np.nan                    # invalid: no effect
+        valid[100::40] = False
+        y[121::40, 5] = NEG_NAN                   # valid: the max is NaN
+        valid[121::40] = True
+    elif name == "all_invalid":
+        valid[:] = False
+    elif name == "out_of_range":
+        seg = rng.integers(-3, n_seg + 4, P)
+        seg[:5] = (-1, n_seg, n_seg + 1, -(2 ** 40), 2 ** 40)
+    elif name == "one_long":
+        seg[rng.uniform(size=P) < 0.98] = 17
+        valid[:] = True
+    elif name == "trailing_empty":
+        seg = rng.integers(0, 10, P)
+    elif name == "long_threshold":
+        # segments 3, 4 and 9 hold 256, 257 and 1000 valid rows; the dump
+        # slot (n_seg - 1) the invalid points and 300 valid ones
+        seg = rng.integers(10, n_seg - 1, P)
+        valid[:] = True
+        at = 0
+        for s, k in ((3, 256), (4, 257), (9, 1000), (n_seg - 1, 300)):
+            seg[at:at + k] = s
+            at += k
+        seg[at:at + 200] = n_seg - 1
+        valid[at:at + 200] = False
+        order = rng.permutation(P)
+        seg, valid, y = seg[order], valid[order], y[order]
+    return np.ascontiguousarray(y[:, :C]), seg.astype(np.int64), valid, n_seg

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 KERNELS = ("source_variance", "trilinear_sample", "propagation_blend",
-           "softargmax_depth", "voxelize", "segment_max", "masked_group_norm",
+           "softargmax_depth", "voxelize", "segment_plan", "segment_max",
+           "masked_group_norm",
            "trilinear_sample_i8", "patch_fan_variance", "tsdf_integrate",
            "consistency_fuse")
 
@@ -204,7 +205,7 @@ def test_scene_model_counts_its_kernels():
 @pytest.mark.cuda
 def test_fast_path_kernels_match_twins_at_hostile_coordinates():
     """The int8 sampling across its low pad, outside the grid and at
-    infinity (within one bf16 ulp, NaN for NaN), and the patch-fan variance
+    infinity (equal to its twin, NaN for NaN), and the patch-fan variance
     with fans behind a camera, on its plane, overflowing fp32, NaN, beyond
     +-1 texel and with masked sources (within 1e-5, NaN for NaN)."""
     if not torch.cuda.is_available():
@@ -226,9 +227,9 @@ def test_fast_path_kernels_match_twins_at_hostile_coordinates():
     c0 = torch.zeros(2, 3, device=dev)
     out = torch.zeros(2, 9, 8, dtype=torch.bfloat16, device=dev)
     trilinear_sample_i8(grid, scale, q, c0, 1.0, out, 0, cell_offset=3.0)
-    want = trilinear_sample_i8_ref(grid, scale, q, c0, 1.0, 3.0)
-    assert torch.allclose(out.float(), want.float(), rtol=2 ** -8, atol=0,
-                          equal_nan=True)
+    want = trilinear_sample_i8_ref(grid.cpu(), scale.cpu(), q.cpu(),
+                                   c0.cpu(), 1.0, 3.0)
+    _same_values(out.cpu(), want)
     assert torch.isnan(out[:, 6]).all() and not torch.isnan(out[:, :6]).any()
 
     feats = torch.randn(3, 16, 20, 8, generator=g).to(dev)
@@ -1474,3 +1475,128 @@ def test_masked_group_norm_backward_repeats_at_edges(name, C, G):
         for a, c in zip(got, want):
             if c is not None:
                 _nonfinite_check(a, c, tol)
+
+
+def _same_values(got, want):
+    """NaN in the same places, every other element equal (-0.0 equals
+    +0.0): the rule for kernels whose twin computes the same operations."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+def _i8_inputs(case, C, device):
+    import _kernel_edge_cases as E
+
+    grid, scale, pts, c0, cell, off = E.i8_case(case, C)
+    return [torch.from_numpy(a).to(device) for a in (grid, scale, pts, c0)] \
+        + [cell, off]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4, 96, 128, 160])
+@pytest.mark.parametrize("case", ["brick_faces", "grid_edges", "nonfinite",
+                                  "one_cell", "no_points", "four_channels",
+                                  "anchor_runs", "alternating", "ragged"])
+def test_trilinear_i8_kernel_equals_twin_at_edges(case, C):
+    """K6-int8 against its twin on the int8 edge inputs (the anchors at -1
+    and dim - 1 and the pad's nodes, outside the grid, non-finite points,
+    runs of one anchor, alternating anchors, a ragged tile), written into
+    channels [4, 4 + C) of a wider output whose other channels stay
+    untouched: equal, NaN for NaN. Every load width the kernel can take
+    at this C (16, 8 or 4 int8 channels a lane) gives the same bits, into
+    channel offset 0 (16-byte stores where C allows) and 4 (8-byte ones);
+    so do the queries in a shuffled order (the taps a lane keeps along a
+    run of one anchor)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels.trilinear import (_trilinear_sample_i8,
+                                                trilinear_sample_i8,
+                                                trilinear_sample_i8_ref)
+
+    grid, scale, pts, c0, cell, off = _i8_inputs(case, C, "cuda")
+    B, Q = pts.shape[:2]
+    out = torch.full((B, Q, C + 8), 7.0, dtype=torch.bfloat16, device="cuda")
+    trilinear_sample_i8(grid, scale, pts, c0, cell, out, 4, cell_offset=off)
+    want = trilinear_sample_i8_ref(grid.cpu(), scale.cpu(), pts.cpu(),
+                                   c0.cpu(), cell, off)
+    assert (out[..., :4] == 7).all() and (out[..., 4 + C:] == 7).all()
+    got = out[..., 4:4 + C].cpu()
+    _same_values(got, want)
+    bits = lambda x: x.contiguous().view(torch.int16)
+    for vw in (16, 8, 4):
+        if C % vw:
+            continue
+        for ch_off in (0, 4):
+            o = torch.zeros((B, Q, C + 8), dtype=torch.bfloat16,
+                            device="cuda")
+            _trilinear_sample_i8(grid, scale, pts, c0, cell, o, ch_off, off,
+                                 vw)
+            assert torch.equal(bits(o[..., ch_off:ch_off + C].cpu()),
+                               bits(got)), (vw, ch_off)
+    if Q:
+        perm = _perm(Q, "cuda")
+        o = torch.empty((B, Q, C), dtype=torch.bfloat16, device="cuda")
+        trilinear_sample_i8(grid, scale, pts[:, perm].contiguous(), c0, cell,
+                            o, 0, cell_offset=off)
+        back = torch.empty_like(o)
+        back[:, perm] = o
+        assert torch.equal(bits(back.cpu()), bits(got))
+
+
+def _pool_inputs(case, C, device):
+    import _kernel_edge_cases as E
+
+    y, seg, valid, n_seg = E.pool_case(case, C)
+    return [torch.from_numpy(a).to(device) for a in (y, seg, valid)] \
+        + [n_seg]
+
+
+POOL_EDGE_CASES = ["specials", "all_invalid", "out_of_range", "one_long",
+                   "trailing_empty", "long_threshold"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", POOL_EDGE_CASES)
+def test_segment_plan_kernel_matches_twin_at_edges(case):
+    """The segment plan against its twin: the same offsets, each segment's
+    rows the same set (their order within a segment is the kernel's own),
+    the same long segments (in any order), the same work partition."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import segmax
+    from tdvnet_torch.kernels.segmax import SegmentPlan
+
+    y, seg, valid, n_seg = _pool_inputs(case, 4, "cuda")
+    got = segmax.segment_plan(seg, valid, n_seg)
+    want = segmax.segment_plan_ref(seg.cpu(), valid.cpu(), n_seg)
+    assert chip_smoke.plan_check(SegmentPlan(*(t.cpu() for t in got)),
+                                 want)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4, 128, 160])
+@pytest.mark.parametrize("case", POOL_EDGE_CASES)
+def test_pool_kernels_equal_twins_at_edges(case, C):
+    """K4's pool and concat-back against their twins on the pools' edge
+    inputs: equal, NaN for NaN, with the plan given and built by the pool;
+    the pool the same bits on a second launch (its plan rebuilt, the rows
+    placed in another order) and with the rows shuffled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import segmax
+
+    y, seg, valid, n_seg = _pool_inputs(case, C, "cuda")
+    want = segmax.segment_max_ref(y.cpu(), seg.cpu(), valid.cpu(), n_seg)
+    plan = segmax.segment_plan(seg, valid, n_seg)
+    got = segmax.segment_max(y, seg, valid, n_seg, plan)
+    _same_values(got.cpu(), want)
+    assert _same_bits(got, segmax.segment_max(y, seg, valid, n_seg))
+    i = _perm(len(seg), "cuda")
+    assert _same_bits(got, segmax.segment_max(y[i], seg[i], valid[i], n_seg))
+    for relu in (False, True):
+        _same_values(segmax.gather_concat(y, got, seg, relu).cpu(),
+                     segmax.gather_concat_ref(y.cpu(), want, seg.cpu(),
+                                              relu))

@@ -371,3 +371,170 @@ def test_masked_group_norm_ref_matches_jax_at_edges(name, jax_group_norms):
         assert not (got * (1 - mask)).any()
     if name == "empty":
         assert not got.any()
+
+
+# ------------------------------------------- the int8 sampling (K6-int8)
+@pytest.fixture(scope="module")
+def jax_i8_samples():
+    """The JAX package's `trilinear_sample_octs_scaled` (fp32 sums, as the
+    port sums; the JAX package's own default sums in bf16) of every int8
+    case on the 160-channel table, in one jitted call: {case: [B, Q, 160]}
+    fp32. The node coordinates are exact in fp32 (`i8_case`)."""
+    from tdvnet.ops.sampling import (pack_trilinear_octs,
+                                     trilinear_sample_octs_scaled)
+
+    qs, sizes = [], {}
+    for case in E.TRILINEAR_FORWARD_CASES:
+        grid, scale, pts, c0, cell, off = E.i8_case(case, 160)
+        qs.append(((pts - c0[:, None]) / np.float32(cell)
+                   + np.float32(off)).astype(np.float32))
+        sizes[case] = pts.shape[1]
+    dims = E.TRI_DIMS
+
+    def sample(g, s, q):
+        return trilinear_sample_octs_scaled(pack_trilinear_octs(g), s, q,
+                                            dims, out_dtype=jnp.float32)
+
+    got = np.asarray(jax.jit(jax.vmap(sample))(
+        jnp.asarray(grid), jnp.asarray(scale),
+        jnp.asarray(np.concatenate(qs, 1))))
+    out, q0 = {}, 0
+    for case, q in sizes.items():
+        out[case] = got[:, q0:q0 + q]
+        q0 += q
+    return out
+
+
+def _bf16_ulps(a, b):
+    """|a - b| in bf16 ulps of the larger magnitude (plus 1e-6)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    ulp = np.ldexp(1.0, np.frexp(np.maximum(np.abs(a), np.abs(b)))[1] - 8)
+    return np.abs(a - b) / (ulp + 1e-6)
+
+
+@pytest.mark.parametrize("case", E.TRILINEAR_FORWARD_CASES)
+def test_trilinear_i8_ref_matches_jax_at_edges(case, jax_i8_samples):
+    """K6-int8's twin against the JAX package's int8 sampling on the int8
+    edge inputs (the anchors at -1 and dim - 1 and the pad's nodes, outside
+    the grid, non-finite points, runs of one anchor, alternating anchors,
+    a ragged tile) at C = 4, 96, 128 and 160: within one bf16 ulp of JAX's
+    fp32 sum (both round once to bf16; XLA may fuse a product into its
+    sum), NaN exactly where a coordinate is not finite (JAX's jitted form
+    gives 0 for an infinite one), and through the CPU wrapper into channels
+    [4, 4 + C) of a wider output whose other channels stay untouched."""
+    from tdvnet_torch.kernels.trilinear import (trilinear_sample_i8,
+                                                trilinear_sample_i8_ref)
+
+    for C in E.I8_CHANNELS:
+        grid, scale, pts, c0, cell, off = E.i8_case(case, C)
+        got = trilinear_sample_i8_ref(t(grid), t(scale), t(pts), t(c0),
+                                      cell, off)
+        assert got.dtype == torch.bfloat16
+        got = got.float().numpy()
+        want = jax_i8_samples[case][..., :C]
+        nan = ~E.finite_points(pts)[..., None].repeat(C, -1)
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        fin = ~nan
+        assert (_bf16_ulps(got[fin], want[fin]) <= 1.0).all()
+        wide = torch.full((*pts.shape[:2], C + 8), 7.0,
+                          dtype=torch.bfloat16)
+        trilinear_sample_i8(t(grid), t(scale), t(pts), t(c0), cell, wide, 4,
+                            cell_offset=off)
+        assert (wide[..., :4] == 7).all() and (wide[..., 4 + C:] == 7).all()
+        np.testing.assert_array_equal(wide[..., 4:4 + C].float().numpy(),
+                                      got)
+    if case == "grid_edges":
+        assert (got[fin.all(-1)] == 0).all(-1).any()   # wholly outside
+    if case == "nonfinite":
+        assert nan.any() and fin.any()
+
+
+# --------------------------------------- the PointNet's pools (K4 forward)
+def _jax_pool(y, seg, valid, n_seg):
+    """The JAX package's pool (tdvnet/models/pointnet.py `_segmax` over the
+    masked rows) and its concat-back's gather (`pooled.at[seg].get()`). JAX
+    without x64 takes int32 ids, so an id past either end goes in as one
+    just past it (out of range, as the original is); the gather takes the
+    ids clamped, as the port's contract is (JAX clamps one past the end and
+    wraps a negative id)."""
+    from tdvnet.models.pointnet import NEG, _segmax
+
+    ids = jnp.asarray(np.clip(seg, -1, n_seg).astype(np.int32))
+
+    @jax.jit
+    def run(y, ids, valid, gather_ids):
+        pooled = _segmax(jnp.where(valid[:, None], y, NEG), ids, n_seg)
+        return pooled, pooled.at[gather_ids].get()
+
+    pooled, back = run(jnp.asarray(y), ids, jnp.asarray(valid),
+                       jnp.asarray(np.clip(seg, 0, n_seg - 1)
+                                   .astype(np.int32)))
+    return np.asarray(pooled), np.asarray(back)
+
+
+def _same_or_nan(a, b):
+    """Equal where neither is NaN (-0.0 equals +0.0) and NaN in the same
+    places."""
+    a, b = np.asarray(a), np.asarray(b)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    keep = ~np.isnan(a)
+    np.testing.assert_array_equal(a[keep], b[keep])
+
+
+@pytest.mark.parametrize("case", [c[0] for c in E.POOL_CASES])
+def test_pool_twins_match_jax_at_edges(case):
+    """K4's twins against the JAX package's pool and gather-back on the
+    pools' edge inputs (NaN of either sign, +-inf, -0.0, maxima at and
+    around -5e29, every row invalid, ids out of range, a segment of ~10^5
+    rows, empty trailing segments, segments either side of the long path's
+    256 rows and a filled dump slot) at C = 4, 128 and 160: the same values
+    (a max and a copy are exact), NaN in the same places. The segment plan's
+    twin pooled through its plan gives the pool's twin's result, lists
+    exactly the segments of more than SEGMENT_LONG rows, and partitions the
+    segments over the pool's warps by where they start."""
+    from tdvnet_torch.kernels.segmax import (SEGMENT_LONG, SEGMENT_WORK,
+                                             gather_concat_ref,
+                                             segment_max_plan_ref,
+                                             segment_max_ref,
+                                             segment_plan_ref)
+
+    y, seg, valid, n_seg = E.pool_case(case)
+    want, back = _jax_pool(y, seg, valid, n_seg)
+    plan = segment_plan_ref(t(seg), torch.from_numpy(valid), n_seg)
+    ok = valid & (seg >= 0) & (seg < n_seg)
+    counts = np.bincount(seg[ok], minlength=n_seg)
+    np.testing.assert_array_equal(np.diff(n(plan.offsets)), counts)
+    rows = n(plan.rows)[:ok.sum()]
+    np.testing.assert_array_equal(np.sort(rows), np.flatnonzero(ok))
+    np.testing.assert_array_equal(
+        seg[rows], np.repeat(np.arange(n_seg), counts))
+    longs = n(plan.longs)
+    np.testing.assert_array_equal(
+        np.sort(longs[1:1 + longs[0]]), np.flatnonzero(counts > SEGMENT_LONG))
+    # the work partition: warp w takes the segments that start (offset +
+    # index) in its window of SEGMENT_WORK; every segment in exactly one
+    starts = n(plan.offsets).astype(np.int64) + np.arange(n_seg + 1)
+    first = n(plan.first).astype(np.int64)
+    last = starts[-1] // SEGMENT_WORK + 1
+    for w in range(last + 1):
+        want_w = np.searchsorted(starts, w * SEGMENT_WORK)
+        assert first[w] == min(want_w, n_seg)
+    assert (np.diff(first[:last + 1]) >= 0).all() and first[last] == n_seg
+    for C in E.POOL_CHANNELS:
+        yc = t(np.ascontiguousarray(y[:, :C]))
+        got = segment_max_ref(yc, t(seg), torch.from_numpy(valid), n_seg)
+        _same_or_nan(n(got), want[:, :C])
+        _same_or_nan(n(segment_max_plan_ref(yc, plan, n_seg)), n(got))
+        for relu in (False, True):
+            cat = gather_concat_ref(yc, got, t(seg), relu)
+            ref = np.concatenate([y[:, :C], back[:, :C]], -1)
+            _same_or_nan(n(cat), np.asarray(jax.nn.relu(ref)) if relu
+                         else ref)
+    if case == "specials":
+        assert np.isnan(want[1, 0]) and np.isnan(want[2, 1])
+        assert (want[[0, 3, 4]] == 0).all() and (want[5] == -4.9e29).all()
+        assert (want[6] == np.inf).all()
+        assert not np.isnan(want[:, 3]).any()
+        assert np.isnan(want[seg[121::40], 5]).all()
+    if case == "all_invalid":
+        assert not want.any()

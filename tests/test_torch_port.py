@@ -193,7 +193,12 @@ def test_wrappers_run_their_twin_on_cpu_and_count_nothing():
     assert torch.equal(
         K.trilinear_sample_backward(gq, q, c0, 0.5, grid.shape),
         trilinear_sample_backward_ref(gq, q, c0, 0.5, grid.shape))
-    assert len(K.launch_counts()) == 23
+    from tdvnet_torch.kernels.segmax import segment_plan_ref
+
+    for a, c in zip(K.segment_plan(va.point2anchor, va.point_valid, 65),
+                    segment_plan_ref(va.point2anchor, va.point_valid, 65)):
+        assert torch.equal(a, c)
+    assert len(K.launch_counts()) == 24
     assert all(v == 0 for v in K.launch_counts().values())
 
 
