@@ -38,13 +38,19 @@
 // the image, so a segment holding one reads NaN, as the twin's and the JAX
 // package's max do. Every output row is written once: 0 for an empty
 // segment and for a maximum at or below -5e29, as the reference has it.
-// A segment of more than kLong rows (the dump slot when the anchor capacity
-// overflows; never on the main path's clouds, whose largest voxel holds 129
-// points) is left to the long path: the last kLongBlocks blocks of the grid
-// split each listed long segment's rows between them, merge their warps in
-// shared memory, add their block's maximum into a per-stream scratch row by
-// an integer atomic max, and the last block to take its ticket decodes the
-// row into the output and leaves the scratch and the ticket zero.
+// A segment of more than kLong rows is left to the long path: the n_lb
+// blocks at the end of the grid split each listed long segment's rows
+// between them, merge their warps in shared memory, add their block's
+// maximum into a per-stream scratch row by an integer atomic max, and the
+// last block to take its ticket decodes the row into the output and leaves
+// the scratch and the ticket zero. On the PointNet's path its only user is
+// capacity overflow: the dump slot (index n_anchors) then collects every
+// point past the anchor capacity. The main path's clouds never reach it
+// (their largest voxel holds 129 points), and the dump slot's pooled row
+// feeds only the dump slot's own points and is dropped from the PointNet's
+// output; the path keeps that case as fast as the atomic form was. The
+// wrapper launches no long blocks where no segment can exceed kLong rows
+// (P <= kLong).
 // The concat-back writes cat([y, pooled[seg]]) in one pass, one thread a
 // (point, 4 channels), optionally through the ReLU that precedes the next
 // linear layer, so neither the gathered copy nor the concatenation is

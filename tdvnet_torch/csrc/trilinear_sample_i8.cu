@@ -30,14 +30,15 @@
 //                mask, the scene and the fractions, once;
 //   sampling     L lanes share a query, each taking VW int8 channels of a
 //                cell row in one load (VW = 16 where C and the grid's
-//                address allow: C = 96 is six 16-byte loads, 6 lanes a
-//                query, 5 queries a warp step, T = 30); G = 32 / L groups
-//                of lanes each walk a run of T / G consecutive queries,
-//                taking each query's anchor, mask, scene and fractions from
-//                its coordinate lane by `__shfl_sync`. Queries arrive in
-//                (ref, hypothesis, pixel) order, so neighbours often share
-//                an anchor: a lane keeps the 8 taps it holds and reloads
-//                them only when the anchor or the tap set changes;
+//                address allow, else 4: C = 96 is six 16-byte loads, 6
+//                lanes a query, 5 queries a warp step, T = 30); G = 32 / L
+//                groups of lanes each walk a run of T / G consecutive
+//                queries, taking each query's anchor, mask, scene and
+//                fractions from its coordinate lane by `__shfl_sync`.
+//                Queries arrive in (ref, hypothesis, pixel) order, so
+//                neighbours often share an anchor: a lane keeps the 8 taps
+//                it holds and reloads them only when the anchor or the tap
+//                set changes;
 //   convert      each int8 becomes a float exactly without the conversion
 //                unit: the byte plus 128 in the mantissa of 2^23, minus
 //                2^23 + 128;
@@ -81,7 +82,7 @@ __device__ __forceinline__ float i8_to_float(unsigned word, int k) {
 
 constexpr unsigned kZeroTap = 0x80808080u;   // four int8 zeros, flipped
 
-template <int W>   // 32-bit words of int8 a lane loads a tap: 4, 2 or 1
+template <int W>   // 32-bit words of int8 a lane loads a tap: 4 or 1
 struct Taps {
   unsigned w[8][W];
 };
@@ -95,10 +96,6 @@ __device__ __forceinline__ void load_tap(unsigned (&t)[W],
     t[1] = v.y ^ kZeroTap;
     t[2] = v.z ^ kZeroTap;
     t[3] = v.w ^ kZeroTap;
-  } else if constexpr (W == 2) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    t[0] = v.x ^ kZeroTap;
-    t[1] = v.y ^ kZeroTap;
   } else {
     t[0] = __ldg(reinterpret_cast<const unsigned*>(p)) ^ kZeroTap;
   }
@@ -258,7 +255,7 @@ __global__ void __launch_bounds__(kWarps * 32) trilinear_sample_i8_kernel(
         h[j] = bf16_pair(acc[2 * j], acc[2 * j + 1]);
       __nv_bfloat16* o = out + gq * out_stride + ch_off + c * VW;
       bool narrow = true;
-      if constexpr (W >= 2) {
+      if constexpr (W == 4) {
         if (wide_store) {
 #pragma unroll
           for (int j = 0; j < VW / 8; ++j)
@@ -301,32 +298,24 @@ int launch_i8(const int8_t* grid, const float* scale, const float* pts,
 }  // namespace
 
 // B * X * Y * Z < 2^31 and B < 2^23 (the wrapper checks): cell indices are
-// int. `vw`: int8 channels a lane loads a tap, 16, 8 or 4; 0 takes the
-// widest that C and the grid's address allow (every choice gives the same
-// bits).
+// int. A lane loads 16 int8 channels a tap where C % 16 == 0 and the grid
+// starts on 16 bytes (every C of the main path), else 4 (C % 4 == 0 and a
+// 4-byte start: the wrapper's slice rule).
 extern "C" int tdv_trilinear_sample_i8(const int8_t* grid, const float* scale,
                                        const float* pts, const float* center0,
                                        __nv_bfloat16* out, int B, long long Q,
                                        int X, int Y, int Z, int C, float cell,
                                        float cell_offset, int out_stride,
-                                       int ch_off, int vw, void* stream) {
+                                       int ch_off, void* stream) {
   if ((long long)B * Q == 0 || C == 0) return 0;
   const uintptr_t at = reinterpret_cast<uintptr_t>(grid);
-  if (vw == 0)
-    vw = C % 16 == 0 && at % 16 == 0 ? 16 : (C % 8 == 0 && at % 8 == 0 ? 8
-                                                                      : 4);
-  if (C % vw != 0 || at % vw != 0 ||
+  if (C % 4 != 0 || at % 4 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (vw == 16)
+  if (C % 16 == 0 && at % 16 == 0)
     return launch_i8<4>(grid, scale, pts, center0, out, B, Q, X, Y, Z, C,
                         cell, cell_offset, out_stride, ch_off, s);
-  if (vw == 8)
-    return launch_i8<2>(grid, scale, pts, center0, out, B, Q, X, Y, Z, C,
-                        cell, cell_offset, out_stride, ch_off, s);
-  if (vw == 4)
-    return launch_i8<1>(grid, scale, pts, center0, out, B, Q, X, Y, Z, C,
-                        cell, cell_offset, out_stride, ch_off, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_i8<1>(grid, scale, pts, center0, out, B, Q, X, Y, Z, C,
+                      cell, cell_offset, out_stride, ch_off, s);
 }

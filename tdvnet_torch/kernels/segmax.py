@@ -29,7 +29,10 @@ NEG = -1e30
 SEGMENT_LONG = 256
 SEGMENT_WORK = 32
 # the pool kernel's blocks for the long path (each takes a share of every
-# long segment's rows); they exit at once when the plan lists none
+# long segment's rows); they exit at once when the plan lists none, and are
+# launched only where a segment can hold more than SEGMENT_LONG of the P
+# rows. On the PointNet's path only the dump slot of an overflowing anchor
+# capacity gets that long; its row is dropped from the PointNet's output.
 LONG_BLOCKS = 264
 
 
@@ -253,11 +256,13 @@ def _segment_max(y, seg, valid, n_seg, plan):
     check(plan.longs, "plan.longs", torch.int32, (1 + cap,))
     check(plan.first, "plan.first", torch.int32, (n_work + 1,))
     out = torch.empty((n_seg, C), dtype=torch.float32, device=y.device)
-    acc, tickets = _long_scratch(y.device, cap, C)
+    n_long_blocks = LONG_BLOCKS if P > SEGMENT_LONG else 0
+    acc, tickets = _long_scratch(y.device, cap, C) if n_long_blocks \
+        else (0, 0)
     launch("tdv_segment_max", y.device, y.data_ptr(),
            plan.offsets.data_ptr(), plan.rows.data_ptr(),
            plan.longs.data_ptr(), plan.first.data_ptr(), acc, tickets,
-           out.data_ptr(), C, n_seg, n_work, LONG_BLOCKS)
+           out.data_ptr(), C, n_seg, n_work, n_long_blocks)
     segment_max.launches += 1
     return out
 

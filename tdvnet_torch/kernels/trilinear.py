@@ -253,15 +253,6 @@ def trilinear_sample_i8(grid: torch.Tensor, scale: torch.Tensor,
             grid, scale, pts, center0, cell, cell_offset)
         return out
     no_backward("trilinear_sample_i8", scale, pts, center0)
-    return _trilinear_sample_i8(grid, scale, pts, center0, cell, out,
-                                ch_off, cell_offset)
-
-
-def _trilinear_sample_i8(grid, scale, pts, center0, cell, out, ch_off,
-                         cell_offset=0.0, vw=0):
-    """The launch; `vw` the int8 channels a lane loads a tap (16, 8 or 4;
-    0: the widest that C and the grid's address allow). Every `vw` gives
-    the same bits (the card tests hold them to it)."""
     B, X, Y, Z, C = grid.shape
     Q = pts.shape[1]
     Ctot = out.shape[-1]
@@ -280,7 +271,7 @@ def _trilinear_sample_i8(grid, scale, pts, center0, cell, out, ch_off,
     launch("tdv_trilinear_sample_i8", grid.device, grid.data_ptr(),
            scale.data_ptr(), pts.data_ptr(), center0.data_ptr(),
            out.data_ptr(), B, Q, X, Y, Z, C, float(cell), float(cell_offset),
-           Ctot, ch_off, vw)
+           Ctot, ch_off)
     trilinear_sample_i8.launches += 1
     return out
 

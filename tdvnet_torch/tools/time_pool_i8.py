@@ -36,9 +36,7 @@ add the segments' statistics (non-empty segments; valid rows per
 non-empty segment: median, p99, largest; the share of rows in segments of
 more than 256), K6-int8's the share of queries whose anchor and tap set
 equal their predecessor's. `--profile` adds each K4 case's device time per
-kernel (torch.profiler), `--widths` K6-int8 at each load width its kernel
-can take (16, 8 or 4 int8 channels a lane). The last line is one JSON
-object. Run it from
+kernel (torch.profiler). The last line is one JSON object. Run it from
 each tree's root with that root first on the path, alternating, to read
 bit-equality and speed in one call:
 
@@ -442,7 +440,7 @@ def time_concats(named, iters, profile):
     return rec
 
 
-def time_i8(named, iters, widths=False):
+def time_i8(named, iters):
     from tdvnet_torch.kernels import trilinear
     from tdvnet_torch.tools.timing import time_ms
 
@@ -463,18 +461,6 @@ def time_i8(named, iters, widths=False):
                                                      center0, cell, c_off),
                      "digest": digest(out[..., off:off + C]),
                      "shape": [list(grid.shape), list(pts.shape)]}
-        # each load width the kernel can take (a tree whose launch helper
-        # takes one), with its digest
-        if widths and hasattr(trilinear, "_trilinear_sample_i8"):
-            for vw in (16, 8, 4):
-                if C % vw:
-                    continue
-                o = torch.zeros_like(out)
-                ms = time_ms(lambda: trilinear._trilinear_sample_i8(
-                    grid, scale, pts, center0, cell, o, off, c_off, vw),
-                    iters=iters, warmup=3)
-                rec[name][f"vw{vw}"] = {
-                    "ms": ms, "digest": digest(o[..., off:off + C])}
     return rec
 
 
@@ -494,8 +480,6 @@ def main():
                     help="time the seeded inputs only")
     ap.add_argument("--profile", action="store_true",
                     help="add K4's device time per kernel")
-    ap.add_argument("--widths", action="store_true",
-                    help="add K6-int8 at each load width it can take")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_pool_i8: no CUDA device")
@@ -526,7 +510,7 @@ def main():
     rec = {"root": root, "card": card,
            "pool": time_pools(pools, args.iters, args.profile),
            "concat": time_concats(concats, args.iters, args.profile),
-           "i8": time_i8(i8, args.iters, args.widths)}
+           "i8": time_i8(i8, args.iters)}
     print(json.dumps(rec), flush=True)
     return 0
 

@@ -1504,15 +1504,15 @@ def test_trilinear_i8_kernel_equals_twin_at_edges(case, C):
     and dim - 1 and the pad's nodes, outside the grid, non-finite points,
     runs of one anchor, alternating anchors, a ragged tile), written into
     channels [4, 4 + C) of a wider output whose other channels stay
-    untouched: equal, NaN for NaN. Every load width the kernel can take
-    at this C (16, 8 or 4 int8 channels a lane) gives the same bits, into
-    channel offset 0 (16-byte stores where C allows) and 4 (8-byte ones);
-    so do the queries in a shuffled order (the taps a lane keeps along a
-    run of one anchor)."""
+    untouched: equal, NaN for NaN. Both load widths the kernel takes (16
+    int8 channels a lane where C % 16 == 0 and the grid starts on 16
+    bytes, else 4: here C = 4 and a grid that starts 4 bytes into its
+    storage) give the same bits, into channel offset 0 (16-byte stores
+    where C allows) and 4 (8-byte ones); so do the queries in a shuffled
+    order (the taps a lane keeps along a run of one anchor)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    from tdvnet_torch.kernels.trilinear import (_trilinear_sample_i8,
-                                                trilinear_sample_i8,
+    from tdvnet_torch.kernels.trilinear import (trilinear_sample_i8,
                                                 trilinear_sample_i8_ref)
 
     grid, scale, pts, c0, cell, off = _i8_inputs(case, C, "cuda")
@@ -1525,16 +1525,18 @@ def test_trilinear_i8_kernel_equals_twin_at_edges(case, C):
     got = out[..., 4:4 + C].cpu()
     _same_values(got, want)
     bits = lambda x: x.contiguous().view(torch.int16)
-    for vw in (16, 8, 4):
-        if C % vw:
-            continue
+    store = torch.empty(grid.numel() + 4, dtype=torch.int8, device="cuda")
+    shifted = store[4:].view(grid.shape)
+    shifted.copy_(grid)
+    assert shifted.data_ptr() % 16 == 4
+    for g in (grid, shifted):
         for ch_off in (0, 4):
             o = torch.zeros((B, Q, C + 8), dtype=torch.bfloat16,
                             device="cuda")
-            _trilinear_sample_i8(grid, scale, pts, c0, cell, o, ch_off, off,
-                                 vw)
+            trilinear_sample_i8(g, scale, pts, c0, cell, o, ch_off,
+                                cell_offset=off)
             assert torch.equal(bits(o[..., ch_off:ch_off + C].cpu()),
-                               bits(got)), (vw, ch_off)
+                               bits(got)), (g.data_ptr() % 16, ch_off)
     if Q:
         perm = _perm(Q, "cuda")
         o = torch.empty((B, Q, C), dtype=torch.bfloat16, device="cuda")

@@ -476,6 +476,8 @@ def _same_or_nan(a, b):
     """Equal where neither is NaN (-0.0 equals +0.0) and NaN in the same
     places."""
     a, b = np.asarray(a), np.asarray(b)
+    if a.shape == b.shape and ((a == b) | (np.isnan(a) & np.isnan(b))).all():
+        return
     np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
     keep = ~np.isnan(a)
     np.testing.assert_array_equal(a[keep], b[keep])
@@ -528,8 +530,7 @@ def test_pool_twins_match_jax_at_edges(case):
         for relu in (False, True):
             cat = gather_concat_ref(yc, got, t(seg), relu)
             ref = np.concatenate([y[:, :C], back[:, :C]], -1)
-            _same_or_nan(n(cat), np.asarray(jax.nn.relu(ref)) if relu
-                         else ref)
+            _same_or_nan(n(cat), np.maximum(ref, 0) if relu else ref)
     if case == "specials":
         assert np.isnan(want[1, 0]) and np.isnan(want[2, 1])
         assert (want[[0, 3, 4]] == 0).all() and (want[5] == -4.9e29).all()
