@@ -452,16 +452,19 @@ class Case:
     return a tensor or a tuple of tensors. With `repeat`, a second launch
     must give the same bits; `shuffled`, where given, runs the kernel on
     the inputs with their points in another order and returns the result
-    in the first order, which must be the same bits too."""
+    in the first order, which must be the same bits too. A kernel that
+    culls work may give the bound over the work it leaves
+    (`touched_bound_ms`) and a `note` on what it culled."""
 
     def __init__(self, kernel, label, per_infer, run, ref, tol, nbytes,
                  flops, library=None, path="infer_depth", repeat=False,
-                 shuffled=None):
+                 shuffled=None, touched_bound_ms=None, note=""):
         self.kernel, self.label, self.per_infer = kernel, label, per_infer
         self.run, self.ref, self.tol = run, ref, tol
         self.nbytes, self.flops, self.library = nbytes, flops, library
         self.path = path
         self.repeat, self.shuffled = repeat, shuffled
+        self.touched_bound_ms, self.note = touched_bound_ms, note
 
     @property
     def bound_ms(self):
@@ -1028,61 +1031,61 @@ def fuse_check(got, want):
 def eval3d_cases(device):
     """K9a and K9b at the shapes phase 8a gives them, on the recipe's
     predictions of the golden scene rendered here (52 views at 480x640, 48
-    refs): the TSDF of all 48 frames in the default EvalConfig's volume
-    (voxel 0.04 m, margin 1.5 m) and the first 16-ref fusion chunk against
-    all 48 views, the depths nearest-upsampled back to 480x640."""
-    import numpy as np
+    refs; `time_eval3d.golden_inputs`): the TSDF of all 48 frames in the
+    default EvalConfig's volume (voxel 0.04 m, margin 1.5 m) with uint8
+    colours, as `processresults` hands them over (and with fp32 colours,
+    counted 0 times), and the three 16-ref fusion chunks against all 48
+    views, the depths nearest-upsampled back to 480x640. Beside the bound
+    each case prints the bound over the pairs that the kernel's cull leaves
+    (its plain twin) and the shares of pairs culled, in the frustum and
+    valid."""
     import torch
 
-    from tdvnet_torch.config import EvalConfig
-    from tdvnet_torch.data import synthetic
     from tdvnet_torch.kernels import consistency_fuse, tsdf_integrate
-    from tdvnet_torch.kernels.fusion import camera_table, consistency_fuse_ref
+    from tdvnet_torch.kernels.fusion import consistency_fuse_ref
     from tdvnet_torch.kernels.tsdf import tsdf_integrate_ref
-    from tdvnet_torch.ops.tsdf import volume_bounds
+    from tdvnet_torch.tools import time_eval3d as T
 
-    r, ev = EVAL3D, EvalConfig(**EVAL3D_EVAL)
-    k, n = r["k"], r["n_views"]
-    sc = synthetic.make_scene(n, tuple(r["hw"]), seed=r["seed"],
-                              normalize=False)
-    preds = eval3d_preds(sc["poses"], sc["K"][0], sc["depth"][k:n - k],
-                         r["scene"])
-    depth = synthetic.resize_nearest_np(preds["depth_preds"], r["hw"])
-    R, t, N = preds["rotmats"], preds["tvecs"], depth.shape[0]
-    K = np.repeat(sc["K"][:1], N, 0)
-    P = np.einsum("nij,njk->nik", K, np.concatenate(
-        [R, t[..., None]], axis=2)).astype(np.float32)
-    lo, dims = volume_bounds(depth, P, ev.tsdf_voxel_size,
-                             ev.tsdf_bounds_quantile, ev.tsdf_margin,
-                             ev.tsdf_img_batch)
-    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    d_dev = up(depth)
-    colors = up((sc["images"][k:n - k] * 255).astype(np.uint8)).float()
-    P_dev, origin = up(P), torch.from_numpy(lo)
-    H, W = r["hw"]
+    tsdf, fuse = T.golden_inputs(device)
+    cases = []
+    a = tsdf["golden"]
+    st = T.tsdf_pair_stats(a)
+    d_dev, colors, dims = a[0], a[1], a[4]
+    N, H, W = d_dev.shape
     V = dims[0] * dims[1] * dims[2]
-    targs = (d_dev, colors, P_dev, origin, dims, ev.tsdf_voxel_size,
-             ev.tsdf_trunc_ratio)
-    cases = [Case(
-        "tsdf_integrate", f"{dims[0]}x{dims[1]}x{dims[2]} = {V} voxels x "
-        f"{N} frames of {H}x{W}", -(-N // ev.tsdf_img_batch),
-        lambda a=targs: tsdf_integrate(*a), lambda a=targs:
-            tsdf_integrate_ref(*a), tsdf_check,
-        4 * N * H * W * (1 + 3) + 48 * N + 20 * V, 25 * V * N,
-        path="eval3d")]
+    note = (f"cull leaves {st['run'] / st['pairs']:.4%} of {st['pairs']} "
+            f"pairs; in range {st['in_range'] / st['pairs']:.4%}, valid "
+            f"{st['valid'] / st['pairs']:.4%}; {st['observed']} voxels "
+            f"observed")
+    for cols, per, cb in ((colors, 1, 3), (colors.float(), 0, 12)):
+        targs = (d_dev, cols) + tuple(a[2:])
+        cases.append(Case(
+            "tsdf_integrate", f"{dims[0]}x{dims[1]}x{dims[2]} = {V} voxels x "
+            f"{N} frames of {H}x{W}, {str(cols.dtype)[6:]} colour", per,
+            lambda a=targs: tsdf_integrate(*a), lambda a=targs:
+                tsdf_integrate_ref(*a), tsdf_check,
+            T.tsdf_bytes(a, cb), T.TSDF_FLOPS * st["pairs"], path="eval3d",
+            touched_bound_ms=T.bound_ms(T.tsdf_touched_bytes(a, st, cb),
+                                        T.TSDF_FLOPS * st["run"]),
+            note=note))
 
-    C = min(FUSION_REF_CHUNK, N)
-    cams = camera_table(up(K), up(R), up(t))
-    idx = torch.arange(C, device=device)
-    fargs = (d_dev[:C], d_dev, cams, idx, ev.z_thresh, ev.n_consistent_thresh)
-    _, _, n_valid = consistency_fuse_ref(*fargs, return_counts=True)
-    pairs = C * H * W * N
-    cases.append(Case(
-        "consistency_fuse", f"[{C},{H}x{W}] refs x {N} views",
-        -(-N // C), lambda a=fargs: consistency_fuse(*a),
-        lambda a=fargs: consistency_fuse_ref(*a), fuse_check,
-        4 * N * H * W + 4 * 33 * N + C * H * W * 13,
-        45 * pairs + 25 * int(n_valid.sum()), path="eval3d"))
+    for name, fargs in fuse.items():
+        C = fargs[0].shape[0]
+        dmax = d_dev.reshape(N, -1).amax(1)     # once per fusion, as there
+        st = T.fuse_pair_stats(fargs, dmax)
+        cases.append(Case(
+            "consistency_fuse", f"{name} [{C},{H}x{W}] refs x {N} views", 1,
+            lambda a=fargs, m=dmax: consistency_fuse(*a, depth_max=m),
+            lambda a=fargs: consistency_fuse_ref(*a), fuse_check,
+            T.fuse_bytes(fargs),
+            T.FUSE_FLOPS * st["pairs"] + T.FUSE_VALID_FLOPS * st["valid"],
+            path="eval3d", touched_bound_ms=T.bound_ms(
+                T.fuse_touched_bytes(fargs, st),
+                T.FUSE_FLOPS * st["run"] + T.FUSE_VALID_FLOPS * st["valid"]),
+            note=f"cull leaves {st['run'] / st['pairs']:.4%} of "
+                 f"{st['pairs']} pairs; in the frustum "
+                 f"{st['frustum'] / st['pairs']:.4%}, valid "
+                 f"{st['valid'] / st['pairs']:.4%}"))
     return cases
 
 
@@ -1177,7 +1180,10 @@ def kernel_phase(device, cases=None):
                f"library={lib:.4f} ms (x{ms / lib:.2f})") + " "
             f"bound={case.bound_ms:.4f} ms "
             f"({bound_by(case.nbytes, case.flops)}) "
-            f"x{case.per_infer} per {case.path}")
+            + ("" if case.touched_bound_ms is None else
+               f"touched bound={case.touched_bound_ms:.4f} ms ")
+            + f"x{case.per_infer} per {case.path}"
+            + (f"; {case.note}" if case.note else ""))
         ok &= good
         zero = lambda: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                         "library_ms": None, "nbytes": 0.0, "flops": 0.0,
@@ -1201,7 +1207,8 @@ def kernel_phase(device, cases=None):
                            "per_infer": case.per_infer,
                            "ms": ms, "plain_ms": plain, "library_ms": lib,
                            "bound_ms": case.bound_ms, "max_abs_err": err,
-                           "rel_err": rel})
+                           "rel_err": rel,
+                           "touched_bound_ms": case.touched_bound_ms})
     # a path's library time stands beside its kernel time only where one
     # library call computes every case of it (K3's voxelize has none, K4's
     # concat-back none): the per-call records keep the others

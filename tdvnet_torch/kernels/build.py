@@ -57,8 +57,9 @@ SIGNATURES = {
     "tdv_gather_concat": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
     "tdv_masked_group_norm": [_P] * 9 + [_I, _I, _I, _L, _F, _I, _L, _I,
                                          _P],
-    "tdv_tsdf_integrate": [_P] * 9 + [_I] * 6 + [_F] * 5 + [_P],
-    "tdv_consistency_fuse": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    "tdv_tsdf_integrate": [_P, _P, _I] + [_P] * 9 + [_I] * 6 + [_F] * 5
+    + [_P],
+    "tdv_consistency_fuse": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
     "tdv_scatter_dense_backward": [_P] * 5 + [_I] * 5 + [_P],
     "tdv_segment_max_backward": [_P] * 7 + [_L, _I, _L, _P],
     "tdv_gather_concat_backward": [_P] * 8 + [_L, _I, _L, _I, _P],

@@ -39,12 +39,14 @@ def fuse_point_cloud(depth_preds: np.ndarray, images: np.ndarray,
     N = depth_preds.shape[0]
     all_depth = up(depth_preds)
     cams = camera_table(up(K), up(rotmats), up(tvecs))
+    depth_max = all_depth.reshape(N, -1).amax(1)     # the kernel's cull
     pts_out, rgb_out = [], []
     for c0 in range(0, N, ref_chunk):
         c1 = min(c0 + ref_chunk, N)
         idx = torch.arange(c0, c1, device=device)
         pts, keep = consistency_fuse(all_depth[c0:c1], all_depth, cams, idx,
-                                     float(z_thresh), int(n_consistent))
+                                     float(z_thresh), int(n_consistent),
+                                     depth_max=depth_max)
         keep = keep.reshape(-1)
         pts_out.append(pts.reshape(-1, 3)[keep].cpu().numpy())
         rgb = np.asarray(images[c0:c1]).reshape(-1, 3)

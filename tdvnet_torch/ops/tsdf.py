@@ -35,9 +35,9 @@ def integrate_frames(depths: torch.Tensor, colors: torch.Tensor,
                      init: Optional[Accumulators] = None) -> Accumulators:
     """Integrate a stack of frames into a TSDF on the frames' device.
 
-    depths [N, H, W]; colors [N, H, W, 3]; projections [N, 3, 4] (K[R|t],
-    world to pixel); origin [3]. Returns (tsdf [V], weight [V], color
-    [V, 3]), added to `init` when given.
+    depths [N, H, W]; colors [N, H, W, 3] (fp32 or uint8); projections
+    [N, 3, 4] (K[R|t], world to pixel); origin [3]. Returns (tsdf [V],
+    weight [V], color [V, 3]), added to `init` when given.
     """
     origin = torch.as_tensor(np.asarray(origin, np.float32))
     return tsdf_integrate(depths, colors, projections, origin, tuple(dims),
@@ -123,7 +123,9 @@ def fuse_scene(depths: np.ndarray, colors: np.ndarray,
     Bounds come from back-projecting the depth maps on the host (quantile +
     margin like the reference); the volume is capped at max_dim voxels per
     axis. Frames go to the device a batch at a time (colors in their own
-    dtype, converted to fp32 there), where the accumulators stay.
+    dtype; uint8 colours stay uint8 for the kernel, which widens them
+    exactly, others are converted to fp32 there), where the accumulators
+    stay.
     """
     device = resolve_device(device)
     lo, dims = volume_bounds(depths, projections, voxel_size, quantile,
@@ -132,8 +134,10 @@ def fuse_scene(depths: np.ndarray, colors: np.ndarray,
     acc = None
     for i in range(0, depths.shape[0], frame_batch):
         sl = slice(i, i + frame_batch)
-        acc = integrate_frames(up(depths[sl].astype(np.float32)),
-                               up(colors[sl]).to(torch.float32),
+        cols = up(colors[sl])
+        if cols.dtype != torch.uint8:
+            cols = cols.to(torch.float32)
+        acc = integrate_frames(up(depths[sl].astype(np.float32)), cols,
                                up(projections[sl].astype(np.float32)), lo,
                                dims, voxel_size, trunc_ratio, init=acc)
     return finalize(*acc, origin=lo, dims=dims, voxel_size=voxel_size)

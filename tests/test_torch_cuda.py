@@ -382,6 +382,109 @@ def test_k9_wrappers_count_their_launches():
     assert sum(counts.values()) == 6
 
 
+def _hostile_depths(d):
+    """NaN, inf, negative and zero depths in blocks that straddle tiles, and
+    a whole map of zeros."""
+    d = d.copy()
+    d[0, :3] = np.nan
+    d[1, 5:9, 10:20] = np.inf
+    d[2, 20:, 30:] *= -1
+    d[3] = 0
+    d[4, ::7, ::5] = 0
+    return d
+
+
+def _runs(skip, members):
+    """The share of a cull's (tile or brick, view or frame) pairs it runs,
+    weighted by members."""
+    return float((members[..., None] * ~skip).sum()) / float(
+        members.sum() * skip.shape[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hostile", "mostly_culled"])
+def test_consistency_fuse_tiles_match_twin(case):
+    """Tiles that straddle the map's edges (37x53), more views than one
+    shared tile (70), NaN, inf, negative and zero depths in refs and
+    sources; and a scene whose tiles cull most views. The kernel's points
+    and flags against the twin's; depth_max handed over or reduced by the
+    wrapper gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import consistency_fuse
+    from tdvnet_torch.kernels.fusion import (camera_table,
+                                             consistency_fuse_ref,
+                                             fuse_skip_ref)
+
+    n_views, hw = (70, (37, 53)) if case == "hostile" else (40, (48, 64))
+    sc = _k9_scene(n_views, hw, seed=7)
+    d = _hostile_depths(sc["noisy"]) if case == "hostile" else sc["noisy"]
+    dev = torch.device("cuda")
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    d = up(d)
+    cams = camera_table(up(sc["K"]), up(sc["rotmats"]), up(sc["tvecs"]))
+    refs = (0, 8) if case == "hostile" else (10, 26)
+    args = (d[refs[0]:refs[1]], d, cams,
+            torch.arange(*refs, device=dev), 0.01, 2)
+    dmax = d.reshape(n_views, -1).amax(1)
+    got = consistency_fuse(*args)
+    again = consistency_fuse(*args, depth_max=dmax)
+    want = consistency_fuse_ref(*args)
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(got, again)
+    err, ok = chip_smoke.fuse_check(got, want)
+    assert ok, err
+    assert int(want[1].sum()) > 0
+    skip, members, _, _ = fuse_skip_ref(*args[:5], depth_max=dmax)
+    if case == "mostly_culled":
+        assert _runs(skip, members) < 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hostile", "mostly_culled"])
+def test_tsdf_integrate_bricks_match_twin(case):
+    """Bricks that straddle the volume's edges (dims not multiples of 2x8x16),
+    more frames than one shared tile (70), the accumulators carried into a
+    second batch, NaN, inf, negative and zero depths, uint8 colours; and a
+    volume far larger than the room, whose bricks cull most frames. The
+    kernel against the twin; uint8 and fp32 colours give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import tsdf_integrate
+    from tdvnet_torch.kernels.tsdf import tsdf_integrate_ref, tsdf_skip_ref
+
+    hostile = case == "hostile"
+    n_views = 70 if hostile else 30
+    sc = _k9_scene(n_views, (37, 53))
+    d = _hostile_depths(sc["noisy"]) if hostile else sc["noisy"]
+    dev = torch.device("cuda")
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    u8 = up((sc["images"] * 255).astype(np.uint8))
+    if hostile:
+        origin, dims, vs = torch.tensor([-2.3, -2.2, -0.25]), (23, 17, 11), 0.2
+    else:
+        origin, dims, vs = torch.tensor([-9.0, -9.0, -6.0]), (90, 90, 70), 0.2
+    got = want = got8 = None
+    for sl in ((slice(0, 41), slice(41, n_views)) if hostile
+               else (slice(0, n_views),)):
+        a = (up(d[sl]), u8[sl].float(), up(sc["P"][sl]), origin, dims, vs,
+             3.0)
+        got = tsdf_integrate(*a, init=got)
+        got8 = tsdf_integrate(a[0], u8[sl], *a[2:], init=got8)
+        want = tsdf_integrate_ref(*a, init=want)
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(got, got8)
+    err, ok = chip_smoke.tsdf_check(got, want)
+    assert ok, err
+    assert float(want[1].max()) > 1
+    if not hostile:
+        skip, brick = tsdf_skip_ref(up(d), up(sc["P"]), origin, dims, vs)
+        members = torch.bincount(brick, minlength=skip.shape[0])
+        assert _runs(skip, members) < 0.5
+
+
 @pytest.mark.cuda
 def test_imageio_and_synthetic_dataset_need_no_cv2(tmp_path):
     """The port's PNG codec and dataset writer on the card's machine: a
