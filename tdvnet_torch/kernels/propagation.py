@@ -7,14 +7,15 @@ design). `propagation_blend_ref` (the JAX package's XLA form) and
 `propagation_blend_backward_ref` are the plain PyTorch twins; the wrappers
 run them only for CPU tensors. When autograd records a call,
 `propagation_blend` goes through `PropagationBlendFn`, whose backward is
-`propagation_blend_backward`.
+`propagation_blend_backward`; otherwise it launches directly.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from tdvnet_torch.kernels._launch import at_least_fp32, check, launch, on_cpu
+from tdvnet_torch.kernels._launch import (at_least_fp32, check, launch,
+                                          on_cpu, wants_grad)
 
 
 def unfold3x3(depth: torch.Tensor) -> torch.Tensor:
@@ -94,6 +95,8 @@ def propagation_blend(logits: torch.Tensor,
     """Same contract as `propagation_blend_ref`. `logits` may be any strided
     [N, H, W, 9] view (the kernel reads it through its strides).
     Differentiable in both inputs."""
+    if not wants_grad(logits, depth):
+        return _propagation_blend(logits, depth)
     return PropagationBlendFn.apply(logits, depth)
 
 
@@ -115,12 +118,10 @@ def propagation_blend_backward(grad: torch.Tensor, logits: torch.Tensor,
     # preserve_format keeps the strides of a dense permuted view
     grad_logits = torch.empty_like(logits)
     grad_depth = torch.empty_like(depth)
-    scratch = torch.empty((N, 9, H, W), dtype=torch.float32,
-                          device=depth.device)
     launch("tdv_propagation_blend_backward", depth.device, grad.data_ptr(),
            logits.data_ptr(), depth.data_ptr(), out.data_ptr(),
-           grad_logits.data_ptr(), scratch.data_ptr(), grad_depth.data_ptr(),
-           N, H, W, *logits.stride(), *grad_logits.stride())
+           grad_logits.data_ptr(), grad_depth.data_ptr(), N, H, W,
+           *logits.stride(), *grad_logits.stride())
     propagation_blend_backward.launches += 1
     return grad_logits, grad_depth
 

@@ -7,9 +7,13 @@ design). `softargmax_depth_ref` (the JAX package's XLA form) and
 `softargmax_depth_backward_ref` are the plain PyTorch twins; the wrappers
 run them only for CPU tensors. When autograd records a call,
 `softargmax_depth` goes through `SoftargmaxDepthFn`, whose backward is
-`softargmax_depth_backward`.
+`softargmax_depth_backward`; otherwise it launches directly. The forward
+kernel holds a block's planes in its warps' registers, at most 12 planes a
+warp and 32 warps, so D is at most `max_planes()` (384).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -36,12 +40,25 @@ def softargmax_depth_backward_ref(grad: torch.Tensor, cost: torch.Tensor,
                                     - depth[:, None])
 
 
+@functools.lru_cache(maxsize=None)
+def max_planes() -> int:
+    """The largest plane count the forward kernel takes: its warps' bands of
+    planes, held in registers."""
+    from tdvnet_torch.kernels.build import library
+
+    return library().tdv_softargmax_depth_max_planes()
+
+
 def _softargmax_depth(cost, depth_vals):
     if on_cpu(cost, depth_vals):
         return softargmax_depth_ref(cost, depth_vals)
     R, D, h, w = cost.shape
     check(cost, "cost", torch.float32, (R, D, h, w))
     check(depth_vals, "depth_vals", torch.float32, (D,))
+    if D > max_planes():
+        raise ValueError(f"softargmax_depth: {D} planes do not fit in a "
+                         f"block's registers (at most {max_planes()} planes: "
+                         f"32 warps of 12)")
     out = torch.empty((R, h, w), dtype=torch.float32, device=cost.device)
     launch("tdv_softargmax_depth", cost.device, cost.data_ptr(),
            depth_vals.data_ptr(), out.data_ptr(), R, D, h * w)
@@ -69,6 +86,8 @@ def softargmax_depth(cost: torch.Tensor,
                      depth_vals: torch.Tensor) -> torch.Tensor:
     """Same contract as `softargmax_depth_ref`. Differentiable in `cost`;
     the plane depths are constants."""
+    if not wants_grad(cost, depth_vals):
+        return _softargmax_depth(cost, depth_vals)
     if wants_grad(depth_vals):
         raise NotImplementedError(
             "softargmax_depth: no gradient with respect to depth_vals")

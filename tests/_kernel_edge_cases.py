@@ -3,9 +3,10 @@
 and its brick-binned backward (`csrc/trilinear_sample_backward.cu`), the
 map-based dense scatter (`csrc/voxelize.cu`), the two variance kernels
 (`csrc/source_variance.cu`, `csrc/patch_fan_variance.cu`), the masked
-GroupNorm forward (`csrc/masked_group_norm.cu`) and the PointNet's segment
-plan, pools and concat-back (`csrc/segment_plan.cu`, `csrc/segment_max.cu`)
-must keep. Numpy only: the
+GroupNorm forward (`csrc/masked_group_norm.cu`), the PointNet's segment
+plan, pools and concat-back (`csrc/segment_plan.cu`, `csrc/segment_max.cu`),
+the soft-argmax (`csrc/softargmax_depth.cu`) and the propagation blend's
+backward (`csrc/propagation_blend_backward.cu`) must keep. Numpy only: the
 CPU tests hand them to the JAX functions and the twins, the card tests to
 the kernels."""
 import numpy as np
@@ -510,3 +511,65 @@ def pool_case(name, C=160, seed=0):
         order = rng.permutation(P)
         seg, valid, y = seg[order], valid[order], y[order]
     return np.ascontiguousarray(y[:, :C]), seg.astype(np.int64), valid, n_seg
+
+
+# ------------------------------- the soft-argmax (K8b) and K8a's backward
+# (name, D, (h, w)): one plane (one warp's band), 97 planes (bands of 11
+# and a ragged last one), and at 24 planes: +-inf costs, NaN, exact ties
+# and costs x100 (the exponentials underflow to zero but at the minimum).
+# The maps of 7 x 9 pixels (odd: one pixel a lane) and 6 x 11 (even: two a
+# lane) cut each ref's second strip.
+SOFTARGMAX_CASES = (("one_plane", 1, (7, 9)), ("ragged_band", 97, (6, 11)),
+                    ("infinities", 24, (7, 9)), ("nan", 24, (6, 11)),
+                    ("ties", 24, (7, 9)), ("large", 24, (6, 11)))
+
+
+def softargmax_case(name, seed=0):
+    """(cost [3, D, h, w], depth_vals [D], grad [3, h, w]), fp32; grad is
+    an incoming gradient of the depth."""
+    names = [c[0] for c in SOFTARGMAX_CASES]
+    _, D, (h, w) = SOFTARGMAX_CASES[names.index(name)]
+    rng = np.random.default_rng(700 + seed + names.index(name))
+    R = 3
+    cost = rng.normal(0, 3, (R, D, h, w))
+    if name == "infinities":
+        cost[0, 3, 2, :] = -np.inf     # -cost = +inf: inf - inf, NaN
+        cost[1, :, 1, 1] = np.inf      # every plane -inf after negation
+        cost[1, 5, 3, 3] = np.inf      # one plane's weight exactly 0
+        cost[2, :, 4, 4] = -np.inf
+        cost[2, 7:, 5, 6] = np.inf
+    elif name == "nan":
+        cost[0, 7, 1, 2] = np.nan
+        cost[2, :, 0, 0] = np.nan
+        cost[1, 0, 5, 10] = np.nan     # the first plane, last pixel
+    elif name == "ties":
+        cost = rng.integers(-2, 3, (R, D, h, w)).astype(np.float64)
+        cost[0, :, 0, :] = 1.0         # every plane the same
+        cost[1, :, 2, 3] = 0.0
+        cost[1, :, 2, 4] = -0.0
+    elif name == "large":
+        cost = cost * 100
+    dv = (0.5 + 0.05 * np.arange(D)).astype(np.float32)
+    grad = rng.normal(size=(R, h, w)).astype(np.float32)
+    return cost.astype(np.float32), dv, grad
+
+
+# (name, H, W): one pixel, one row, one column, 2 x 2 (every tap clamps
+# somewhere) and a map that the kernel's 32 x 8 tiles cut on both axes
+BLEND_CASES = (("one_pixel", 1, 1), ("one_row", 1, 40),
+               ("one_column", 37, 1), ("two_by_two", 2, 2),
+               ("ragged", 33, 65))
+
+
+def blend_case(name, seed=0):
+    """(grad [3, H, W], logits [3, 9, H, W], depth [3, H, W]), fp32: the
+    logits as the NCHW output of a conv, which PropagationNet hands over
+    as the [N, H, W, 9] view `logits.transpose(0, 2, 3, 1)`; grad is an
+    incoming gradient of the blend's output."""
+    names = [c[0] for c in BLEND_CASES]
+    _, H, W = BLEND_CASES[names.index(name)]
+    rng = np.random.default_rng(800 + seed + names.index(name))
+    logits = rng.normal(0, 3, (3, 9, H, W)).astype(np.float32)
+    depth = rng.uniform(0.5, 5, (3, H, W)).astype(np.float32)
+    grad = rng.normal(size=(3, H, W)).astype(np.float32)
+    return grad, logits, depth

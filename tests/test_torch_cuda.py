@@ -953,12 +953,27 @@ def _tri_inputs(case, device):
             shape)
 
 
+def _tri_referee(grad, pts, c0, cell, shape):
+    """The twin over float64 copies of grad and pts, rounded to fp32: the
+    edge inputs' coordinates and weights are exact in either type, and a
+    float64 sum of ~120000 crowded terms lands on one fp32 value whatever
+    order the card's `index_add_` takes (an fp32 twin moved by up to 1.25e-5
+    of the largest magnitude from run to run)."""
+    from tdvnet_torch.kernels import trilinear as T
+
+    return T.trilinear_sample_backward_ref(grad.double(), pts.double(), c0,
+                                           cell, shape).float()
+
+
 def _tri_check(got, want):
     import chip_smoke
 
     assert got.shape == want.shape and torch.isfinite(got).all()
     scale = max(1.0, float(want.abs().max()))
     err = float((got - want).abs().max()) if got.numel() else 0.0
+    # the reading, for `pytest -s` runs that track it
+    print(f"K6 grid backward: max |d| {err / scale:.3e} of the twin's "
+          f"scale (limit {chip_smoke.BACKWARD_TOL})")
     assert err <= chip_smoke.BACKWARD_TOL * scale, err
 
 
@@ -1025,7 +1040,7 @@ def test_trilinear_backward_kernel_matches_twin_at_edges(case, crowded):
         assert int(counts.max()) > SEVERAL_CHUNKS
     _leave_nan(shape, dev)
     got = T.trilinear_sample_backward(grad, pts, c0, cell, shape)
-    want = T.trilinear_sample_backward_ref(grad, pts, c0, cell, shape)
+    want = _tri_referee(grad, pts, c0, cell, shape)
     torch.cuda.synchronize()
     _tri_check(got, want)
     if case == "no_points":
@@ -1461,7 +1476,9 @@ def test_trilinear_backward_is_order_free_at_edges(case, crowded):
     """K6's grid backward on the edge inputs, as they are and crowded into
     bricks of several chunks (which add into an int64 copy of the brick):
     the same bits on a second launch and with the points shuffled, and a
-    non-finite incoming gradient gives the twin's non-finite pattern."""
+    non-finite incoming gradient gives the twin's non-finite pattern. The
+    twin runs in float64 (`_tri_referee`), so that its own sum does not
+    move with the order of the card's atomics."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     import chip_smoke
@@ -1477,8 +1494,7 @@ def test_trilinear_backward_is_order_free_at_edges(case, crowded):
                            generator=torch.Generator().manual_seed(3)).to(dev)
         Q = pts.shape[1]
     got = T.trilinear_sample_backward(grad, pts, c0, cell, shape)
-    _tri_check(got, T.trilinear_sample_backward_ref(grad, pts, c0, cell,
-                                                    shape))
+    _tri_check(got, _tri_referee(grad, pts, c0, cell, shape))
     assert _same_bits(got, T.trilinear_sample_backward(grad, pts, c0, cell,
                                                        shape))
     i = _perm(Q, dev)
@@ -1486,8 +1502,7 @@ def test_trilinear_backward_is_order_free_at_edges(case, crowded):
         grad[:, i].contiguous(), pts[:, i].contiguous(), c0, cell, shape))
     bad = _poison(grad, 4)
     _nonfinite_check(T.trilinear_sample_backward(bad, pts, c0, cell, shape),
-                     T.trilinear_sample_backward_ref(bad, pts, c0, cell,
-                                                     shape),
+                     _tri_referee(bad, pts, c0, cell, shape),
                      chip_smoke.BACKWARD_TOL)
 
 
@@ -1705,3 +1720,97 @@ def test_pool_kernels_equal_twins_at_edges(case, C):
         _same_values(segmax.gather_concat(y, got, seg, relu).cpu(),
                      segmax.gather_concat_ref(y.cpu(), want, seg.cpu(),
                                               relu))
+
+
+# ------------------------------- the soft-argmax (K8b) and K8a's backward
+def _softargmax_inputs(case, device):
+    import _kernel_edge_cases as E
+
+    return [torch.from_numpy(a).to(device) for a in E.softargmax_case(case)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_plane", "ragged_band", "infinities",
+                                  "nan", "ties", "large"])
+def test_softargmax_kernel_matches_twin_at_edges(case):
+    """K8b against its twin on `tests/_kernel_edge_cases.py`'s edges (one
+    plane, a ragged last band of planes, +-inf costs, NaN, exact ties,
+    costs x100; every map's last strip of pixels cut): NaN and inf
+    where the twin has them, the rest within 1e-5, and the same bits on a
+    second launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import softargmax_depth
+    from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
+
+    cost, dv, _ = _softargmax_inputs(case, "cuda")
+    _leave_nan(cost.shape[:1] + cost.shape[2:], "cuda")
+    got = softargmax_depth(cost, dv)
+    torch.cuda.synchronize()
+    _nonfinite_check(got, softargmax_depth_ref(cost, dv), 1e-5)
+    assert _same_bits(got, softargmax_depth(cost, dv))
+    if case in ("infinities", "nan"):
+        assert torch.isnan(got).any() and torch.isfinite(got).any()
+
+
+@pytest.mark.cuda
+def test_softargmax_kernel_raises_past_its_registers():
+    """A plane count past what a block's warps hold in registers raises
+    before any launch; the largest that fits runs (32 warps, shared memory
+    past the default 48 KB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import softargmax
+    from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
+
+    D = softargmax.max_planes()
+    g = torch.Generator().manual_seed(2)
+    cost = (torch.randn(2, D, 3, 5, generator=g) * 3).cuda()
+    dv = torch.linspace(0.5, 3.0, D).cuda()
+    got = softargmax.softargmax_depth(cost, dv)
+    _nonfinite_check(got, softargmax_depth_ref(cost, dv), 1e-5)
+    over = torch.zeros(1, D + 1, 1, 1, device="cuda")
+    with pytest.raises(ValueError, match="registers"):
+        softargmax.softargmax_depth(over, torch.zeros(D + 1, device="cuda"))
+
+
+def _blend_inputs(case, device):
+    import _kernel_edge_cases as E
+    from tdvnet_torch.kernels.propagation import propagation_blend_ref
+
+    grad, logits, depth = (torch.from_numpy(a).to(device)
+                           for a in E.blend_case(case))
+    view = logits.permute(0, 2, 3, 1)
+    return grad, view, depth, propagation_blend_ref(view, depth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_pixel", "one_row", "one_column",
+                                  "two_by_two", "ragged"])
+def test_blend_backward_kernel_matches_twin_at_edges(case):
+    """K8a's one-launch backward against its twin on the edge maps (one
+    pixel, one row, one column, 2 x 2, where several taps clamp onto one
+    source pixel; 33 x 65, cut by the 32 x 8 tiles on both axes): both
+    gradients within 1e-5, the logits' gradient in the permuted layout of
+    the logits, the same bits on a second launch, and an incoming gradient
+    with a NaN and both infinities gives the twin's non-finite pattern."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import propagation_blend_backward
+    from tdvnet_torch.kernels.propagation import propagation_blend_backward_ref
+
+    grad, view, depth, out = _blend_inputs(case, "cuda")
+    _leave_nan(depth.shape, "cuda")
+    got = propagation_blend_backward(grad, view, depth, out)
+    torch.cuda.synchronize()
+    assert got[0].stride() == view.stride()
+    for a, b in zip(got, propagation_blend_backward_ref(grad, view, depth,
+                                                        out)):
+        _nonfinite_check(a, b, chip_smoke.BACKWARD_TOL)
+    again = propagation_blend_backward(grad, view, depth, out)
+    assert all(_same_bits(a, b) for a, b in zip(got, again))
+    bad = _poison(grad, 6)
+    for a, b in zip(propagation_blend_backward(bad, view, depth, out),
+                    propagation_blend_backward_ref(bad, view, depth, out)):
+        _nonfinite_check(a, b, chip_smoke.BACKWARD_TOL)
