@@ -7,7 +7,10 @@ Phases (any failure exits non-zero):
      (seconds and the ptxas register/shared-memory summary);
   2. hold each kernel against its plain PyTorch twin at the shapes the main
      path gives it, and time kernel, twin and (where one exists) a single
-     PyTorch library call with CUDA events;
+     PyTorch library call with CUDA events; (b) the segment plan and
+     K8b's backward at the edge inputs of `tests/_kernel_edge_cases.py`
+     (the plan's and the pools'; the soft-argmax's, NaN and inf in the
+     twin's places), counted 0 times;
   3. load the synth48 weights and run full-width `ThreeDVNet.infer_depth`
      on the golden batch (2 synthetic scenes x 9 views, 7 refs each), hold
      it against the JAX golden `tests/data/torch_golden_synth48.npz`, and
@@ -70,8 +73,11 @@ Phases (any failure exits non-zero):
      on out-of-range indices (jnp.take_along_axis's rule: NaN, negative
      wrap) and under the sync debug mode "error".
 
-The line before the last is the `kernels` JSON; the last line is the device
-JSON. Imports nothing of JAX; the port runs on the card only.
+Every trace (phases 5, 6c, 7c, 8c, 9d) also counts each port kernel's
+wrapper calls beside its device kernels; the segment plan and K8b's
+backward must show no more device kernels than calls (one a call), and
+some where they were called. The line before the last is
+the `kernels` JSON; the last line is the device JSON. Imports nothing of JAX; the port runs on the card only.
 """
 import contextlib
 import json
@@ -338,6 +344,11 @@ KERNEL_META = {
                         "tools/probe_mosaic_gather.py:49",
                         ("take_along_axis",)),
 }
+
+
+# kernels whose wrapper makes one device kernel a call: the traces hold
+# them to it
+ONE_KERNEL_A_CALL = ("segment_plan", "softargmax_depth_backward")
 
 
 def group_norm_calls(unet_res):
@@ -636,27 +647,11 @@ def scene_model_cases(device, gen, label, path, P, B, grid, A, unet, cloud):
 def plan_check(got, want):
     """The segment plan against its twin: the same offsets, each segment's
     rows the same set (their order within a segment is the kernel's own),
-    the same long segments in any order, the same work partition. Returns
-    (0, ok)."""
-    import torch
+    the same long segments in any order, the same work partition (equal
+    `time_pool_i8.plan_digest`s). Returns (0, ok)."""
+    from tdvnet_torch.tools.time_pool_i8 import plan_digest
 
-    from tdvnet_torch.kernels.segmax import SEGMENT_WORK
-
-    ok = torch.equal(got.offsets, want.offsets)
-    n_seg = len(want.offsets) - 1
-    total = int(want.offsets[-1])
-    ids = torch.repeat_interleave(
-        torch.arange(n_seg, device=want.rows.device),
-        want.offsets.diff().long())
-    P = len(want.rows)
-    key = lambda rows: torch.sort(ids * P + rows[:total].long())[0]
-    ok &= torch.equal(key(got.rows), key(want.rows))
-    n_long = int(want.longs[0])
-    ok &= int(got.longs[0]) == n_long and torch.equal(
-        torch.sort(got.longs[1:1 + n_long])[0], want.longs[1:1 + n_long])
-    last = (total + n_seg) // SEGMENT_WORK + 1
-    ok &= torch.equal(got.first[:last + 1], want.first[:last + 1])
-    return 0.0, bool(ok)
+    return 0.0, plan_digest(got) == plan_digest(want)
 
 
 def pool_cases(device, label, path, args, n_iters):
@@ -698,6 +693,65 @@ def pool_cases(device, label, path, args, n_iters):
              lambda: segmax.gather_concat(y, pooled, seg, relu=True),
              lambda: segmax.gather_concat_ref(y, pooled, seg, relu=True),
              0.0, concat_bytes(y, pooled, seg), P * 2 * C, path=path)]
+
+
+def nonfinite_tol(tol):
+    """A tolerance for outputs with NaN and inf: NaN and each signed inf
+    where the twin has them, the rest within `tol` of the twin's largest
+    finite magnitude (at least 1). Returns (max |d| over the finite
+    places, ok)."""
+    import torch
+
+    def check(got, want):
+        ok = all(torch.equal(f(got), f(want)) for f in (
+            torch.isnan, torch.isposinf, torch.isneginf))
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        if not fin.any():
+            return 0.0, ok
+        d = float((got[fin].double() - want[fin].double()).abs().max())
+        scale = max(1.0, float(want[fin].abs().max()))
+        return d, ok and d <= tol * scale
+
+    check.__name__ = f"nonfinite {tol}"
+    return check
+
+
+def edge_cases(device):
+    """The segment plan and K8b's backward on the edge inputs of
+    `tests/_kernel_edge_cases.py` (the plan's and the pools'; the
+    soft-argmax's, with the twin's depths), against their twins, counted 0
+    times on every path; K8b's backward also the same bits on a second
+    launch."""
+    import torch
+
+    from tdvnet_torch.kernels import segmax, softargmax_depth_backward
+    from tdvnet_torch.kernels.softargmax import softargmax_depth_backward_ref
+    from tdvnet_torch.tools.time_depthops import (backward_edge_inputs,
+                                                  edge_module,
+                                                  softargmax_backward_cost)
+    from tdvnet_torch.tools.time_pool_i8 import plan_bytes
+
+    E = edge_module()
+    up = lambda a: torch.from_numpy(a).to(device)
+    plans = {name: E.plan_case(name) for name, *_ in E.PLAN_CASES}
+    plans.update({name: E.pool_case(name, 4)[1:] for name, *_ in
+                  E.POOL_CASES})
+    cases = []
+    for name, (seg, valid, n_seg) in plans.items():
+        seg, valid = up(seg), up(valid)
+        cases.append(Case(
+            "segment_plan", f"edge {name} [{len(seg)}] -> {n_seg} segments",
+            0, lambda a=(seg, valid, n_seg): segmax.segment_plan(*a),
+            lambda a=(seg, valid, n_seg): segmax.segment_plan_ref(*a),
+            plan_check, plan_bytes(seg, valid, n_seg), 0))
+    for name, args in backward_edge_inputs(device).items():
+        cases.append(Case(
+            "softargmax_depth_backward", f"{name} {list(args[1].shape)}", 0,
+            lambda a=args: softargmax_depth_backward(*a),
+            lambda a=args: softargmax_depth_backward_ref(*a),
+            nonfinite_tol(BACKWARD_TOL), *softargmax_backward_cost(args[1]),
+            path="train", repeat=True))
+    return cases
 
 
 def sampling_cases(device, gen, label, B, dims0, pts_q, center0, per_infer,
@@ -1466,13 +1520,17 @@ def profile_phase(run, what, card, prefix="stage_"):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from tdvnet_torch.kernels import launch_counts
+
     torch.cuda.synchronize()
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    calls = {w: n - before[w] for w, n in launch_counts().items()}
     events = prof.events()
     on_card = [e for e in events if e.device_type == DeviceType.CUDA]
     # a stage span's device-side range covers its kernels: it is no work
@@ -1507,7 +1565,10 @@ def profile_phase(run, what, card, prefix="stage_"):
     # event timings of the small calls include the wrapper's host time); a
     # source file's kernels are all named <file>_..._kernel, and a device
     # kernel belongs to the longest file name it holds
-    ported = {k: {"ms": 0.0, "launches": 0} for k in KERNEL_META}
+    # beside them the wrappers' calls in the traced run
+    ported = {k: {"ms": 0.0, "launches": 0,
+                  "calls": sum(calls[w] for w in KERNEL_META[k][2])}
+              for k in KERNEL_META}
     for name, (ms, cnt) in by_name.items():
         owners = [k for k in KERNEL_META if f"{k}_" in name]
         if owners:
@@ -1516,7 +1577,8 @@ def profile_phase(run, what, card, prefix="stage_"):
             ported[k]["launches"] += cnt
     for k in KERNEL_META:
         log(f"  port kernel {k:18s} {ported[k]['ms']:8.3f} ms device in "
-            f"{ported[k]['launches']} device kernels")
+            f"{ported[k]['launches']} device kernels over "
+            f"{ported[k]['calls']} calls")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "stages_ms": stages, "ported_kernels": ported}
 
@@ -1577,6 +1639,7 @@ def train_cases(device, seed=1):
         softargmax_depth_backward_ref, softargmax_depth_ref)
     from tdvnet_torch.kernels.variance import source_variance_ref
     from tdvnet_torch.ops import camera
+    from tdvnet_torch.tools.time_depthops import softargmax_backward_cost
 
     cfg = ModelConfig()
     dc = cfg.depth_train
@@ -1616,8 +1679,7 @@ def train_cases(device, seed=1):
         "softargmax_depth_backward", f"[{R},{D},{dc.size[0]},{dc.size[1]}]",
         1, lambda a=args: softargmax_depth_backward(*a),
         lambda a=args: softargmax_depth_backward_ref(*a), BACKWARD_TOL,
-        4 * (2 * cost.numel() + D + 2 * R * dc.size[0] * dc.size[1]),
-        cost.numel() * 8, path="train"))
+        *softargmax_backward_cost(cost), path="train", repeat=True))
 
     for h, w in ((H // 4, W // 4), (H // 2, W // 2), (H, W)):
         logits = rnd(R, 9, h, w).permute(0, 2, 3, 1)
@@ -3091,6 +3153,8 @@ def main():
 
     log("phase 2: kernels against their twins")
     k_ok, per_kernel = kernel_phase(device)
+    log("phase 2b: the segment plan and K8b's backward at their edge inputs")
+    edge_ok, _ = kernel_phase(device, edge_cases(device))
 
     log("phase 3: full-width infer_depth against the JAX golden")
     model = load_threedvnet(WEIGHTS, device=device)
@@ -3215,7 +3279,19 @@ def main():
                     "train_launches": train["counts"],
                     "variance_reading": train["variance_reading"],
                     "fit": train["fit"], "probes": probes}))
-    phases = {"kernels": k_ok, "full path": f_ok, "scene golden": g_ok,
+    # one device kernel a call, in every trace that calls them (the
+    # profiler may drop a kernel of a trace, never add one)
+    one_launch = {(k, p): t["ported_kernels"][k] for k in ONE_KERNEL_A_CALL
+                  for p, (_, t) in runs.items() if t}
+    for (k, p), r in one_launch.items():
+        log(f"  {k} in the {p} trace: {r['launches']} device kernels over "
+            f"{r['calls']} calls")
+    phases = {"kernels": k_ok, "edge inputs": edge_ok,
+              "one kernel a call": all(
+                  r["launches"] <= r["calls"]
+                  and (r["launches"] > 0 or r["calls"] == 0)
+                  for r in one_launch.values()),
+              "full path": f_ok, "scene golden": g_ok,
               "scene stream": s_ok, "fast scene golden": fg_ok,
               "fast scene stream": fs_ok, "eval3d golden": e_ok,
               "eval3d stream": es_ok,

@@ -53,7 +53,8 @@ SIGNATURES = {
     "tdv_scene_origins": [_P, _P, _P, _P, _P, _L, _I, _P],
     "tdv_voxelize": [_P] * 14 + [_L, _I, _I, _I, _I, _F, _I, _P],
     "tdv_scatter_dense": [_P] * 7 + [_I] * 6 + [_P],
-    "tdv_segment_plan": [_P] * 5 + [_I, _I, _I, _P],
+    "tdv_segment_plan": [_P] * 7 + [_I, _I, _I, _I, _P],
+    "tdv_segment_plan_floor": [_I, _I, _I, _P],
     "tdv_segment_max": [_P] * 8 + [_I, _I, _I, _I, _P],
     "tdv_gather_concat": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
     "tdv_masked_group_norm": [_P] * 9 + [_I, _I, _I, _L, _F, _I, _L, _I,

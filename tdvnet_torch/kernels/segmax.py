@@ -15,6 +15,7 @@ backwards are `segment_max_backward` and `gather_concat_backward`.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -169,41 +170,48 @@ def _check_rows(y, seg, P, C, name):
 
 def segment_plan(seg: torch.Tensor, valid: torch.Tensor,
                  n_seg: int) -> SegmentPlan:
-    """Same contract as `segment_plan_ref`; launches the CUDA kernels for
-    CUDA tensors (rows within a segment, and the long ids, in an order that
-    changes from run to run)."""
+    """Same contract as `segment_plan_ref`; one cooperative launch of the
+    CUDA kernel for CUDA tensors (rows within a segment, and the long ids,
+    in an order that changes from run to run). A refused launch raises."""
     if on_cpu(seg, valid):
         return segment_plan_ref(seg, valid, n_seg)
     P = seg.shape[0]
-    if P >= 2 ** 31 or not 0 < n_seg + 1 < 2 ** 31 \
-            or P + n_seg >= 2 ** 31:
+    if n_seg < 0 or P + n_seg >= 2 ** 31 - 1:
         raise ValueError(f"segment_plan: {P} rows and {n_seg} segments are "
                          f"outside the kernel's int32 indices")
     check(seg, "seg", torch.int64, (P,))
     check(valid, "valid", torch.bool, (P,))
-    n = n_seg + 1
-    cap = long_capacity(P)
-    n_work = work_items(P, n_seg)
-    # offsets, rows, the long list and the work partition, one allocation
-    sizes = (n, P, 1 + cap, n_work + 1)
+    sizes, cap = _plan_layout(P, n_seg)
     buf = torch.empty((sum(sizes),), dtype=torch.int32, device=seg.device)
-    counts, tiles = _plan_scratch(seg.device, n, -(-n // PLAN_SCAN_TILE))
+    counts, states, flags, ranks, epoch = _plan_scratch(seg.device,
+                                                        n_seg + 1, P)
     launch("tdv_segment_plan", seg.device, seg.data_ptr(), valid.data_ptr(),
-           buf.data_ptr(), counts, tiles, P, n_seg, cap)
+           buf.data_ptr(), counts, states, flags, ranks, P, n_seg, cap,
+           epoch)
     segment_plan.launches += 1
-    return SegmentPlan(*torch.split(buf, sizes))
+    return SegmentPlan(*buf.split(sizes))
 
 
 segment_plan.launches = 0
 # counts the plan kernel's scan takes a block (`segment_plan.cu` kScanTile)
 PLAN_SCAN_TILE = 1024
-# (device index, stream): the plan's scratch, [int32 counts (zeroed once and
-# left zero by every launch); int32 tile sums of the scan]; and the pools' long
-# path scratch, [uint32 rows of C maxima; uint32 tickets], zeroed once and
-# left zero by every launch. Calls on one stream run in order, so they
-# share them.
+# (device index, stream): the plan's scratch, [counts it holds, points it
+# holds, pointers to int32 counts (zeroed once and left zero by every
+# launch), uint64 tile states and uint32 tile flags (each holding the epoch
+# of the launch that last wrote it) and int32 ranks; the last epoch; the
+# tensor]; and the pools' long path scratch, [uint32 rows of C maxima;
+# uint32 tickets], zeroed once and left zero by every launch. Calls on one
+# stream run in order, so they share them.
 _PLAN_SCRATCH = {}
 _LONG_SCRATCH = {}
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_layout(P: int, n_seg: int):
+    """The plan buffer's parts (offsets, rows, the long list, the work
+    partition) and the long list's capacity."""
+    cap = long_capacity(P)
+    return (n_seg + 1, P, 1 + cap, work_items(P, n_seg) + 1), cap
 
 
 def _stream_key(dev):
@@ -211,18 +219,25 @@ def _stream_key(dev):
     return index, torch._C._cuda_getCurrentRawStream(index)
 
 
-def _plan_scratch(dev, n, n_tiles):
-    """Pointers to n zero int32 counts and n_tiles int32 tile sums of the
-    plan's scratch on `dev`'s current stream."""
+def _plan_scratch(dev, n, P):
+    """Pointers to n zero int32 counts, the scan's uint64 tile states and
+    uint32 tile flags, and P int32 ranks of the plan's scratch on `dev`'s
+    current stream, and this call's epoch (counted up from 1; no tile state
+    or flag holds it yet)."""
     key = _stream_key(dev)
     have = _PLAN_SCRATCH.get(key)
-    if have is None or have[0].numel() < n or have[1].numel() < n_tiles:
-        n = max(n, 1 << 16)
-        have = _PLAN_SCRATCH[key] = (
-            torch.zeros((n,), dtype=torch.int32, device=dev),
-            torch.empty((-(-n // PLAN_SCAN_TILE),), dtype=torch.int32,
-                        device=dev))
-    return have[0].data_ptr(), have[1].data_ptr()
+    if have is None or have[0] < n or have[1] < P:
+        n = max(n, 1 << 16, 0 if have is None else have[0])
+        n += n % 2                        # the tile states 8-byte aligned
+        P = max(P, 1 << 16, 0 if have is None else have[1])
+        tiles = n // PLAN_SCAN_TILE + 1
+        t = torch.zeros((n + 3 * tiles + P,), dtype=torch.int32, device=dev)
+        ptr = t.data_ptr()
+        have = _PLAN_SCRATCH[key] = [n, P, ptr, ptr + 4 * n,
+                                     ptr + 4 * (n + 2 * tiles),
+                                     ptr + 4 * (n + 3 * tiles), 0, t]
+    have[6] = have[6] % (2 ** 31 - 2) + 1
+    return have[2], have[3], have[4], have[5], have[6]
 
 
 def _long_scratch(dev, n_rows, C):

@@ -7,9 +7,9 @@ design). `softargmax_depth_ref` (the JAX package's XLA form) and
 `softargmax_depth_backward_ref` are the plain PyTorch twins; the wrappers
 run them only for CPU tensors. When autograd records a call,
 `softargmax_depth` goes through `SoftargmaxDepthFn`, whose backward is
-`softargmax_depth_backward`; otherwise it launches directly. The forward
-kernel holds a block's planes in its warps' registers, at most 12 planes a
-warp and 32 warps, so D is at most `max_planes()` (384).
+`softargmax_depth_backward`; otherwise it launches directly. Both kernels
+hold a block's planes in its warps' registers, at most 12 planes a warp and
+32 warps, so D is at most `max_planes()` (384).
 """
 from __future__ import annotations
 
@@ -49,16 +49,20 @@ def max_planes() -> int:
     return library().tdv_softargmax_depth_max_planes()
 
 
+def _check_planes(fn, D):
+    if D > max_planes():
+        raise ValueError(f"{fn}: {D} planes do not fit in a block's "
+                         f"registers (at most {max_planes()} planes: 32 "
+                         f"warps of 12)")
+
+
 def _softargmax_depth(cost, depth_vals):
     if on_cpu(cost, depth_vals):
         return softargmax_depth_ref(cost, depth_vals)
     R, D, h, w = cost.shape
     check(cost, "cost", torch.float32, (R, D, h, w))
     check(depth_vals, "depth_vals", torch.float32, (D,))
-    if D > max_planes():
-        raise ValueError(f"softargmax_depth: {D} planes do not fit in a "
-                         f"block's registers (at most {max_planes()} planes: "
-                         f"32 warps of 12)")
+    _check_planes("softargmax_depth", D)
     out = torch.empty((R, h, w), dtype=torch.float32, device=cost.device)
     launch("tdv_softargmax_depth", cost.device, cost.data_ptr(),
            depth_vals.data_ptr(), out.data_ptr(), R, D, h * w)
@@ -100,7 +104,8 @@ softargmax_depth.launches = 0
 def softargmax_depth_backward(grad: torch.Tensor, cost: torch.Tensor,
                               depth_vals: torch.Tensor,
                               depth: torch.Tensor) -> torch.Tensor:
-    """Same contract as `softargmax_depth_backward_ref`."""
+    """Same contract as `softargmax_depth_backward_ref`; one launch for
+    CUDA tensors, D at most `max_planes()`."""
     if on_cpu(grad, cost, depth_vals, depth):
         return softargmax_depth_backward_ref(grad, cost, depth_vals, depth)
     R, D, h, w = cost.shape
@@ -108,6 +113,7 @@ def softargmax_depth_backward(grad: torch.Tensor, cost: torch.Tensor,
     check(depth_vals, "depth_vals", torch.float32, (D,))
     check(grad, "grad", torch.float32, (R, h, w))
     check(depth, "depth", torch.float32, (R, h, w))
+    _check_planes("softargmax_depth_backward", D)
     out = torch.empty_like(cost)
     launch("tdv_softargmax_depth_backward", cost.device, grad.data_ptr(),
            cost.data_ptr(), depth_vals.data_ptr(), depth.data_ptr(),

@@ -1,4 +1,5 @@
-"""Time K8b's forward (`softargmax_depth`) and K8a's backward
+"""Time K8b's forward (`softargmax_depth`) and backward
+(`softargmax_depth_backward`) and K8a's backward
 (`propagation_blend_backward`) on the card at their main-path inputs and at
 their edge inputs, with a digest of every output, for comparing trees.
 
@@ -6,17 +7,21 @@ their edge inputs, with a digest of every output, for comparing trees.
 
 Main-path inputs: K8b's two calls of `chip_smoke.kernel_cases` (the
 `infer_depth` call [14, 96, 56, 56] and a whole-scene chunk's [16, 96, 56,
-56], seeded costs x3) and K8a's backward at the three calls of
-`chip_smoke.train_cases` ([14, h, w] for (h, w) = (64, 80), (128, 160),
-(256, 320): seeded logits as a permuted NCHW view, depths and incoming
-gradients, the twin's output). Edge inputs: `tests/_kernel_edge_cases.py`
-(`softargmax_case`, `blend_case`) of the tree this file lies in, so that
-two trees time the same inputs.
+56], seeded costs x3), K8b's backward at the train step's call of
+`chip_smoke.train_cases` ([14, 96, 56, 56]: seeded costs x3 and incoming
+gradients, the twin's depths) and K8a's backward at its three calls there
+([14, h, w] for (h, w) = (64, 80), (128, 160), (256, 320): seeded logits
+as a permuted NCHW view, depths and incoming gradients, the twin's
+output). Edge inputs: `tests/_kernel_edge_cases.py` (`softargmax_case`,
+the backward's depths the twin's, and `blend_case`) of the tree this file
+lies in, so that two trees time the same inputs.
 
 Per case: the wrapper's mean ms over `--iters` calls (CUDA events; K8b's
 under `torch.no_grad()`, as inference calls it), the bound as
 `chip_smoke.py` reckons it (K8b: the volume, the plane depths and the
-output moved once, 5 flops a cost element; K8a's backward: 22 floats a
+output moved once, 5 flops a cost element; its backward: the volume read
+and its gradient written once, the plane depths, incoming gradients and
+depths read once, 8 flops a cost element; K8a's backward: 22 floats a
 pixel moved once, 90 flops a pixel; bytes at 3.35 TB/s, flops at 67
 TFLOP/s, the larger), and a sha256 digest of every output. K8a's
 main-path cases add the host microseconds of one `torch.empty` of the
@@ -43,6 +48,7 @@ from tdvnet_torch.tools.timing import HBM_BYTES_PER_S
 
 FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 SOFTARGMAX_FLOPS = 5         # a cost element
+SOFTARGMAX_BACKWARD_FLOPS = 8   # a cost element
 BLEND_BACKWARD_FLOPS = 90    # a pixel
 BLEND_BACKWARD_FLOATS = 22   # a pixel: 9 logits, depth, out, grad; 9 + 1
 
@@ -64,6 +70,15 @@ def softargmax_cost(cost: torch.Tensor) -> tuple:
     """(bytes, flops) of one soft-argmax call over cost [R, D, h, w]."""
     R, D, h, w = cost.shape
     return 4 * (cost.numel() + D + R * h * w), SOFTARGMAX_FLOPS * cost.numel()
+
+
+def softargmax_backward_cost(cost: torch.Tensor) -> tuple:
+    """(bytes, flops) of one soft-argmax backward over cost [R, D, h, w]:
+    the volume read and its gradient written, the plane depths, the
+    incoming gradients and the depths read."""
+    R, D, h, w = cost.shape
+    return (4 * (2 * cost.numel() + D + 2 * R * h * w),
+            SOFTARGMAX_BACKWARD_FLOPS * cost.numel())
 
 
 def blend_backward_cost(depth: torch.Tensor) -> tuple:
@@ -96,6 +111,35 @@ def main_inputs(device):
         if c.kernel == "propagation_blend_backward":
             bwd[f"train {list(_inputs_of(c)[2].shape)}"] = _inputs_of(c)
     return fwd, bwd
+
+
+def softargmax_backward_inputs(device):
+    """{name: (grad, cost, dvals, depth)} of K8b's backward: the train
+    step's call in `chip_smoke.train_cases` and the soft-argmax edge cases
+    (the twin's depths, computed on `device`)."""
+    import chip_smoke
+
+    out = {}
+    for c in chip_smoke.train_cases(device):
+        if c.kernel == "softargmax_depth_backward":
+            out[f"train {list(_inputs_of(c)[1].shape)}"] = _inputs_of(c)
+    out.update(backward_edge_inputs(device))
+    return out
+
+
+def backward_edge_inputs(device):
+    """{name: (grad, cost, dvals, depth)} of K8b's backward at the
+    soft-argmax edge cases, the depths the twin's, computed on `device`."""
+    from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
+
+    E = edge_module()
+    up = lambda a: torch.from_numpy(a).to(device)
+    out = {}
+    for name, *_ in E.SOFTARGMAX_CASES:
+        cost, dv, grad = map(up, E.softargmax_case(name))
+        out[f"edge {name}"] = (grad, cost, dv,
+                               softargmax_depth_ref(cost, dv))
+    return out
 
 
 def edge_module():
@@ -172,6 +216,17 @@ def time_softargmax(named, iters, profile):
     return rec
 
 
+def time_softargmax_backward(named, iters, profile):
+    from tdvnet_torch.kernels import softargmax_depth_backward
+
+    rec = {}
+    for name, a in named.items():
+        rec[name] = _record(lambda a=a: softargmax_depth_backward(*a),
+                            *softargmax_backward_cost(a[1]), iters, profile)
+        rec[name]["shape"] = list(a[1].shape)
+    return rec
+
+
 def time_blend_backward(named, iters, profile, alloc=()):
     from tdvnet_torch.kernels import propagation_blend_backward
 
@@ -214,6 +269,8 @@ def main():
     bwd.update(ebwd)
     rec = {"root": root, "card": card,
            "softargmax": time_softargmax(fwd, args.iters, args.profile),
+           "softargmax_backward": time_softargmax_backward(
+               softargmax_backward_inputs(device), args.iters, args.profile),
            "blend_backward": time_blend_backward(bwd, args.iters,
                                                  args.profile, main_bwd)}
     print(json.dumps(rec), flush=True)

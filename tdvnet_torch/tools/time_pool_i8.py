@@ -36,7 +36,13 @@ add the segments' statistics (non-empty segments; valid rows per
 non-empty segment: median, p99, largest; the share of rows in segments of
 more than 256), K6-int8's the share of queries whose anchor and tap set
 equal their predecessor's. `--profile` adds each K4 case's device time per
-kernel (torch.profiler). The last line is one JSON object. Run it from
+kernel (torch.profiler), and the plan alone: its device us and device
+kernels a call, and beside it the launch floor, where the tree's library
+has it (`tdv_segment_plan_floor`): an empty one-block kernel, and an empty
+cooperative launch at the plan's own grid with none and with two grid
+barriers (device us a call). Every K4 case adds a digest of its plan that
+does not depend on the kernel's free orders (`plan_digest`). The last line
+is one JSON object. Run it from
 each tree's root with that root first on the path, alternating, to read
 bit-equality and speed in one call:
 
@@ -366,23 +372,80 @@ def i8_bytes(args) -> int:
             + 2 * B * Q * C)
 
 
+def plan_digest(plan) -> str:
+    """sha256 over what a segment plan fixes: the offsets, the work
+    partition up to its last specified entry, the number of long segments
+    and their sorted ids, and each segment's rows sorted (the kernel places
+    rows within a segment, and lists the long ids, in a free order)."""
+    from tdvnet_torch.kernels.segmax import SEGMENT_WORK
+
+    offsets = plan.offsets.long().cpu()
+    n_seg = len(offsets) - 1
+    total = int(offsets[-1])
+    ids = torch.repeat_interleave(torch.arange(n_seg), offsets.diff())
+    P = len(plan.rows)
+    rows = torch.sort(ids * P + plan.rows[:total].long().cpu())[0] % max(P, 1)
+    n_long = int(plan.longs[0])
+    longs = torch.sort(plan.longs[1:1 + n_long].cpu())[0]
+    last = (total + n_seg) // SEGMENT_WORK + 1
+    h = hashlib.sha256()
+    for t in (plan.offsets.cpu(), plan.first[:last + 1].cpu(),
+              plan.longs[:1].cpu(), longs, rows.to(torch.int32)):
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 # ------------------------------------------------------------------ timing
-def profile_us(fn, n=5) -> dict:
-    """Device microseconds per call of each kernel `fn` launches, over n
-    traced calls."""
+def profile_calls(fn, n=5, tries=3) -> dict:
+    """{kernel name: (device microseconds a call, launches a call)} of the
+    kernels `fn` launches, over n traced calls. A trace that holds no
+    kernel at all is taken again, up to `tries` times (the profiler now
+    and then drops every kernel of a short trace)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / n
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                us, k = out.get(e.name, (0.0, 0.0))
+                out[e.name] = (us + e.time_range.elapsed_us() / n, k + 1 / n)
+        if out:
+            break
+    return out
+
+
+def profile_us(fn, n=5) -> dict:
+    """Device microseconds per call of each kernel `fn` launches, over n
+    traced calls."""
+    return {k: us for k, (us, _) in profile_calls(fn, n).items()}
+
+
+def launch_floor(P, n_seg, iters) -> dict:
+    """The launch floor of a plan call where the library has it: device us
+    a call (torch.profiler) and event ms of an empty one-block kernel, and
+    of an empty cooperative launch at the plan's grid for (P, n_seg) with
+    none and with two grid barriers; {} for a tree without it."""
+    from tdvnet_torch.kernels._launch import launch
+    from tdvnet_torch.kernels.build import library
+    from tdvnet_torch.tools.timing import time_ms
+
+    if not hasattr(library(), "tdv_segment_plan_floor"):
+        return {}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for name, args in (("empty_one_block", (0, 0, 0)),
+                       ("empty_plan_grid", (P, n_seg, 0)),
+                       ("plan_grid_2_barriers", (P, n_seg, 2))):
+        run = lambda a=args: launch("tdv_segment_plan_floor", dev, *a)
+        out[name] = {"device_us": sum(profile_us(run).values()),
+                     "ms": time_ms(run, iters=iters, warmup=3)}
     return out
 
 
@@ -408,6 +471,7 @@ def time_pools(named, iters, profile):
             r["plan_ms"] = time_ms(
                 lambda: segmax.segment_plan(seg, valid, n_seg), iters=iters,
                 warmup=3)
+            r["plan_digest"] = plan_digest(plan)
         r["ms"] = time_ms(run, iters=iters, warmup=3)
         r["digest"] = digest(run())
         idx = seg.clamp(0, n_seg - 1)[:, None].expand(y.shape)
@@ -418,8 +482,13 @@ def time_pools(named, iters, profile):
         if profile:
             r["profile_us"] = profile_us(run)
             if planned:
-                r["plan_profile_us"] = profile_us(
+                calls = profile_calls(
                     lambda: segmax.segment_plan(seg, valid, n_seg))
+                r["plan_profile_us"] = {k: us for k, (us, _) in
+                                        calls.items()}
+                r["plan_device_us"] = sum(us for us, _ in calls.values())
+                r["plan_device_kernels"] = sum(k for _, k in calls.values())
+                r["launch_floor"] = launch_floor(len(seg), n_seg, iters)
         rec[name] = r
     return rec
 

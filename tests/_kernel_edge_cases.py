@@ -5,7 +5,8 @@ map-based dense scatter (`csrc/voxelize.cu`), the two variance kernels
 (`csrc/source_variance.cu`, `csrc/patch_fan_variance.cu`), the masked
 GroupNorm forward (`csrc/masked_group_norm.cu`), the PointNet's segment
 plan, pools and concat-back (`csrc/segment_plan.cu`, `csrc/segment_max.cu`),
-the soft-argmax (`csrc/softargmax_depth.cu`) and the propagation blend's
+the soft-argmax and its backward (`csrc/softargmax_depth.cu`,
+`csrc/softargmax_depth_backward.cu`) and the propagation blend's
 backward (`csrc/propagation_blend_backward.cu`) must keep. Numpy only: the
 CPU tests hand them to the JAX functions and the twins, the card tests to
 the kernels."""
@@ -513,15 +514,67 @@ def pool_case(name, C=160, seed=0):
     return np.ascontiguousarray(y[:, :C]), seg.astype(np.int64), valid, n_seg
 
 
+# The segment plan alone, (name, P, n_seg): no points; one segment; long
+# segments (more than 256 rows) on either side of the scan's tile
+# boundaries (ids 1023/1024, 4095/4096, 8191/8192) and the work
+# partition's; more points than a co-resident grid has threads (and more
+# than its registers keep between the histogram and the placement: 2 blocks
+# of 512 threads x 4 points on each of 132 SMs is 540672); and a 52-view
+# scene's 262145 segments with a few hundred occupied, one of them long and
+# at the end.
+PLAN_TILE_EDGES = (1023, 1024, 4095, 4096, 8191, 8192)
+PLAN_CASES = (("no_points", 0, 20), ("one_segment", 700, 1),
+              ("long_tiles", 9000, 12300), ("many_points", 1200000, 5000),
+              ("sparse_scene", 6000, 262145))
+
+
+def plan_case(name, seed=0):
+    """(seg [P] int64, valid [P] bool, n_seg) for the segment plan alone.
+    Neighbouring points share their segment in runs, as neighbouring pixels
+    of one ref share an anchor."""
+    names = [c[0] for c in PLAN_CASES]
+    _, P, n_seg = PLAN_CASES[names.index(name)]
+    rng = np.random.default_rng(900 + seed + names.index(name))
+    runs = lambda n, lo, hi: np.repeat(rng.integers(lo, hi, n // 8 + 1),
+                                       8)[:n]
+    seg = runs(P, 0, n_seg)
+    valid = rng.uniform(size=P) < 0.9
+    if name == "one_segment":
+        seg[:] = 0
+        seg[::50] = -1                        # out of range below
+        seg[1::50] = 1                        # one past the end
+    elif name == "long_tiles":
+        at = 0
+        for s, k in zip(PLAN_TILE_EDGES + (0, n_seg - 1),
+                        (300, 257, 700, 258, 400, 1000, 260, 600)):
+            seg[at:at + k] = s
+            valid[at:at + k] = True
+            at += k
+        order = rng.permutation(P)
+        seg, valid = seg[order], valid[order]
+    elif name == "many_points":
+        seg[::997] = n_seg + 3                # past the end: counts nowhere
+        seg[1::991] = -2
+    elif name == "sparse_scene":
+        seg = runs(P, 0, 300) * 877 % (n_seg - 1)
+        seg[:400] = n_seg - 1                 # the dump slot, long
+        valid[:400] = True
+    return seg.astype(np.int64), valid, n_seg
+
+
 # ------------------------------- the soft-argmax (K8b) and K8a's backward
 # (name, D, (h, w)): one plane (one warp's band), 97 planes (bands of 11
 # and a ragged last one), and at 24 planes: +-inf costs, NaN, exact ties
 # and costs x100 (the exponentials underflow to zero but at the minimum).
 # The maps of 7 x 9 pixels (odd: one pixel a lane) and 6 x 11 (even: two a
 # lane) cut each ref's second strip.
+# Then 12 planes on an odd map (5 x 13), and 13 planes with incoming
+# gradients of 0 and -0.0.
 SOFTARGMAX_CASES = (("one_plane", 1, (7, 9)), ("ragged_band", 97, (6, 11)),
                     ("infinities", 24, (7, 9)), ("nan", 24, (6, 11)),
-                    ("ties", 24, (7, 9)), ("large", 24, (6, 11)))
+                    ("ties", 24, (7, 9)), ("large", 24, (6, 11)),
+                    ("twelve_planes", 12, (5, 13)),
+                    ("zero_grad", 13, (6, 11)))
 
 
 def softargmax_case(name, seed=0):
@@ -551,6 +604,9 @@ def softargmax_case(name, seed=0):
         cost = cost * 100
     dv = (0.5 + 0.05 * np.arange(D)).astype(np.float32)
     grad = rng.normal(size=(R, h, w)).astype(np.float32)
+    if name == "zero_grad":
+        grad[0] = 0.0
+        grad[1, ::2] = -0.0
     return cost.astype(np.float32), dv, grad
 
 

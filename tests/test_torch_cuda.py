@@ -1675,25 +1675,47 @@ def _pool_inputs(case, C, device):
 
 POOL_EDGE_CASES = ["specials", "all_invalid", "out_of_range", "one_long",
                    "trailing_empty", "long_threshold"]
+PLAN_EDGE_CASES = ["no_points", "one_segment", "long_tiles", "many_points",
+                   "sparse_scene"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", POOL_EDGE_CASES)
+@pytest.mark.parametrize("case", POOL_EDGE_CASES + PLAN_EDGE_CASES)
 def test_segment_plan_kernel_matches_twin_at_edges(case):
-    """The segment plan against its twin: the same offsets, each segment's
-    rows the same set (their order within a segment is the kernel's own),
-    the same long segments (in any order), the same work partition."""
+    """The segment plan against its twin, on the pools' edge inputs and the
+    plan's own (no points, one segment, long segments either side of the
+    scan's tile boundaries, more points than the co-resident grid has
+    threads, a scene's segments with few occupied): the same offsets, each
+    segment's rows the same set (their order within a segment is the
+    kernel's own), the same long segments (in any order), the same work
+    partition, on two launches; the counts scratch zero again after each;
+    at most one device kernel a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import _kernel_edge_cases as E
     import chip_smoke
     from tdvnet_torch.kernels import segmax
     from tdvnet_torch.kernels.segmax import SegmentPlan
+    from tdvnet_torch.tools.time_pool_i8 import profile_calls
 
-    y, seg, valid, n_seg = _pool_inputs(case, 4, "cuda")
-    got = segmax.segment_plan(seg, valid, n_seg)
+    if case in PLAN_EDGE_CASES:
+        seg, valid, n_seg = (torch.from_numpy(a).cuda() if
+                             isinstance(a, np.ndarray) else a
+                             for a in E.plan_case(case))
+    else:
+        _, seg, valid, n_seg = _pool_inputs(case, 4, "cuda")
     want = segmax.segment_plan_ref(seg.cpu(), valid.cpu(), n_seg)
-    assert chip_smoke.plan_check(SegmentPlan(*(t.cpu() for t in got)),
-                                 want)[1]
+    for _ in range(2):
+        got = segmax.segment_plan(seg, valid, n_seg)
+        assert chip_smoke.plan_check(SegmentPlan(*(t.cpu() for t in got)),
+                                     want)[1]
+        torch.cuda.synchronize()
+        for n, *_, scratch in segmax._PLAN_SCRATCH.values():
+            assert not scratch[:n].any()
+    # the profiler may drop a kernel of a short trace, never add one
+    calls = profile_calls(lambda: segmax.segment_plan(seg, valid, n_seg))
+    assert 0 < sum(k for name, (_, k) in calls.items()
+                   if "segment_plan" in name) <= 1 + 1e-9
 
 
 @pytest.mark.cuda
@@ -1729,9 +1751,12 @@ def _softargmax_inputs(case, device):
     return [torch.from_numpy(a).to(device) for a in E.softargmax_case(case)]
 
 
+SOFTARGMAX_EDGE_CASES = ["one_plane", "ragged_band", "infinities", "nan",
+                         "ties", "large", "twelve_planes", "zero_grad"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["one_plane", "ragged_band", "infinities",
-                                  "nan", "ties", "large"])
+@pytest.mark.parametrize("case", SOFTARGMAX_EDGE_CASES)
 def test_softargmax_kernel_matches_twin_at_edges(case):
     """K8b against its twin on `tests/_kernel_edge_cases.py`'s edges (one
     plane, a ragged last band of planes, +-inf costs, NaN, exact ties,
@@ -1754,10 +1779,42 @@ def test_softargmax_kernel_matches_twin_at_edges(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", SOFTARGMAX_EDGE_CASES)
+def test_softargmax_backward_kernel_matches_twin_at_edges(case):
+    """K8b's backward against its twin on the soft-argmax edges (1, 12, 13,
+    24 and 97 planes, odd maps, +-inf and NaN costs, ties, costs x100,
+    incoming gradients of 0 and -0.0), the depths the twin's: NaN and inf
+    where the twin has them, the rest within 1e-5 of the largest gradient;
+    the same bits on a second launch; at most one device kernel a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import softargmax_depth_backward
+    from tdvnet_torch.kernels.softargmax import (
+        softargmax_depth_backward_ref, softargmax_depth_ref)
+    from tdvnet_torch.tools.time_pool_i8 import profile_calls
+
+    cost, dv, grad = _softargmax_inputs(case, "cuda")
+    depth = softargmax_depth_ref(cost, dv)
+    _leave_nan(cost.shape, "cuda")
+    got = softargmax_depth_backward(grad, cost, dv, depth)
+    torch.cuda.synchronize()
+    _nonfinite_check(got, softargmax_depth_backward_ref(grad, cost, dv,
+                                                        depth), 1e-5)
+    assert _same_bits(got, softargmax_depth_backward(grad, cost, dv, depth))
+    if case == "zero_grad":
+        assert not got[0].any()
+    # the profiler may drop a kernel of a short trace, never add one
+    calls = profile_calls(lambda: softargmax_depth_backward(grad, cost, dv,
+                                                            depth))
+    assert 0 < sum(k for name, (_, k) in calls.items()
+                   if "softargmax_depth_backward" in name) <= 1 + 1e-9
+
+
+@pytest.mark.cuda
 def test_softargmax_kernel_raises_past_its_registers():
     """A plane count past what a block's warps hold in registers raises
-    before any launch; the largest that fits runs (32 warps, shared memory
-    past the default 48 KB)."""
+    before any launch, forward and backward; the largest that fits runs
+    (32 warps, shared memory past the default 48 KB)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from tdvnet_torch.kernels import softargmax
@@ -1769,9 +1826,18 @@ def test_softargmax_kernel_raises_past_its_registers():
     dv = torch.linspace(0.5, 3.0, D).cuda()
     got = softargmax.softargmax_depth(cost, dv)
     _nonfinite_check(got, softargmax_depth_ref(cost, dv), 1e-5)
+    g = torch.randn(2, 3, 5, generator=g).cuda()
+    _nonfinite_check(
+        softargmax.softargmax_depth_backward(g, cost, dv, got),
+        softargmax.softargmax_depth_backward_ref(g, cost, dv, got), 1e-5)
     over = torch.zeros(1, D + 1, 1, 1, device="cuda")
     with pytest.raises(ValueError, match="registers"):
         softargmax.softargmax_depth(over, torch.zeros(D + 1, device="cuda"))
+    with pytest.raises(ValueError, match="registers"):
+        softargmax.softargmax_depth_backward(
+            torch.zeros(1, 1, 1, device="cuda"), over,
+            torch.zeros(D + 1, device="cuda"),
+            torch.zeros(1, 1, 1, device="cuda"))
 
 
 def _blend_inputs(case, device):

@@ -31,6 +31,36 @@ def test_softargmax_counts_and_bound(case):
         1e3 * max(nbytes / 3.35e12, flops / 67e12), rel=1e-12)
 
 
+@pytest.mark.parametrize("case", [c[0] for c in E.SOFTARGMAX_CASES])
+def test_softargmax_backward_counts_bound_and_inputs(case):
+    """K8b's backward: the volume read and its gradient written once, the
+    plane depths, incoming gradients and depths read once, 8 flops a cost
+    element, the bound as `chip_smoke.py` reckons it; the edge inputs the
+    case's arrays with the twin's depths."""
+    import chip_smoke
+    from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
+    from tdvnet_torch.tools import time_depthops as T
+
+    cost, dv, grad = E.softargmax_case(case)
+    R, D, h, w = cost.shape
+    nbytes, flops = T.softargmax_backward_cost(torch.from_numpy(cost))
+    assert nbytes == 2 * cost.nbytes + dv.nbytes + 2 * grad.nbytes
+    assert flops == 8 * cost.size
+    ref = chip_smoke.Case("softargmax_depth_backward", "", 1, None, None,
+                          1e-5, nbytes, flops)
+    assert T.bound_ms(nbytes, flops) == pytest.approx(ref.bound_ms,
+                                                      rel=1e-12)
+    assert T.bound_ms(nbytes, flops) == pytest.approx(
+        1e3 * max(nbytes / 3.35e12, flops / 67e12), rel=1e-12)
+    g, c, d, depth = T.backward_edge_inputs(torch.device("cpu"))[
+        f"edge {case}"]
+    np.testing.assert_array_equal(g.numpy(), grad)
+    np.testing.assert_array_equal(c.numpy(), cost)
+    np.testing.assert_array_equal(d.numpy(), dv)
+    torch.testing.assert_close(depth, softargmax_depth_ref(c, d), rtol=0,
+                               atol=0, equal_nan=True)
+
+
 @pytest.mark.parametrize("case", [c[0] for c in E.BLEND_CASES])
 def test_blend_backward_counts_and_bound(case):
     import chip_smoke

@@ -483,29 +483,17 @@ def _same_or_nan(a, b):
     np.testing.assert_array_equal(a[keep], b[keep])
 
 
-@pytest.mark.parametrize("case", [c[0] for c in E.POOL_CASES])
-def test_pool_twins_match_jax_at_edges(case):
-    """K4's twins against the JAX package's pool and gather-back on the
-    pools' edge inputs (NaN of either sign, +-inf, -0.0, maxima at and
-    around -5e29, every row invalid, ids out of range, a segment of ~10^5
-    rows, empty trailing segments, segments either side of the long path's
-    256 rows and a filled dump slot) at C = 4, 128 and 160: the same values
-    (a max and a copy are exact), NaN in the same places. The segment plan's
-    twin pooled through its plan gives the pool's twin's result, lists
-    exactly the segments of more than SEGMENT_LONG rows, and partitions the
-    segments over the pool's warps by where they start."""
-    from tdvnet_torch.kernels.segmax import (SEGMENT_LONG, SEGMENT_WORK,
-                                             gather_concat_ref,
-                                             segment_max_plan_ref,
-                                             segment_max_ref,
-                                             segment_plan_ref)
+def _check_plan(plan, seg, valid, n_seg):
+    """A segment plan against numpy: its offsets the counted rows' running
+    count, its rows the counted rows by segment, its long list exactly the
+    segments of more than SEGMENT_LONG rows, and its work partition by
+    where the segments start."""
+    from tdvnet_torch.kernels.segmax import SEGMENT_LONG, SEGMENT_WORK
 
-    y, seg, valid, n_seg = E.pool_case(case)
-    want, back = _jax_pool(y, seg, valid, n_seg)
-    plan = segment_plan_ref(t(seg), torch.from_numpy(valid), n_seg)
     ok = valid & (seg >= 0) & (seg < n_seg)
     counts = np.bincount(seg[ok], minlength=n_seg)
     np.testing.assert_array_equal(np.diff(n(plan.offsets)), counts)
+    assert n(plan.offsets)[0] == 0
     rows = n(plan.rows)[:ok.sum()]
     np.testing.assert_array_equal(np.sort(rows), np.flatnonzero(ok))
     np.testing.assert_array_equal(
@@ -518,10 +506,50 @@ def test_pool_twins_match_jax_at_edges(case):
     starts = n(plan.offsets).astype(np.int64) + np.arange(n_seg + 1)
     first = n(plan.first).astype(np.int64)
     last = starts[-1] // SEGMENT_WORK + 1
-    for w in range(last + 1):
-        want_w = np.searchsorted(starts, w * SEGMENT_WORK)
-        assert first[w] == min(want_w, n_seg)
+    want = np.searchsorted(starts, np.arange(last + 1) * SEGMENT_WORK)
+    np.testing.assert_array_equal(first[:last + 1], np.minimum(want, n_seg))
     assert (np.diff(first[:last + 1]) >= 0).all() and first[last] == n_seg
+
+
+@pytest.mark.parametrize("case", [c[0] for c in E.PLAN_CASES])
+def test_plan_twin_matches_jax_at_plan_edges(case):
+    """The segment plan's twin on the plan's own edges (no points, one
+    segment, long segments either side of the scan's tile boundaries, more
+    points than a co-resident grid has threads, a scene's 262145 segments
+    with few occupied): the plan against numpy, and a 4-channel pool
+    through it equal to the JAX package's `_segmax`."""
+    from tdvnet_torch.kernels.segmax import (segment_max_plan_ref,
+                                             segment_plan_ref)
+
+    seg, valid, n_seg = E.plan_case(case)
+    plan = segment_plan_ref(t(seg), torch.from_numpy(valid), n_seg)
+    _check_plan(plan, seg, valid, n_seg)
+    y = np.random.default_rng(3).normal(size=(len(seg), 4)).astype(
+        np.float32)
+    want, _ = _jax_pool(y, seg, valid, n_seg)
+    _same_or_nan(n(segment_max_plan_ref(t(y), plan, n_seg)), want)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in E.POOL_CASES])
+def test_pool_twins_match_jax_at_edges(case):
+    """K4's twins against the JAX package's pool and gather-back on the
+    pools' edge inputs (NaN of either sign, +-inf, -0.0, maxima at and
+    around -5e29, every row invalid, ids out of range, a segment of ~10^5
+    rows, empty trailing segments, segments either side of the long path's
+    256 rows and a filled dump slot) at C = 4, 128 and 160: the same values
+    (a max and a copy are exact), NaN in the same places. The segment plan's
+    twin pooled through its plan gives the pool's twin's result, lists
+    exactly the segments of more than SEGMENT_LONG rows, and partitions the
+    segments over the pool's warps by where they start."""
+    from tdvnet_torch.kernels.segmax import (gather_concat_ref,
+                                             segment_max_plan_ref,
+                                             segment_max_ref,
+                                             segment_plan_ref)
+
+    y, seg, valid, n_seg = E.pool_case(case)
+    want, back = _jax_pool(y, seg, valid, n_seg)
+    plan = segment_plan_ref(t(seg), torch.from_numpy(valid), n_seg)
+    _check_plan(plan, seg, valid, n_seg)
     for C in E.POOL_CHANNELS:
         yc = t(np.ascontiguousarray(y[:, :C]))
         got = segment_max_ref(yc, t(seg), torch.from_numpy(valid), n_seg)

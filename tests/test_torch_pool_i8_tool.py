@@ -49,6 +49,52 @@ def test_segment_stats_and_pool_bounds(case):
         assert st["max"] == 1000 and st["share_over_long"] > 0
 
 
+def _reordered(plan, seed=0):
+    """The plan with each segment's rows and the long ids in another
+    order, as another launch of the kernel may place them."""
+    from tdvnet_torch.kernels.segmax import SegmentPlan
+
+    rng = np.random.default_rng(seed)
+    offsets = plan.offsets.numpy()
+    rows = plan.rows.numpy().copy()
+    for a, b in zip(offsets[:-1], offsets[1:]):
+        rows[a:b] = rng.permutation(rows[a:b])
+    longs = plan.longs.numpy().copy()
+    longs[1:1 + longs[0]] = rng.permutation(longs[1:1 + longs[0]])
+    return SegmentPlan(plan.offsets, torch.from_numpy(rows),
+                       torch.from_numpy(longs), plan.first)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in E.PLAN_CASES])
+def test_plan_digest_and_bound(case):
+    """The plan's digest holds what a plan fixes and nothing of the orders
+    the kernel leaves free: the same for the rows of each segment and the
+    long ids in another order; another for a row moved to the next
+    segment, or another work partition. The plan's byte bound: ids and
+    flags read once, offsets and the counted rows written once."""
+    from tdvnet_torch.kernels.segmax import SegmentPlan, segment_plan_ref
+    from tdvnet_torch.tools import time_pool_i8 as T
+
+    seg, valid, n_seg = E.plan_case(case)
+    ok, counts = _counted(seg, valid, n_seg)
+    st, vt = torch.from_numpy(seg), torch.from_numpy(valid)
+    assert T.plan_bytes(st, vt, n_seg) == 9 * len(seg) + 4 * (
+        n_seg + 1 + ok.sum())
+    plan = segment_plan_ref(st, vt, n_seg)
+    d = T.plan_digest(plan)
+    assert T.plan_digest(_reordered(plan)) == d
+    if ok.sum() == 0:
+        return
+    s = int(np.flatnonzero(counts)[0])         # a row leaves segment s
+    moved = plan.offsets.clone()
+    moved[s + 1] -= 1
+    assert T.plan_digest(SegmentPlan(moved, *plan[1:])) != d
+    first = plan.first.clone()
+    first[0] += 1
+    assert T.plan_digest(SegmentPlan(plan.offsets, plan.rows, plan.longs,
+                                     first)) != d
+
+
 def _i8_model(shape, pts, c0, cell, off):
     """Per query: the anchor key (-1 out of range or not finite) and its
     in-grid tap mask, and the set of touched nodes, in numpy."""
