@@ -10,7 +10,10 @@ Phases (any failure exits non-zero):
      PyTorch library call with CUDA events; (b) the segment plan and
      K8b's backward at the edge inputs of `tests/_kernel_edge_cases.py`
      (the plan's and the pools'; the soft-argmax's, NaN and inf in the
-     twin's places), counted 0 times;
+     twin's places), K8b forward and backward past 384 planes (D = 392
+     and 768 at [14, D, 56, 56]), its any-D form against the register
+     form at D = 96 (the same bits), and K1 and K6 with their backward at
+     channel counts that are not a multiple of 4, all counted 0 times;
   3. load the synth48 weights and run full-width `ThreeDVNet.infer_depth`
      on the golden batch (2 synthetic scenes x 9 views, 7 refs each), hold
      it against the JAX golden `tests/data/torch_golden_synth48.npz`, and
@@ -71,7 +74,16 @@ Phases (any failure exits non-zero):
      `probe_gather`): every case against its twin, timed beside the
      library call; then `batched_dot` at ragged shapes, `take_along_axis`
      on out-of-range indices (jnp.take_along_axis's rule: NaN, negative
-     wrap) and under the sync debug mode "error".
+     wrap) and under the sync debug mode "error";
+ 11. the command-line entry points, in this process: (a) `eval_3dvnet`
+     from the synth48 `.npz` on the fast path over phase 8b's scenes,
+     whose averaged 2D and fused-cloud metrics must equal phase 8b's (or
+     hold within its limits); (b) `train_3dvnet --synthetic 2 --epochs 1`
+     at the full-width config (finite losses, the epoch's checkpoint and
+     `.npz` export, every training kernel launched, the backward's exactly
+     once a step); (c) `export_weights` of (b)'s checkpoint, equal bit for
+     bit to (b)'s export, then `eval_3dvnet` from it over phase 8a's
+     scene (finite metrics). Phase 8's folder lives until phase 11 ends.
 
 Every trace (phases 5, 6c, 7c, 8c, 9d) also counts each port kernel's
 wrapper calls beside its device kernels; the segment plan and K8b's
@@ -133,6 +145,7 @@ EVAL3D = {"scene": "synth_eval3d", "seed": 21, "n_views": 52,
           "noise_sigma": 0.002, "drop": 0.05, "noise_seed": 0}
 EVAL3D_EVAL = {"run_tsdf_fusion": True}
 EVAL3D_STREAM_SEEDS = (22, 23, 24)
+STREAM_DIR = "stream"    # phase 8b's scenes, under phase 8's folder
 # refs per consistency-fusion chunk (`fuse_point_cloud`'s, and JAX's)
 FUSION_REF_CHUNK = 16
 # the golden's limits: metrics in metres and fractions, counts relative
@@ -751,6 +764,129 @@ def edge_cases(device):
             lambda a=args: softargmax_depth_backward_ref(*a),
             nonfinite_tol(BACKWARD_TOL), *softargmax_backward_cost(args[1]),
             path="train", repeat=True))
+    return cases + shape_limit_cases(device)
+
+
+def shape_limit_cases(device, seed=4):
+    """The shapes the kernels once refused: K8b past the register form's
+    384 planes (D = 392 and 768 at the batch's [14, D, 56, 56], forward and
+    backward, against the twins), the any-D form against the register form
+    at the main path's D = 96 (the same bits: tolerance 0, the "plain" time
+    the register form's), and K1 and K6 at channel counts that are not a
+    multiple of 4 (K6's forward takes one channel a lane, the others'
+    wrappers pad to whole 4-channel groups and slice): the cost volume's
+    variance and its backward at C = 30, the finest
+    U-Net scale's sampling into a 126-wide output and its grid backward at
+    C = 62, beside the main path's 32 and 64. Counted 0 times on every
+    path."""
+    import torch
+
+    from tdvnet_torch.config import ModelConfig
+    from tdvnet_torch.kernels import (source_variance, softargmax,
+                                      trilinear_sample,
+                                      trilinear_sample_backward)
+    from tdvnet_torch.kernels.trilinear import (
+        trilinear_sample_backward_ref, trilinear_sample_ref)
+    from tdvnet_torch.kernels.variance import source_variance_ref
+    from tdvnet_torch.ops import camera
+    from tdvnet_torch.tools.time_depthops import (plane_inputs,
+                                                  softargmax_backward_cost,
+                                                  softargmax_cost)
+    from tdvnet_torch.tools.time_k6_backward import backward_bytes
+    from tdvnet_torch.tools.time_sampling_gn import (batch_hypothesis_points,
+                                                     k6_bytes)
+
+    S = softargmax
+    cases = []
+    for name, (grad, cost, dv, depth) in plane_inputs(device).items():
+        cases.append(Case(
+            "softargmax_depth", name, 0,
+            lambda a=(cost, dv): S.softargmax_depth(*a),
+            lambda a=(cost, dv): S.softargmax_depth_ref(*a),
+            1e-5, *softargmax_cost(cost), repeat=True))
+        args = (grad, cost, dv, depth)
+        cases.append(Case(
+            "softargmax_depth_backward", name, 0,
+            lambda a=args: S.softargmax_depth_backward(*a),
+            lambda a=args: S.softargmax_depth_backward_ref(*a),
+            nonfinite_tol(BACKWARD_TOL), *softargmax_backward_cost(cost),
+            path="train", repeat=True))
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(device)
+    cfg = ModelConfig()
+    dc = cfg.depth_train
+    cost = (rnd(14, dc.n_intervals, *dc.size) * 3).contiguous()
+    dv = camera.linspace_f32(dc.depth_start, dc.depth_end, dc.n_intervals,
+                             device)
+    depth = S.softargmax_depth_ref(cost, dv)
+    label = f"any-D form vs registers {list(cost.shape)}"
+    cases.append(Case(
+        "softargmax_depth", label, 0,
+        lambda a=(cost, dv): S._softargmax_depth(*a, long_form=True),
+        lambda a=(cost, dv): S._softargmax_depth(*a), 0.0,
+        *softargmax_cost(cost)))
+    args = (rnd(14, *dc.size), cost, dv, depth)
+    cases.append(Case(
+        "softargmax_depth_backward", label, 0,
+        lambda a=args: S._softargmax_depth_backward(*a, long_form=True),
+        lambda a=args: S._softargmax_depth_backward(*a), 0.0,
+        *softargmax_backward_cost(cost), path="train"))
+
+    # K1 and its backward at the cost volume with 30 channels
+    b = golden_batch(GOLDEN_SEEDS).to(device)
+    R, Sn = b.src_idx.shape
+    H, W = cfg.img_size
+    C = 30
+    feats = rnd(b.n_imgs, H // 4, W // 4, C).contiguous()
+    P_all = camera.projection_matrix(b.K, b.rotmats, b.tvecs).contiguous()
+    ri = b.ref_idx
+    pts = camera.plane_sweep_points(
+        dc.depth_start, dc.depth_interval, dc.n_intervals, b.rotmats[ri],
+        b.tvecs[ri], b.K[ri], cfg.img_size, dc.size).contiguous()
+    P = pts.shape[1]
+    args = (pts, feats, b.src_idx, b.src_mask, P_all, cfg.img_size)
+    active = float(b.src_mask.sum())
+    shape = f"[{R},{dc.n_intervals}*{dc.size[0]}*{dc.size[1]},{C}]"
+    cases.append(Case(
+        "source_variance", f"C={C} cost volume {shape}", 0,
+        lambda a=args: source_variance(*a, dc.size),
+        lambda a=args: source_variance_ref(*a), 1e-4,
+        4 * (pts.numel() + feats.numel() + R * P * C + P_all.numel()
+             + R * Sn * 3),
+        active * P * (24 + 11 * C) + R * P * C * 4))
+    _, mean = source_variance_ref(*args, with_mean=True)
+    cases.append(variance_backward_case(
+        f"C={C} cost volume {shape}", 0,
+        (rnd(R, P, C), mean, pts, feats, b.src_idx, b.src_mask, P_all,
+         cfg.img_size), "train", shuffled_points(), plane=dc.size))
+
+    # K6 and its grid backward at the finest scale with 62 channels
+    pts_q, center0 = batch_hypothesis_points(device)
+    B, Q = pts_q.shape[:2]
+    C = 62
+    dims = cfg.grid.grid_size
+    cell = cfg.grid.edge_len
+    grid = rnd(B, *dims, C).contiguous()
+    out = torch.empty(B, Q, C + 64, device=device)
+    shape = f"[{B},{dims[0]}x{dims[1]}x{dims[2]},{C}] x {Q} queries"
+    cases.append(Case(
+        "trilinear_sample", f"C={C} hyp s=1 {shape}", 0,
+        lambda a=(grid, pts_q, center0, cell, out, 0):
+            trilinear_sample(*a)[..., :C],
+        lambda a=(grid, pts_q, center0, cell): trilinear_sample_ref(*a),
+        1e-5, k6_bytes((grid, pts_q, center0, cell, C + 64, 0)),
+        B * Q * (30 + 16 * C)))
+    # the hypotheses crowd near the surfaces: the twin sums in float64 on
+    # the fp32 coordinates and weights (an fp32 `index_add_` on the card
+    # sums in a run-dependent order)
+    targs = (rnd(B, Q, C), pts_q, center0, cell, tuple(grid.shape))
+    cases.append(Case(
+        "trilinear_sample_backward", f"C={C} hyp s=1 {shape}", 0,
+        lambda a=targs: trilinear_sample_backward(*a),
+        lambda a=targs: trilinear_sample_backward_ref(
+            a[0].double(), *a[1:]).float(), BACKWARD_TOL,
+        backward_bytes(targs[0], pts_q, targs[4]), B * Q * (30 + 16 * C),
+        path="train1", repeat=True))
     return cases
 
 
@@ -3041,8 +3177,9 @@ def eval3d_stream_phase(model, root, device, card):
 
     cfg = eval3d_config(os.path.join(root, "results"))
     t0 = time.perf_counter()
-    scenes = [ensure_scene_dir(root, f"synth_{s:04d}", STREAM_VIEWS,
-                               EVAL3D["hw"], s, device)
+    scenes = [ensure_scene_dir(os.path.join(root, STREAM_DIR),
+                               f"synth_{s:04d}", STREAM_VIEWS, EVAL3D["hw"],
+                               s, device)
               for s in EVAL3D_STREAM_SEEDS]
     write_s = time.perf_counter() - t0
     inner = harness.make_3dvnet_pred_fn(model, cfg)
@@ -3123,6 +3260,119 @@ def eval3d_trace_phase(model, scene, root, device, card):
                          card, prefix="eval_")
 
 
+# the command-line entry points (phase 11): the metrics both 11a and phase
+# 8b compute (8b adds the TSDF's), and the training run's size
+CLI_METRICS = ("metrics_2d.json", "metrics_3d_0.010_3v_masked.json")
+CLI_TRAIN = ["--synthetic", "2", "--epochs", "1", "--steps-per-epoch", "2"]
+
+
+def cli_eval_phase(root, stream):
+    """11a: `eval_3dvnet.main` from the shipped `.npz` on the fast path
+    over phase 8b's scenes (its own save dir; the CLI's config, in which
+    the TSDF is off): the averaged 2D and fused-cloud metrics equal phase
+    8b's, or else hold within section 2's limits."""
+    from tdvnet_torch.tools import eval_3dvnet
+
+    t0 = time.perf_counter()
+    got = eval_3dvnet.main([
+        "--ckpt-dir", WEIGHTS, "--dataset",
+        f"synthetic:{os.path.join(root, STREAM_DIR)}", "--fast-path",
+        "--save-dir", os.path.join(root, "cli_eval")])
+    wall = time.perf_counter() - t0
+    want = stream["metrics"]
+    exact = all(got.get(f) == want.get(f) for f in CLI_METRICS)
+    ok = set(got) == set(CLI_METRICS) and (exact or all(
+        eval3d_metrics_ok(f, want[f], got[f]) for f in CLI_METRICS))
+    for f in CLI_METRICS:
+        log(f"  {f}: {json.dumps(got.get(f))}")
+    log(f"  eval_3dvnet over {len(EVAL3D_STREAM_SEEDS)} scenes in "
+        f"{wall:.2f} s; equal to phase 8b's: {exact} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, {"seconds": wall, "equal": exact}
+
+
+def cli_train_phase(root):
+    """11b: `train_3dvnet.main` at the default full-width config, 2
+    synthetic scenes of 16 views (the cache in `root`), one epoch: one
+    n_iters=1 step of 2 x 9 views at 256x320, then validation. Finite
+    losses, the epoch's checkpoint and `.npz` export, and the launches of
+    every training kernel, forward and backward (the backward exactly one
+    step's: validation and the scenes' GT meshes launch forwards only)."""
+    import tempfile
+
+    import torch
+
+    from tdvnet_torch.config import ModelConfig, TrainConfig
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+    from tdvnet_torch.tools import train_3dvnet
+    from tdvnet_torch.train import checkpoints as C
+
+    out = {x: os.path.join(root, x) for x in ("ckpt", "log", "w.npz")}
+    keep, tempfile.tempdir = tempfile.tempdir, root
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_3dvnet.main(CLI_TRAIN + [
+            "--ckpt-dir", out["ckpt"], "--log-dir", out["log"],
+            "--export-npz", out["w.npz"], "--export-every", "1"])
+    finally:
+        tempfile.tempdir = keep
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(os.path.join(out["log"], "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = {k: v for r in recs for k, v in r.items()
+              if k.endswith("loss") or k.endswith("loss_2d")}
+    want = train_expected_launches(1, TrainConfig().n_iters_early,
+                                   len(TrainConfig().offsets),
+                                   ModelConfig().unet_res)
+    trained = [w for w, n in want.items() if n]
+    launches_ok = all(counts[w] == want[w] if w.endswith("_backward")
+                      else counts[w] >= want[w] for w in trained)
+    ok = (bool(losses) and "train/loss" in losses
+          and all(math.isfinite(v) for v in losses.values())
+          and C.latest_epoch(out["ckpt"]) == 1
+          and os.path.exists(out["w.npz"]) and launches_ok)
+    log(f"  train_3dvnet {' '.join(CLI_TRAIN)} in {wall:.2f} s: losses "
+        f"{json.dumps(losses)}; checkpoint epoch "
+        f"{C.latest_epoch(out['ckpt'])}")
+    log(f"  launches {json.dumps({w: counts[w] for w in trained})} "
+        f"(one step's {json.dumps({w: want[w] for w in trained})}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, {"seconds": wall, "losses": losses}, out
+
+
+def cli_export_phase(root, trained):
+    """11c: `export_weights.main` over 11b's checkpoint: the same arrays,
+    bit for bit, as 11b's own `.npz` export (both fp16); then
+    `eval_3dvnet.main` from that `.npz` over phase 8a's scene (the parity
+    path): finite metrics."""
+    import numpy as np
+
+    from tdvnet_torch.tools import eval_3dvnet, export_weights
+
+    t0 = time.perf_counter()
+    path = export_weights.main(["--ckpt-dir", trained["ckpt"], "--out",
+                                os.path.join(root, "exported.npz")])
+    with np.load(path) as a, np.load(trained["w.npz"]) as b:
+        same = sorted(a.files) == sorted(b.files) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            for k in a.files)
+    avg = eval_3dvnet.main(["--ckpt-dir", path, "--dataset",
+                            f"synthetic:{root}", "--save-dir",
+                            os.path.join(root, "cli_export_eval")])
+    wall = time.perf_counter() - t0
+    finite = bool(avg) and all(math.isfinite(v) for m in avg.values()
+                               for v in m.values())
+    ok = same and finite and set(avg) == set(CLI_METRICS)
+    log(f"  export equal to the training run's bit for bit: {same}; "
+        f"eval of {EVAL3D['scene']} from it: {json.dumps(avg)} in "
+        f"{wall:.2f} s {'ok' if ok else 'FAIL'}")
+    return ok, {"seconds": wall, "metrics": avg}
+
+
 def main():
     import tempfile
 
@@ -3153,7 +3403,8 @@ def main():
 
     log("phase 2: kernels against their twins")
     k_ok, per_kernel = kernel_phase(device)
-    log("phase 2b: the segment plan and K8b's backward at their edge inputs")
+    log("phase 2b: the segment plan and K8b's backward at their edge "
+        "inputs; K8b past 384 planes, K1 and K6 at odd channel counts")
     edge_ok, _ = kernel_phase(device, edge_cases(device))
 
     log("phase 3: full-width infer_depth against the JAX golden")
@@ -3198,19 +3449,20 @@ def main():
                                f"fast predict_scene ({STREAM_VIEWS} views)",
                                card)
 
-    # the datasets of phase 8 live in a temporary directory, removed at the
-    # end whatever happens
-    with tempfile.TemporaryDirectory(prefix="tdvnet_eval3d_") as root:
-        log("phase 8a: 3D evaluation of the golden scene against the JAX "
-            "golden")
-        e_ok, eval3d_counts = eval3d_golden_phase(root, device)
-        log("phase 8b: harness.main over a stream of scenes (fast path, "
-            "TSDF on)")
-        es_ok, eval3d_stream, scenes = eval3d_stream_phase(model, root,
-                                                           device, card)
-        log("phase 8c: trace of one scene's 3D evaluation")
-        eval3d_trace = eval3d_trace_phase(model, scenes[0], root, device,
-                                          card)
+    # the datasets of phases 8 and 11 live in a temporary directory,
+    # removed at the end whatever happens (a finalizer at exit)
+    tmp = tempfile.TemporaryDirectory(prefix="tdvnet_eval3d_")
+    root = tmp.name
+    log("phase 8a: 3D evaluation of the golden scene against the JAX "
+        "golden")
+    e_ok, eval3d_counts = eval3d_golden_phase(root, device)
+    log("phase 8b: harness.main over a stream of scenes (fast path, "
+        "TSDF on)")
+    es_ok, eval3d_stream, scenes = eval3d_stream_phase(model, root,
+                                                       device, card)
+    log("phase 8c: trace of one scene's 3D evaluation")
+    eval3d_trace = eval3d_trace_phase(model, scenes[0], root, device,
+                                      card)
 
     del model, inf, fast
     torch.cuda.empty_cache()
@@ -3225,6 +3477,19 @@ def main():
     log("phase 10: probes")
     p_ok, probe_kernels, probe_counts, probes = probe_phase(device)
     per_kernel.update(probe_kernels)
+
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    log("phase 11a: eval_3dvnet over phase 8b's scenes against phase 8b")
+    ca_ok, cli = cli_eval_phase(root, eval3d_stream)
+    log("phase 11b: train_3dvnet at the full-width config")
+    cb_ok, cli["train"], trained = cli_train_phase(root)
+    log("phase 11c: export_weights of 11b's checkpoint, then eval_3dvnet "
+        "from it")
+    cc_ok, cli["export"] = cli_export_phase(root, trained)
+    cli["phase_seconds"] = time.perf_counter() - t11
+    log(f"  phase 11 in {cli['phase_seconds']:.1f} s")
+    tmp.cleanup()
 
     # per kernel, over one run of its main path (the keys of the contract):
     # infer_depth, the fast whole scene for the fast path's kernels, one
@@ -3278,7 +3543,7 @@ def main():
                     "train": train["timing"], "train_trace": train["trace"],
                     "train_launches": train["counts"],
                     "variance_reading": train["variance_reading"],
-                    "fit": train["fit"], "probes": probes}))
+                    "fit": train["fit"], "probes": probes, "cli": cli}))
     # one device kernel a call, in every trace that calls them (the
     # profiler may drop a kernel of a trace, never add one)
     one_launch = {(k, p): t["ported_kernels"][k] for k in ONE_KERNEL_A_CALL
@@ -3300,7 +3565,8 @@ def main():
               "train n_iters=1": train["ok"][1],
               "train n_iters=2": train["ok"][2],
               "train repeats": train["repeat_ok"], "fit": train["fit_ok"],
-              "probes": p_ok}
+              "probes": p_ok, "cli eval": ca_ok, "cli train": cb_ok,
+              "cli export": cc_ok}
     if not all(phases.values()):
         return fail(json.dumps({k: v for k, v in phases.items() if not v}))
     if set(per_kernel) != set(KERNEL_META):

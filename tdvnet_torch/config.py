@@ -1,9 +1,12 @@
 """Typed configuration of the port (a jax-free copy of `tdvnet/config.py`).
 
-Two deviations from the JAX package's `ModelConfig`:
+Three deviations from the JAX package's `ModelConfig`:
 - `warp_mode` is only ``"gather"`` (the default here). The two-pass
   homography matmul warp is a TPU matrix-unit artifact and is not ported.
 - `conv3d_impl` is gone: cuDNN runs the 3D convolutions.
+- `feat_dim` is at most `MAX_FEAT_DIM` (3072): the PointNet pools 4 *
+  feat_dim channels, and the pool kernel's long path holds a segment's
+  running maxima in 48 KB of shared memory (`kernels/segmax.py`).
 
 `TrainConfig` holds the training schedule; `EvalConfig` the fields
 whole-scene inference and 3D evaluation read, the fast-path switches and
@@ -16,6 +19,10 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+# the largest feat_dim: the PointNet's pools take 4 * feat_dim channels, at
+# most the 12288 floats of the pool kernel's 48 KB shared long path
+MAX_FEAT_DIM = 3072
 
 
 @dataclass(frozen=True)
@@ -65,6 +72,13 @@ class ModelConfig:
     warp_mode: str = "gather"
 
     def __post_init__(self):
+        if self.feat_dim > MAX_FEAT_DIM:
+            raise ValueError(
+                f"ModelConfig.feat_dim={self.feat_dim}: the port takes at "
+                f"most {MAX_FEAT_DIM}; the PointNet pools 4 * feat_dim "
+                f"channels, and the pool kernel's long path holds a "
+                f"segment's maxima in 48 KB of shared memory (12288 "
+                f"floats)")
         if self.warp_mode != "gather":
             raise ValueError(
                 f"warp_mode={self.warp_mode!r}: the port has only the exact "
@@ -173,6 +187,8 @@ class TrainConfig:
     bf16_compute: bool = False
     remat: bool = False
     grad_accum_steps: int = 1
+    loader_workers: int = 8          # the StreamingLoader's threads
+    loader_prefetch: int = 3         # batches built ahead
 
     def __post_init__(self):
         for name, default in (("bf16_compute", False), ("remat", False),
@@ -191,6 +207,8 @@ class DataConfig:
     scannet_dir: str = "/data/scannet"
     icl_nuim_dir: str = "/data/icl-nuim"
     tum_rgbd_dir: str = "/data/tum-rgbd"
+    img_interval: int = 20           # frame selector search interval
+    num_workers: int = 8
 
 
 @dataclass(frozen=True)
@@ -200,6 +218,7 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    ckpt_path: Optional[str] = None
 
 
 def _overlay(dc, updates: Dict[str, Any]):
@@ -218,8 +237,19 @@ def _overlay(dc, updates: Dict[str, Any]):
     return dataclasses.replace(dc, **changes)
 
 
-def load_config(overrides: Optional[Dict[str, Any]] = None) -> Config:
+def load_config(overrides: Optional[Dict[str, Any]] = None,
+                yaml_path: Optional[str] = None) -> Config:
+    """A Config with a YAML file's nested fields overlaid, then the
+    `overrides` dict's. Reading YAML needs PyYAML, imported here only."""
     cfg = Config()
+    if yaml_path is not None:
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(f"load_config: reading {yaml_path} needs "
+                              f"PyYAML, which is not installed") from e
+        with open(yaml_path) as f:
+            cfg = _overlay(cfg, yaml.safe_load(f) or {})
     if overrides:
         cfg = _overlay(cfg, overrides)
     return cfg

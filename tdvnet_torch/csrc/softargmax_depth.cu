@@ -23,6 +23,15 @@
 // num = fmaf(e, depth_vals[d], num)), so the output has that form's bits.
 // Staging the costs themselves in shared memory read the volume at half
 // this rate: each store waited on its load.
+//
+// Past 32 bands (D > 384 planes) a second form takes any D: one thread a
+// pixel, 128 consecutive pixels a block, so each plane's row of a block is
+// one coalesced read. Read 1 takes the maximum of -cost over the planes;
+// read 2 walks them in plane order with the register form's operations
+// (e = expf(-cost - max), den += e, num = fmaf(e, depth_vals[d], num)), so
+// it gives that form's bits at any D where both run. It reads the volume
+// twice (the second read mostly from L2: a block's rows were just read),
+// where the register form reads it once; large D is off the main path.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -141,11 +150,49 @@ int launch(const float* cost, const float* dvals, float* out, int R, int D,
                                             stream);
 }
 
+constexpr int kLongThreads = 128;   // pixels a block of the any-D form
+
+__global__ void __launch_bounds__(kLongThreads)
+    softargmax_depth_long_kernel(const float* __restrict__ cost,
+                                 const float* __restrict__ dvals,
+                                 float* __restrict__ out, int D, long long HW,
+                                 long long strips) {
+  const long long r = blockIdx.x / strips;
+  const long long p = (blockIdx.x % strips) * kLongThreads + threadIdx.x;
+  if (p >= HW) return;
+  const float* c = cost + r * D * HW + p;
+  float m = -INFINITY;
+#pragma unroll 32
+  for (int d = 0; d < D; ++d) m = fmaxf(m, -__ldg(c + d * HW));
+  float den = 0.f, num = 0.f;
+#pragma unroll 32
+  for (int d = 0; d < D; ++d) {
+    const float e = expf(-__ldg(c + d * HW) - m);
+    den += e;
+    num = fmaf(e, __ldg(dvals + d), num);
+  }
+  out[r * HW + p] = num / den;
+}
+
 }  // namespace
 
-// The largest plane count a block takes: its warps' bands in registers.
+// The largest plane count the register form takes: its warps' bands.
 extern "C" int tdv_softargmax_depth_max_planes() {
   return kMaxWarps * kBand;
+}
+
+// The form for any D (the wrapper's choice past the register form's
+// planes; at most planes a test compares the two forms' bits).
+extern "C" int tdv_softargmax_depth_long(const float* cost,
+                                         const float* dvals, float* out,
+                                         int R, int D, long long HW,
+                                         void* stream) {
+  if ((long long)R * HW == 0) return 0;
+  const long long strips = (HW + kLongThreads - 1) / kLongThreads;
+  softargmax_depth_long_kernel<<<(unsigned)(R * strips), kLongThreads, 0,
+                                 (cudaStream_t)stream>>>(cost, dvals, out, D,
+                                                         HW, strips);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int tdv_softargmax_depth(const float* cost, const float* dvals,

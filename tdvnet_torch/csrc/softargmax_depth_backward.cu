@@ -32,6 +32,15 @@
 // capped at 64 a thread, no spill): a cap of 40 for 6 blocks, which would
 // take the batch's 686 strips in one wave, spilled the band and measured
 // slower, and caps of 51 and none no faster.
+//
+// Past 32 bands (D > 384 planes) a second form takes any D: one thread a
+// pixel, 128 consecutive pixels a block (each plane's row of a block one
+// coalesced access). Read 1 takes the maximum of -cost, read 2 sums the
+// denominator in plane order (den += expf(-cost - max)), read 3 recomputes
+// each exponential and writes (-g * (e / den)) * (v_d - depth) with IEEE
+// division: the register form's operations, so its bits where both run.
+// Three reads of the volume (the later ones mostly from L2) and one write
+// of its gradient; large D is off the main path.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -182,10 +191,40 @@ int launch(const float* grad, const float* cost, const float* dvals,
 
 inline bool aligned8(const void* ptr) { return (uintptr_t)ptr % 8 == 0; }
 
+constexpr int kLongThreads = 128;   // pixels a block of the any-D form
+
+__global__ void __launch_bounds__(kLongThreads)
+    softargmax_depth_backward_long_kernel(const float* __restrict__ grad,
+                                          const float* __restrict__ cost,
+                                          const float* __restrict__ dvals,
+                                          const float* __restrict__ depth,
+                                          float* __restrict__ grad_cost,
+                                          int D, long long HW,
+                                          long long strips) {
+  const long long r = blockIdx.x / strips;
+  const long long p = (blockIdx.x % strips) * kLongThreads + threadIdx.x;
+  if (p >= HW) return;
+  const float* c = cost + r * D * HW + p;
+  float m = -INFINITY;
+#pragma unroll 32
+  for (int d = 0; d < D; ++d) m = fmaxf(m, -__ldg(c + d * HW));
+  float den = 0.f;
+#pragma unroll 32
+  for (int d = 0; d < D; ++d) den += expf(-__ldg(c + d * HW) - m);
+  const float g = grad[r * HW + p], dep = depth[r * HW + p];
+  float* gc = grad_cost + r * D * HW + p;
+#pragma unroll 32
+  for (int d = 0; d < D; ++d) {
+    const float e = expf(-__ldg(c + d * HW) - m);
+    gc[d * HW] = (-g * (e / den)) * (__ldg(dvals + d) - dep);
+  }
+}
+
 }  // namespace
 
 // D is at most tdv_softargmax_depth_max_planes() (softargmax_depth.cu), the
-// same register bands as the forward's; the wrapper raises past it.
+// same register bands as the forward's; past it the wrapper launches
+// tdv_softargmax_depth_backward_long.
 extern "C" int tdv_softargmax_depth_backward(const float* grad,
                                              const float* cost,
                                              const float* dvals,
@@ -200,4 +239,19 @@ extern "C" int tdv_softargmax_depth_backward(const float* grad,
   return pairs ? launch<2>(grad, cost, dvals, depth, grad_cost, R, D, HW, st)
                : launch<1>(grad, cost, dvals, depth, grad_cost, R, D, HW,
                            st);
+}
+
+// The form for any D (the wrapper's choice past the register form's
+// planes; at most planes a test compares the two forms' bits).
+extern "C" int tdv_softargmax_depth_backward_long(
+    const float* grad, const float* cost, const float* dvals,
+    const float* depth, float* grad_cost, int R, int D, long long HW,
+    void* stream) {
+  if ((long long)R * HW == 0 || D == 0) return 0;
+  const long long strips = (HW + kLongThreads - 1) / kLongThreads;
+  softargmax_depth_backward_long_kernel<<<(unsigned)(R * strips),
+                                          kLongThreads, 0,
+                                          (cudaStream_t)stream>>>(
+      grad, cost, dvals, depth, grad_cost, D, HW, strips);
+  return (int)cudaGetLastError();
 }

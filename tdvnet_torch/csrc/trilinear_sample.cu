@@ -49,7 +49,11 @@
 // and weights, stays consistent. A non-finite coordinate gives NaN, as in the
 // JAX package and the twin. The result goes straight into channels
 // [ch_off, ch_off + C) of the [B, Q, out_stride] output, so the scales are
-// never concatenated afterwards.
+// never concatenated afterwards. Where C, the output's width or the channel
+// offset is not a multiple of 4, a lane takes one channel (4-byte loads and
+// stores, L = C lanes a query rounded as above, the channels of a query
+// past 32 in slices of 32), with the same operations per channel: the
+// kernel is templated on a lane's channel group, float4 or float.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -62,10 +66,29 @@ constexpr unsigned kNaN = 1u << 8;        // a coordinate is not finite
 // bits 0-7 of a query's code: which of its 8 taps (dx * 4 + dy * 2 + dz)
 // lie in the grid; 0 with kNaN clear: the anchor is out of range
 
-// the 8 taps of one query and 4 channels: in-grid taps from the grid, the
-// others 0 (all 8 unpredicated for an interior anchor, the common case)
-__device__ __forceinline__ void load_taps(float4 (&t)[8],
-                                          const float4* __restrict__ g,
+template <typename T> __device__ __forceinline__ T splat(float x);
+template <> __device__ __forceinline__ float4 splat<float4>(float x) {
+  return make_float4(x, x, x, x);
+}
+template <> __device__ __forceinline__ float splat<float>(float x) {
+  return x;
+}
+__device__ __forceinline__ void fma_tap(float4& acc, const float4 t,
+                                        float w) {
+  acc.x = fmaf(t.x, w, acc.x);
+  acc.y = fmaf(t.y, w, acc.y);
+  acc.z = fmaf(t.z, w, acc.z);
+  acc.w = fmaf(t.w, w, acc.w);
+}
+__device__ __forceinline__ void fma_tap(float& acc, const float t, float w) {
+  acc = fmaf(t, w, acc);
+}
+
+// the 8 taps of one query and one channel group: in-grid taps from the
+// grid, the others 0 (all 8 unpredicated for an interior anchor, the
+// common case)
+template <typename T>
+__device__ __forceinline__ void load_taps(T (&t)[8], const T* __restrict__ g,
                                           int base, unsigned mask,
                                           const int (&off)[8], int cq) {
   if (mask == 0xffu) {
@@ -76,16 +99,19 @@ __device__ __forceinline__ void load_taps(float4 (&t)[8],
 #pragma unroll
     for (int k = 0; k < 8; ++k)
       t[k] = (mask >> k & 1u) ? __ldg(g + (long long)(base + off[k]) * cq)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+                              : splat<T>(0.f);
   }
 }
 
+// T: a lane's channel group, float4 or float; cq = C / (its channels),
+// out_stride and ch_off counted in floats
+template <typename T>
 __global__ void __launch_bounds__(kWarps * 32) trilinear_sample_kernel(
     const float* __restrict__ grid,     // [B, X, Y, Z, C]
     const float* __restrict__ pts,      // [B, Q, 3] world points
     const float* __restrict__ center0,  // [B, 3] world position of node 0
     float* __restrict__ out,            // [B, Q, out_stride]
-    int B, long long Q, int X, int Y, int Z, int C, float cell,
+    int B, long long Q, int X, int Y, int Z, int cq, float cell,
     int out_stride, int ch_off, int L) {
   const int lane = threadIdx.x & 31;
   const long long n = (long long)B * Q;
@@ -126,8 +152,7 @@ __global__ void __launch_bounds__(kWarps * 32) trilinear_sample_kernel(
 
   // ---- sampling: lane group `sub` of L lanes walks queries
   // q0 + sub * L .. q0 + sub * L + L - 1; lane c4 of the group takes the
-  // float4 channels c4, c4 + 32, ...
-  const int cq = C >> 2;
+  // channel groups c4, c4 + 32, ...
   const int sub = lane / L, c4_lane = lane % L;
   const int first = sub * L;             // the group's first coordinate lane
   const int YZ = Y * Z;
@@ -135,12 +160,12 @@ __global__ void __launch_bounds__(kWarps * 32) trilinear_sample_kernel(
 #pragma unroll
   for (int k = 0; k < 8; ++k)
     off[k] = (k >> 2) * YZ + (k >> 1 & 1) * Z + (k & 1);
-  const float4* g = reinterpret_cast<const float4*>(grid);
+  const T* g = reinterpret_cast<const T*>(grid);
   for (int cbase = 0; cbase < cq; cbase += 32) {
     const int c4 = cbase + c4_lane;
     const bool live = c4 < cq;
-    const float4* gc = g + c4;
-    float4 t[8];
+    const T* gc = g + c4;
+    T t[8];
     int b_have = 0;
     unsigned k_have = 0;                 // no taps held yet
     for (int i = 0; i < L; ++i) {
@@ -159,10 +184,10 @@ __global__ void __launch_bounds__(kWarps * 32) trilinear_sample_kernel(
       }
       const long long gq = q0 + src;
       if (live && gq < n) {
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        T acc = splat<T>(0.f);
         if (k_cur & kNaN) {
           // the reference's weights q - floor(q) are NaN here
-          acc = make_float4(NAN, NAN, NAN, NAN);
+          acc = splat<T>(NAN);
         } else if (mask) {
           const float ax[2] = {1.f - x_cur, x_cur};
           const float ay[2] = {1.f - y_cur, y_cur};
@@ -170,13 +195,10 @@ __global__ void __launch_bounds__(kWarps * 32) trilinear_sample_kernel(
 #pragma unroll
           for (int k = 0; k < 8; ++k) {
             const float w = ax[k >> 2] * ay[k >> 1 & 1] * az[k & 1];
-            acc.x = fmaf(t[k].x, w, acc.x);
-            acc.y = fmaf(t[k].y, w, acc.y);
-            acc.z = fmaf(t[k].z, w, acc.z);
-            acc.w = fmaf(t[k].w, w, acc.w);
+            fma_tap(acc, t[k], w);
           }
         }
-        reinterpret_cast<float4*>(out + gq * out_stride + ch_off)[c4] = acc;
+        reinterpret_cast<T*>(out + gq * out_stride + ch_off)[c4] = acc;
       }
     }
   }
@@ -192,13 +214,16 @@ extern "C" int tdv_trilinear_sample(const float* grid, const float* pts,
                                     void* stream) {
   const long long n = (long long)B * Q;
   if (n == 0 || C == 0) return 0;
+  const bool quads = C % 4 == 0 && out_stride % 4 == 0 && ch_off % 4 == 0;
+  const int cq = quads ? C / 4 : C;
   int L = 1;
-  while (L < C / 4 && L < 32) L <<= 1;
+  while (L < cq && L < 32) L <<= 1;
   const long long tiles = (n + 31) / 32;
   const long long blocks = (tiles + kWarps - 1) / kWarps;
-  trilinear_sample_kernel<<<(unsigned)blocks, kWarps * 32, 0,
-                            (cudaStream_t)stream>>>(
-      grid, pts, center0, out, B, Q, X, Y, Z, C, cell, out_stride, ch_off,
+  const auto kernel = quads ? trilinear_sample_kernel<float4>
+                            : trilinear_sample_kernel<float>;
+  kernel<<<(unsigned)blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      grid, pts, center0, out, B, Q, X, Y, Z, cq, cell, out_stride, ch_off,
       L);
   return (int)cudaGetLastError();
 }

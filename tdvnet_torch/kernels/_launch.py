@@ -48,6 +48,25 @@ def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def quad(C: int) -> int:
+    """C rounded up to a whole number of the kernels' 4-channel groups."""
+    return -(-C // 4) * 4
+
+
+def pad_channels(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x with zero channels added on its last axis up to `width` (x itself
+    where it is that wide already). The kernels that read and write float4
+    channel groups take any C this way: each channel's arithmetic is its
+    own, so the real channels of the padded call are the bits an exact-width
+    call would give, and the wrapper slices them out."""
+    C = x.shape[-1]
+    if C == width:
+        return x
+    out = x.new_zeros((*x.shape[:-1], width))
+    out[..., :C] = x
+    return out
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
           contiguous: bool = True) -> None:
     if t.dtype != dtype:

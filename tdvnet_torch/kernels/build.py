@@ -46,7 +46,9 @@ SIGNATURES = {
     "tdv_propagation_blend": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
     "tdv_softargmax_depth": [_P, _P, _P, _I, _I, _L, _P],
     "tdv_softargmax_depth_max_planes": [],
+    "tdv_softargmax_depth_long": [_P, _P, _P, _I, _I, _L, _P],
     "tdv_softargmax_depth_backward": [_P] * 5 + [_I, _I, _L, _P],
+    "tdv_softargmax_depth_backward_long": [_P] * 5 + [_I, _I, _L, _P],
     "tdv_propagation_blend_backward": [_P] * 6 + [_I] * 3 + [_L] * 8 + [_P],
     "tdv_batched_dot": [_P] * 3 + [_L, _I, _I, _I, _P],
     "tdv_take_along_axis": [_P] * 3 + [_I] * 6 + [_P],

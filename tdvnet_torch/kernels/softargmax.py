@@ -7,9 +7,12 @@ design). `softargmax_depth_ref` (the JAX package's XLA form) and
 `softargmax_depth_backward_ref` are the plain PyTorch twins; the wrappers
 run them only for CPU tensors. When autograd records a call,
 `softargmax_depth` goes through `SoftargmaxDepthFn`, whose backward is
-`softargmax_depth_backward`; otherwise it launches directly. Both kernels
-hold a block's planes in its warps' registers, at most 12 planes a warp and
-32 warps, so D is at most `max_planes()` (384).
+`softargmax_depth_backward`; otherwise it launches directly. Each kernel
+has two forms: up to `max_planes()` (384) planes a block holds them in its
+warps' registers, at most 12 planes a warp and 32 warps; past that one
+thread a pixel walks the planes from device memory, with the same
+operations in the same order, so the two forms give the same bits where
+both run (the tests launch the second at small D through `long_form`).
 """
 from __future__ import annotations
 
@@ -42,30 +45,29 @@ def softargmax_depth_backward_ref(grad: torch.Tensor, cost: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def max_planes() -> int:
-    """The largest plane count the forward kernel takes: its warps' bands of
-    planes, held in registers."""
+    """The largest plane count the register form of either kernel takes:
+    its warps' bands of planes, held in registers."""
     from tdvnet_torch.kernels.build import library
 
     return library().tdv_softargmax_depth_max_planes()
 
 
-def _check_planes(fn, D):
-    if D > max_planes():
-        raise ValueError(f"{fn}: {D} planes do not fit in a block's "
-                         f"registers (at most {max_planes()} planes: 32 "
-                         f"warps of 12)")
+def _entry(name: str, D: int, long_form: bool) -> str:
+    """The C entry point of the form that takes D planes: the register form
+    up to `max_planes()`, else (or when a test asks) the any-D form."""
+    return f"{name}_long" if long_form or D > max_planes() else name
 
 
-def _softargmax_depth(cost, depth_vals):
+def _softargmax_depth(cost, depth_vals, long_form=False):
     if on_cpu(cost, depth_vals):
         return softargmax_depth_ref(cost, depth_vals)
     R, D, h, w = cost.shape
     check(cost, "cost", torch.float32, (R, D, h, w))
     check(depth_vals, "depth_vals", torch.float32, (D,))
-    _check_planes("softargmax_depth", D)
     out = torch.empty((R, h, w), dtype=torch.float32, device=cost.device)
-    launch("tdv_softargmax_depth", cost.device, cost.data_ptr(),
-           depth_vals.data_ptr(), out.data_ptr(), R, D, h * w)
+    launch(_entry("tdv_softargmax_depth", D, long_form), cost.device,
+           cost.data_ptr(), depth_vals.data_ptr(), out.data_ptr(), R, D,
+           h * w)
     softargmax_depth.launches += 1
     return out
 
@@ -105,7 +107,12 @@ def softargmax_depth_backward(grad: torch.Tensor, cost: torch.Tensor,
                               depth_vals: torch.Tensor,
                               depth: torch.Tensor) -> torch.Tensor:
     """Same contract as `softargmax_depth_backward_ref`; one launch for
-    CUDA tensors, D at most `max_planes()`."""
+    CUDA tensors."""
+    return _softargmax_depth_backward(grad, cost, depth_vals, depth)
+
+
+def _softargmax_depth_backward(grad, cost, depth_vals, depth,
+                               long_form=False):
     if on_cpu(grad, cost, depth_vals, depth):
         return softargmax_depth_backward_ref(grad, cost, depth_vals, depth)
     R, D, h, w = cost.shape
@@ -113,11 +120,11 @@ def softargmax_depth_backward(grad: torch.Tensor, cost: torch.Tensor,
     check(depth_vals, "depth_vals", torch.float32, (D,))
     check(grad, "grad", torch.float32, (R, h, w))
     check(depth, "depth", torch.float32, (R, h, w))
-    _check_planes("softargmax_depth_backward", D)
     out = torch.empty_like(cost)
-    launch("tdv_softargmax_depth_backward", cost.device, grad.data_ptr(),
-           cost.data_ptr(), depth_vals.data_ptr(), depth.data_ptr(),
-           out.data_ptr(), R, D, h * w)
+    launch(_entry("tdv_softargmax_depth_backward", D, long_form),
+           cost.device, grad.data_ptr(), cost.data_ptr(),
+           depth_vals.data_ptr(), depth.data_ptr(), out.data_ptr(), R, D,
+           h * w)
     softargmax_depth_backward.launches += 1
     return out
 

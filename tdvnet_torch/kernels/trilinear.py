@@ -19,14 +19,22 @@ the grid's gradient goes through `trilinear_sample_scale`, which returns
 the scale's own [B, Q, C] from `TrilinearSampleFn` (backward:
 `trilinear_sample_backward`, which sums each brick of BRICK^3 nodes in one
 block's shared memory, in fixed point so that it repeats bit for bit; see
-the kernel's header).
+the kernel's header). The fp32 forward takes any channel slice: 4
+channels a lane, or one where C, the output's width or the channel offset
+is not a multiple of 4 (the same operations per channel). The grid
+backward and K6-int8 take 4-channel groups: for another C their wrappers
+add zero channels (`_launch.pad_channels`) to the incoming gradient, or to
+the int8 grid and its scales (sampled into a whole-group scratch copied
+into the slice), and slice the real channels out; every channel's sum is
+its own, so those are exact.
 """
 from __future__ import annotations
 
 import torch
 
 from tdvnet_torch.kernels._launch import (check, launch, no_backward,
-                                          on_cpu, wants_grad)
+                                          on_cpu, pad_channels, quad,
+                                          wants_grad)
 from tdvnet_torch.ops.sampling import _floor_in, trilinear_sample_batched
 
 # the backward kernel's bricks of BRICK^3 nodes, each summed in one block's
@@ -107,9 +115,12 @@ def trilinear_sample_i8_ref(grid: torch.Tensor, scale: torch.Tensor,
 
 
 def _check_slice(name, C, Ctot, ch_off):
-    if C % 4 or Ctot % 4 or ch_off % 4 or ch_off + C > Ctot:
-        raise ValueError(f"{name}: channels C={C}, Ctot={Ctot}, "
-                         f"ch_off={ch_off} must be multiples of 4 that fit")
+    """Whether channels [ch_off, ch_off + C) of a Ctot-wide output are
+    whole 4-channel groups; raises where they do not fit."""
+    if ch_off < 0 or ch_off + C > Ctot:
+        raise ValueError(f"{name}: channels [{ch_off}, {ch_off + C}) do "
+                         f"not fit an output of {Ctot}")
+    return C % 4 == 0 and Ctot % 4 == 0 and ch_off % 4 == 0
 
 
 def trilinear_sample(grid: torch.Tensor, pts: torch.Tensor,
@@ -201,7 +212,10 @@ def trilinear_sample_backward(grad: torch.Tensor, pts: torch.Tensor,
                                              grid_shape)
     B, X, Y, Z, C = grid_shape
     Q = pts.shape[1]
-    _check_slice("trilinear_sample_backward", C, C, 0)
+    if C % 4:
+        return trilinear_sample_backward(
+            pad_channels(grad, quad(C)), pts, center0, cell,
+            (B, X, Y, Z, quad(C)))[..., :C].contiguous()
     if 8 * B * Q >= 2 ** 31:
         raise ValueError(f"trilinear_sample_backward: {B} x {Q} points are "
                          f"outside the kernel's int32 entry space")
@@ -256,7 +270,15 @@ def trilinear_sample_i8(grid: torch.Tensor, scale: torch.Tensor,
     B, X, Y, Z, C = grid.shape
     Q = pts.shape[1]
     Ctot = out.shape[-1]
-    _check_slice("trilinear_sample_i8", C, Ctot, ch_off)
+    if not _check_slice("trilinear_sample_i8", C, Ctot, ch_off):
+        check(out, "out", torch.bfloat16, (B, Q, Ctot), contiguous=False)
+        tmp = torch.empty((B, Q, quad(C)), dtype=torch.bfloat16,
+                          device=grid.device)
+        trilinear_sample_i8(pad_channels(grid, quad(C)),
+                            pad_channels(scale, quad(C)), pts, center0, cell,
+                            tmp, 0, cell_offset)
+        out[..., ch_off:ch_off + C] = tmp[..., :C]
+        return out
     if B * X * Y * Z >= 2 ** 31 or B >= 2 ** 23:
         raise ValueError(f"trilinear_sample_i8: {B} grids of {X}x{Y}x{Z} "
                          f"nodes are outside the kernel's int32 cell "

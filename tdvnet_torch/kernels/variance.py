@@ -8,7 +8,15 @@ PyTorch twins; the wrappers run them only for CPU tensors. When autograd
 records a call (grad mode on and `feats` requiring grad), `source_variance`
 goes through `SourceVarianceFn`, whose backward is
 `source_variance_backward`, whose kernel sums in fixed point so that the
-gradient is the same bits on every launch (`csrc/fixed_sum.cuh`).
+gradient is the same bits on every launch (`csrc/fixed_sum.cuh`). Both
+kernels take 4 channels a thread; for a channel count that is not a
+multiple of 4 the wrappers add zero channels (`_launch.pad_channels`) and
+slice the real ones out. That is exact: the variance, its mean and the
+gradient are per channel, and the backward's fixed-point scale comes from
+the inputs' largest magnitudes and the count of terms, which zeros do not
+change. (A form with one channel a thread ran 2.8x slower than padding at
+the cost volume with 30 channels: its lanes no longer share a point's
+projections; PERF.md, section 6.)
 """
 from __future__ import annotations
 
@@ -16,7 +24,8 @@ from typing import Tuple
 
 import torch
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu, wants_grad
+from tdvnet_torch.kernels._launch import (check, launch, on_cpu,
+                                          pad_channels, quad, wants_grad)
 from tdvnet_torch.ops import camera
 from tdvnet_torch.ops.sampling import _floor_in, bilinear_sample_batched
 
@@ -111,8 +120,6 @@ def _check_args(pts_world, feats, src_idx, src_mask, P_all, name):
     R, P, _ = pts_world.shape
     N, Hf, Wf, C = feats.shape
     S = src_idx.shape[1]
-    if C % 4:
-        raise ValueError(f"{name}: C={C} must be a multiple of 4")
     check(pts_world, "pts_world", torch.float32, (R, P, 3))
     check(feats, "feats", torch.float32, (N, Hf, Wf, C))
     check(src_idx, "src_idx", torch.int64, (R, S))
@@ -126,6 +133,13 @@ def _source_variance(pts_world, feats, src_idx, src_mask, P_all, img_size,
     if on_cpu(pts_world, feats, src_idx, src_mask, P_all):
         return source_variance_ref(pts_world, feats, src_idx, src_mask,
                                    P_all, img_size, with_mean)
+    C = feats.shape[-1]
+    if C % 4:
+        got = _source_variance(pts_world, pad_channels(feats, quad(C)),
+                               src_idx, src_mask, P_all, img_size, with_mean)
+        if with_mean:
+            return tuple(x[..., :C].contiguous() for x in got)
+        return got[..., :C].contiguous()
     R, P, S, N, Hf, Wf, C = _check_args(pts_world, feats, src_idx, src_mask,
                                         P_all, "source_variance")
     src_w = src_mask.to(torch.float32).contiguous()
@@ -204,6 +218,13 @@ def source_variance_backward(grad: torch.Tensor, mean: torch.Tensor,
         return source_variance_backward_ref(grad, mean, pts_world, feats,
                                             src_idx, src_mask, P_all,
                                             img_size)
+    C = feats.shape[-1]
+    if C % 4:
+        c4 = quad(C)
+        return source_variance_backward(
+            pad_channels(grad, c4), pad_channels(mean, c4), pts_world,
+            pad_channels(feats, c4), src_idx, src_mask, P_all, img_size,
+            plane)[..., :C].contiguous()
     R, P, S, N, Hf, Wf, C = _check_args(pts_world, feats, src_idx, src_mask,
                                         P_all, "source_variance_backward")
     check(grad, "grad", torch.float32, (R, P, C))

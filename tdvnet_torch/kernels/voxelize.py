@@ -31,7 +31,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from tdvnet_torch.kernels._launch import (check, launch, no_backward,
-                                          on_cpu, wants_grad)
+                                          on_cpu, pad_channels, quad,
+                                          wants_grad)
 
 SCAN_TILE = 1024          # cells per block of the kernel's prefix sum
 
@@ -247,8 +248,10 @@ def _scatter_dense(anchor_feats, vg, grid_size, n_scenes):
     gx, gy, gz = grid_size
     A, C = anchor_feats.shape
     if C % 4:
-        raise ValueError(f"scatter_anchors_to_dense: C={C} must be a "
-                         f"multiple of 4")
+        # the kernel moves float4 channel groups: a copy, exact per channel
+        dense, occ = _scatter_dense(pad_channels(anchor_feats, quad(C)), vg,
+                                    grid_size, n_scenes)
+        return dense[..., :C].contiguous(), occ
     check(anchor_feats, "anchor_feats", torch.float32, (A, C))
     _check_anchor_table(vg, A)
     dev = anchor_feats.device
@@ -332,8 +335,9 @@ def scatter_anchors_to_dense_backward(grad_dense: torch.Tensor,
     C = grad_dense.shape[-1]
     A = vg.anchor_idx3.shape[0]
     if C % 4:
-        raise ValueError(f"scatter_anchors_to_dense_backward: C={C} must be "
-                         f"a multiple of 4")
+        return scatter_anchors_to_dense_backward(
+            pad_channels(grad_dense, quad(C)), vg, grid_size,
+            n_scenes)[:, :C].contiguous()
     check(grad_dense, "grad_dense", torch.float32, (n_scenes, gx, gy, gz, C))
     _check_anchor_table(vg, A)
     out = torch.empty((A, C), dtype=torch.float32, device=grad_dense.device)

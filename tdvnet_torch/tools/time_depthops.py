@@ -14,7 +14,11 @@ gradients, the twin's depths) and K8a's backward at its three calls there
 as a permuted NCHW view, depths and incoming gradients, the twin's
 output). Edge inputs: `tests/_kernel_edge_cases.py` (`softargmax_case`,
 the backward's depths the twin's, and `blend_case`) of the tree this file
-lies in, so that two trees time the same inputs.
+lies in, so that two trees time the same inputs. Past the register
+form's planes: K8b forward and backward at [14, D, 56, 56] for D = 392 and
+768 (`plane_inputs`: seeded costs x3, incoming gradients, the twin's
+depths), which the any-D form takes (it reads the volume twice forward,
+three times backward; a tree without that form raises there).
 
 Per case: the wrapper's mean ms over `--iters` calls (CUDA events; K8b's
 under `torch.no_grad()`, as inference calls it), the bound as
@@ -124,6 +128,27 @@ def softargmax_backward_inputs(device):
         if c.kernel == "softargmax_depth_backward":
             out[f"train {list(_inputs_of(c)[1].shape)}"] = _inputs_of(c)
     out.update(backward_edge_inputs(device))
+    return out
+
+
+PLANE_COUNTS = (392, 768)       # past the register form's 384 planes
+
+
+def plane_inputs(device, planes=PLANE_COUNTS):
+    """{name: (grad, cost, dvals, depth)} of K8b past the register form's
+    planes, at the batch's [14, D, 56, 56]: seeded costs x3, a D-plane
+    sweep's depths from 0.5 m in steps of 0.05 m, seeded incoming
+    gradients and the twin's depths."""
+    from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
+
+    gen = torch.Generator().manual_seed(5)
+    out = {}
+    for D in planes:
+        cost = (torch.randn(14, D, 56, 56, generator=gen) * 3).to(device)
+        dv = (0.5 + 0.05 * torch.arange(D, dtype=torch.float32)).to(device)
+        grad = torch.randn(14, 56, 56, generator=gen).to(device)
+        out[f"planes {list(cost.shape)}"] = (
+            grad, cost, dv, softargmax_depth_ref(cost, dv))
     return out
 
 
@@ -267,10 +292,14 @@ def main():
     efwd, ebwd = edge_inputs(device)
     fwd.update(efwd)
     bwd.update(ebwd)
+    planes = plane_inputs(device)
+    fwd.update({k: (cost, dv) for k, (_, cost, dv, _) in planes.items()})
+    sbwd = softargmax_backward_inputs(device)
+    sbwd.update(planes)
     rec = {"root": root, "card": card,
            "softargmax": time_softargmax(fwd, args.iters, args.profile),
            "softargmax_backward": time_softargmax_backward(
-               softargmax_backward_inputs(device), args.iters, args.profile),
+               sbwd, args.iters, args.profile),
            "blend_backward": time_blend_backward(bwd, args.iters,
                                                  args.profile, main_bwd)}
     print(json.dumps(rec), flush=True)

@@ -16,8 +16,10 @@ those cameras and the scene's ground-truth depth (the inputs of
 of each shape in a full-width `infer_depth` of the golden batch and in a
 `predict_scene` of the stream scene on the parity and the fast path, from
 the synth48 weights. Its last line is one JSON object: per input set and
-shape the kernel's mean ms over `--iters` calls (CUDA events) and its byte
-bound (inputs read once, the output written once, at 3.35 TB/s).
+shape the kernel's mean ms over `--iters` calls (CUDA events), its byte
+bound (inputs read once, the output written once, at 3.35 TB/s) and a
+sha256 digest of its output (K1's variance and mean), which must match
+between trees whose kernels keep their bits.
 
 `--ablate` adds each shape with every source masked as padding: the
 projections, the per-source loop and the stores without a tap read. To
@@ -237,8 +239,11 @@ def _name_calls(path, calls):
 
 
 def time_inputs(named, iters, ablate):
-    """{label: {"ms", "bound_ms", "shape"}} for each (kernel, args)."""
+    """{label: {"ms", "bound_ms", "shape", "digest"}} for each (kernel,
+    args); K1's digest covers its variance and its mean (the forward's
+    output in training)."""
     from tdvnet_torch.kernels import patchfan, variance
+    from tdvnet_torch.tools.time_depthops import digest
     from tdvnet_torch.tools.timing import time_ms
 
     modules = {"source_variance": variance, "patch_fan_variance": patchfan}
@@ -259,8 +264,10 @@ def time_inputs(named, iters, ablate):
             runs.append(("/masked", tuple(masked)))
         for alabel, a in runs:
             ms = time_ms(lambda a=a: fn(*a), iters=iters, warmup=3)
+            out = (variance._source_variance(*a[:6], True)
+                   if kernel == "source_variance" else fn(*a))
             rec[label + alabel] = {"ms": ms, "bound_ms": bound,
-                                   "shape": shape}
+                                   "shape": shape, "digest": digest(out)}
     return rec
 
 

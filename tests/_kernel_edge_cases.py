@@ -569,12 +569,15 @@ def plan_case(name, seed=0):
 # The maps of 7 x 9 pixels (odd: one pixel a lane) and 6 x 11 (even: two a
 # lane) cut each ref's second strip.
 # Then 12 planes on an odd map (5 x 13), and 13 planes with incoming
-# gradients of 0 and -0.0.
+# gradients of 0 and -0.0. Last, 392 and 768 planes: past the 384 that the
+# kernels' register form holds, the one-thread-a-pixel form.
 SOFTARGMAX_CASES = (("one_plane", 1, (7, 9)), ("ragged_band", 97, (6, 11)),
                     ("infinities", 24, (7, 9)), ("nan", 24, (6, 11)),
                     ("ties", 24, (7, 9)), ("large", 24, (6, 11)),
                     ("twelve_planes", 12, (5, 13)),
-                    ("zero_grad", 13, (6, 11)))
+                    ("zero_grad", 13, (6, 11)),
+                    ("many_planes", 392, (7, 9)),
+                    ("most_planes", 768, (6, 11)))
 
 
 def softargmax_case(name, seed=0):

@@ -1752,7 +1752,8 @@ def _softargmax_inputs(case, device):
 
 
 SOFTARGMAX_EDGE_CASES = ["one_plane", "ragged_band", "infinities", "nan",
-                         "ties", "large", "twelve_planes", "zero_grad"]
+                         "ties", "large", "twelve_planes", "zero_grad",
+                         "many_planes", "most_planes"]
 
 
 @pytest.mark.cuda
@@ -1812,32 +1813,281 @@ def test_softargmax_backward_kernel_matches_twin_at_edges(case):
 
 @pytest.mark.cuda
 def test_softargmax_kernel_raises_past_its_registers():
-    """A plane count past what a block's warps hold in registers raises
-    before any launch, forward and backward; the largest that fits runs
-    (32 warps, shared memory past the default 48 KB)."""
+    """Past the planes a block's warps hold in registers the wrappers take
+    the any-D form, forward and backward, where they once raised; the
+    largest count that fits runs the register form (32 warps, shared
+    memory past the default 48 KB). Both within 1e-5 of the twin."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from tdvnet_torch.kernels import softargmax
     from tdvnet_torch.kernels.softargmax import softargmax_depth_ref
 
-    D = softargmax.max_planes()
     g = torch.Generator().manual_seed(2)
-    cost = (torch.randn(2, D, 3, 5, generator=g) * 3).cuda()
-    dv = torch.linspace(0.5, 3.0, D).cuda()
-    got = softargmax.softargmax_depth(cost, dv)
-    _nonfinite_check(got, softargmax_depth_ref(cost, dv), 1e-5)
-    g = torch.randn(2, 3, 5, generator=g).cuda()
-    _nonfinite_check(
-        softargmax.softargmax_depth_backward(g, cost, dv, got),
-        softargmax.softargmax_depth_backward_ref(g, cost, dv, got), 1e-5)
-    over = torch.zeros(1, D + 1, 1, 1, device="cuda")
-    with pytest.raises(ValueError, match="registers"):
-        softargmax.softargmax_depth(over, torch.zeros(D + 1, device="cuda"))
-    with pytest.raises(ValueError, match="registers"):
-        softargmax.softargmax_depth_backward(
-            torch.zeros(1, 1, 1, device="cuda"), over,
-            torch.zeros(D + 1, device="cuda"),
-            torch.zeros(1, 1, 1, device="cuda"))
+    for D in (softargmax.max_planes(), softargmax.max_planes() + 1):
+        cost = (torch.randn(2, D, 3, 5, generator=g) * 3).cuda()
+        dv = torch.linspace(0.5, 3.0, D).cuda()
+        got = softargmax.softargmax_depth(cost, dv)
+        _nonfinite_check(got, softargmax_depth_ref(cost, dv), 1e-5)
+        gr = torch.randn(2, 3, 5, generator=g).cuda()
+        _nonfinite_check(
+            softargmax.softargmax_depth_backward(gr, cost, dv, got),
+            softargmax.softargmax_depth_backward_ref(gr, cost, dv, got),
+            1e-5)
+
+
+def _planes_inputs(D, device="cuda", seed=0):
+    """A regularised cost volume's shape at the batch's size, [14, D, 56,
+    56] with D planes: seeded costs x3 (`chip_smoke.kernel_cases`' scale),
+    the plane depths of a D-plane sweep from 0.5 m, incoming gradients."""
+    g = torch.Generator().manual_seed(seed)
+    cost = (torch.randn(14, D, 56, 56, generator=g) * 3).to(device)
+    dv = (0.5 + 0.05 * torch.arange(D, dtype=torch.float32)).to(device)
+    grad = torch.randn(14, 56, 56, generator=g).to(device)
+    return cost, dv, grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [392, 768])
+def test_softargmax_kernels_take_any_plane_count(D):
+    """K8b's forward and backward past the register form's 384 planes, at
+    the batch's [14, D, 56, 56]: within 1e-5 of the fp32 twin and of a
+    float64 referee (the twin over float64 costs, rounded), launched once
+    each, the same bits on a second launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import softargmax as S
+
+    cost, dv, grad = _planes_inputs(D)
+    before = (S.softargmax_depth.launches,
+              S.softargmax_depth_backward.launches)
+    with torch.no_grad():
+        depth = S.softargmax_depth(cost, dv)
+    gc = S.softargmax_depth_backward(grad, cost, dv, depth)
+    torch.cuda.synchronize()
+    assert (S.softargmax_depth.launches - before[0],
+            S.softargmax_depth_backward.launches - before[1]) == (1, 1)
+    _nonfinite_check(depth, S.softargmax_depth_ref(cost, dv), 1e-5)
+    _nonfinite_check(depth, S.softargmax_depth_ref(
+        cost.double(), dv.double()).float(), 1e-5)
+    tol = 1e-5 * float(grad.abs().max() * dv.abs().max())
+    _nonfinite_check(gc, S.softargmax_depth_backward_ref(grad, cost, dv,
+                                                         depth), tol)
+    _nonfinite_check(gc, S.softargmax_depth_backward_ref(
+        grad.double(), cost.double(), dv.double(), depth.double()).float(),
+        tol)
+    with torch.no_grad():
+        assert _same_bits(depth, S.softargmax_depth(cost, dv))
+    assert _same_bits(gc, S.softargmax_depth_backward(grad, cost, dv, depth))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [96, 384])
+def test_softargmax_any_plane_form_equals_the_register_form(D):
+    """The any-D form, launched where the register form runs (D = 96, the
+    main path's, and 384, its largest), gives the register form's bits,
+    forward and backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels import softargmax as S
+
+    cost, dv, grad = _planes_inputs(D, seed=1)
+    depth = S._softargmax_depth(cost, dv)
+    assert _same_bits(depth, S._softargmax_depth(cost, dv, long_form=True))
+    assert _same_bits(
+        S._softargmax_depth_backward(grad, cost, dv, depth),
+        S._softargmax_depth_backward(grad, cost, dv, depth, long_form=True))
+
+
+# ------------------------------- channel counts that are not a multiple of 4
+ODD_WIDTHS = [6, 10, 30]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", ODD_WIDTHS)
+def test_source_variance_kernels_take_any_channel_count(C):
+    """K1 (variance and mean) and its backward at a channel count that is
+    not a multiple of 4 (the wrappers pad to whole 4-channel groups): the
+    twins' values within the multiple-of-4 tests' tolerances, NaN for NaN,
+    one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import _kernel_edge_cases as E
+    import chip_smoke
+    from tdvnet_torch.kernels import variance as K
+
+    args = _variance_inputs(E.variance_case("nonfinite", C), "cuda")
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    before = (K.source_variance.launches,
+              K.source_variance_backward.launches)
+    var, mean = K._source_variance(*args, True)
+    for g, w in zip((var, mean), K.source_variance_ref(*cpu,
+                                                       with_mean=True)):
+        _variance_check(g.cpu(), w, 1e-4)
+    R, P = args[0].shape[:2]
+    grad = torch.randn(R, P, C, generator=torch.Generator().manual_seed(
+        1)).cuda()
+    got = K.source_variance_backward(grad, mean, *args[:5], args[5], (1, P))
+    _variance_check(got.cpu(), K.source_variance_backward_ref(
+        grad.cpu(), mean.cpu(), *cpu), chip_smoke.VARIANCE_BACKWARD_TOL)
+    assert (K.source_variance.launches - before[0],
+            K.source_variance_backward.launches - before[1]) == (1, 1)
+    assert var.is_contiguous() and got.shape == args[1].shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", ODD_WIDTHS)
+def test_trilinear_kernels_take_any_channel_count(C):
+    """K6 into a slice at an odd offset of a wider output (one channel a
+    lane; the other channels untouched), K6's grid backward and K6-int8
+    into a slice (their wrappers pad to whole 4-channel groups), at a
+    channel count that is not a multiple of 4: the twins' values within the
+    multiple-of-4 tests' tolerances, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import _kernel_edge_cases as E
+    from tdvnet_torch.kernels import trilinear as T
+
+    grid, pts, c0, cell = _tri_forward("grid_edges", C, "cuda")
+    B, Q = pts.shape[:2]
+    n0 = (T.trilinear_sample.launches, T.trilinear_sample_backward.launches,
+          T.trilinear_sample_i8.launches)
+    out = torch.full((B, Q, C + 7), 7.0, device="cuda")
+    T.trilinear_sample(grid, pts, c0, cell, out, 3)
+    want = T.trilinear_sample_ref(grid.cpu(), pts.cpu(), c0.cpu(), cell)
+    assert (out[..., :3] == 7).all() and (out[..., 3 + C:] == 7).all()
+    _variance_check(out[..., 3:3 + C].cpu(), want, 1e-5)
+    fin = torch.isfinite(pts).all(-1)
+    g = torch.randn(B, Q, C, generator=torch.Generator().manual_seed(
+        C)).cuda() * fin[..., None]
+    _tri_check(T.trilinear_sample_backward(g, pts, c0, cell,
+                                           tuple(grid.shape)).cpu(),
+               _tri_referee(g.cpu(), pts.cpu(), c0.cpu(), cell,
+                            tuple(grid.shape)))
+    gi, sc, pi, ci, celli, off = (torch.from_numpy(a).cuda()
+                                  if isinstance(a, np.ndarray) else a
+                                  for a in E.i8_case("grid_edges", C))
+    o8 = torch.full((B, pi.shape[1], C + 5), 7.0, dtype=torch.bfloat16,
+                    device="cuda")
+    T.trilinear_sample_i8(gi, sc, pi, ci, celli, o8, 5, off)
+    assert (o8[..., :5] == 7).all()
+    _same_values(o8[..., 5:].cpu(), T.trilinear_sample_i8_ref(
+        gi.cpu(), sc.cpu(), pi.cpu(), ci.cpu(), celli, off))
+    assert (T.trilinear_sample.launches - n0[0],
+            T.trilinear_sample_backward.launches - n0[1],
+            T.trilinear_sample_i8.launches - n0[2]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 64])
+def test_trilinear_one_channel_form_equals_the_four_channel_form(C):
+    """K6's one-channel-a-lane form does each channel's operations of the
+    4-channel form: into an output one channel wider (offset 1) it gives
+    the bits of the exact-width call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from tdvnet_torch.kernels.trilinear import trilinear_sample
+
+    grid, pts, c0, cell = _tri_forward("alternating", C, "cuda")
+    B, Q = pts.shape[:2]
+    quad = trilinear_sample(grid, pts, c0, cell,
+                            torch.empty(B, Q, C, device="cuda"), 0)
+    one = trilinear_sample(grid, pts, c0, cell,
+                           torch.empty(B, Q, C + 1, device="cuda"), 1)
+    assert _same_bits(one[..., 1:], quad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [2, 10])
+def test_scatter_kernels_take_any_channel_count(C):
+    """K3's dense scatter and its backward at the PointNet's 2 * feat_dim
+    channels for an odd feat_dim: the twins' bits (a copy either way)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    _scatter_check("three_scenes", False, C)
+
+
+def _odd_width_setup():
+    import copy
+
+    from tdvnet_torch.config import _overlay, tiny_test_config
+    from tdvnet_torch.data import batch as B, synthetic
+    from tdvnet_torch.models.threedvnet import ThreeDVNet
+
+    cfg = _overlay(tiny_test_config(), {"model": {
+        "feat_dim": 5, "unet_dims": (10, 18, 30), "unet_groups": (2, 3, 3)}})
+    bc = cfg.batch
+    batch = B.collate_scenes(
+        [synthetic.make_batch_scene(bc.n_views, bc.img_size,
+                                    bc.depth_img_size, seed=0)],
+        bc.n_views, bc.n_ref, bc.n_src_on_either_side)
+    torch.manual_seed(0)
+    cpu = ThreeDVNet(cfg.model)
+    return cfg, batch, cpu, copy.deepcopy(cpu).cuda()
+
+
+@pytest.mark.cuda
+def test_odd_width_model_runs_on_the_card():
+    """The odd-width tiny config (feat_dim 5, U-Net widths 10, 18, 30):
+    `infer_depth` on the card against the CPU's (the limits of
+    tests/test_torch_infer.py), then one n_iters=1 train step on the card
+    against its float64 rerun through the twins (the limits of
+    `test_refinement_train_step_on_the_card_matches_the_cpu`), every kernel
+    of the path launched as at multiple-of-4 widths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+
+    import chip_smoke
+    from tdvnet_torch.kernels import launch_counts, reset_launch_counts
+    from tdvnet_torch.train import loop as L
+
+    cfg, batch, f64, card = _odd_width_setup()
+    offsets = ((0.05, 0.025), (0.025,))
+    with torch.no_grad():
+        d = (card.eval().infer_depth(batch, offsets).cpu()
+             - f64.eval().infer_depth(batch, offsets)).abs().numpy()
+    assert np.median(d) < 1e-5 and np.percentile(d, 99) < 1e-4, \
+        (np.median(d), np.percentile(d, 99))
+    card.train()
+    st = L.TrainState(card, L.make_optimizer(cfg, card, 1))
+    reset_launch_counts()
+    _, mets = L.make_train_step(card, cfg, 1)(st, batch, 0.5)
+    counts = launch_counts()
+    f64 = f64.double().train()
+    b64 = dataclasses.replace(batch, images=batch.images.double(),
+                              depth_gt=batch.depth_gt.double())
+    with torch.backends.mkldnn.flags(enabled=False), \
+            chip_smoke.float64_twins():
+        out = f64(b64, list(cfg.train.offsets), 1, 0.5,
+                  with_metrics=False, backbone_train=False)
+        out["loss"].backward()
+    want = float(out["loss"])
+    assert abs(float(mets["loss"]) - want) <= 1e-5 * abs(want)
+    assert counts == chip_smoke.train_expected_launches(
+        1, 1, len(cfg.train.offsets), cfg.model.unet_res)
+    # the PointNet's max pools route a few maxima to other rows than in
+    # float64: its leaves take phase 9b's referee limits for them
+    # (chip_smoke.REFEREE_REFINE_GRAD_REL); fc_pos read 1.8e-3 here
+    pool = chip_smoke.REFEREE_REFINE_GRAD_REL
+    loose = ("refine_", "mvsnet.fpn.lateral0.", "mvsnet.fpn.smooth0.")
+
+    def limit(k):
+        if k in pool:
+            return pool[k]
+        if k.startswith("pointnet."):
+            return pool["pointnet"]
+        return 1e-2 if k.startswith(loose) else 1e-3
+
+    bad = {}
+    for k, p in f64.named_parameters():
+        g = card.get_parameter(k).grad
+        if g is None or p.grad is None or k in chip_smoke.ZERO_GRADS:
+            continue
+        g = g.double().cpu()
+        e = float((g - p.grad).norm() / p.grad.norm().clamp(min=1e-12))
+        if e > limit(k):
+            bad[k] = e
+    assert not bad, sorted(bad.items(), key=lambda kv: -kv[1])[:10]
 
 
 def _blend_inputs(case, device):
