@@ -14,11 +14,19 @@ Phases (any failure exits non-zero):
      and 768 at [14, D, 56, 56]), its any-D form against the register
      form at D = 96 (the same bits), and K1 and K6 with their backward at
      channel counts that are not a multiple of 4, all counted 0 times;
+     (c) the six bf16 forms (K1/K2, K6, K5, K4's pool and concat-back,
+     K3's scatter) on the inputs one bf16 `infer_depth` of the golden
+     batch gives them, each against its twin and its float64 referee;
   3. load the synth48 weights and run full-width `ThreeDVNet.infer_depth`
      on the golden batch (2 synthetic scenes x 9 views, 7 refs each), hold
      it against the JAX golden `tests/data/torch_golden_synth48.npz`, and
      check from the launch counters that every kernel ran on that path;
-  4. serve three more batches and time each;
+     (3') the same in bf16 (`ModelConfig(dtype=bfloat16)`, parameters
+     fp32): its |bf16 - fp32| per stage against this run's fp32 one within
+     1.5x JAX's own bf16 error (`tests/data/torch_golden_bf16_synth48.npz`),
+     abs_rel and drop counters against JAX's bf16 run, and every bf16
+     form launched;
+  4. serve three more batches and time each; (4') the same in bf16;
   5. trace one more batch with torch.profiler: the device's busy share of
      the window, host and device time per stage span, the top kernels,
      and the device time of the port's own kernels;
@@ -26,8 +34,11 @@ Phases (any failure exits non-zero):
      (a) `predict_scene` on the golden scene against the JAX golden
      `tests/data/torch_golden_scene_synth48.npz` (depth, chosen grid, drop
      counters, launch counts); (b) `predict_scenes` over three scenes of 52
-     views (48 refs, three chunks of 16), timed per scene; (c) one more
-     scene traced as in phase 5;
+     views (48 refs, three chunks of 16), timed per scene; (a') the golden
+     scene in bf16 against this run's fp32 one within 1.5x JAX's own bf16
+     error, grid, counters and abs_rel against JAX's bf16 run, the bf16
+     forms' launches; (b') the stream in bf16, timed beside (b); (c) one
+     more scene traced as in phase 5;
   7. the same on the fast path (`EvalConfig(fast_path=True)`: merged,
      rank-96-projected int8 scene tables, patch-fan variance, the fast
      offsets): (a) against the JAX golden
@@ -83,7 +94,10 @@ Phases (any failure exits non-zero):
      `.npz` export, every training kernel launched, the backward's exactly
      once a step); (c) `export_weights` of (b)'s checkpoint, equal bit for
      bit to (b)'s export, then `eval_3dvnet` from it over phase 8a's
-     scene (finite metrics). Phase 8's folder lives until phase 11 ends.
+     scene (finite metrics); (a') `eval_3dvnet` and `eval_3dvnet --bf16`
+     from the synth48 `.npz` over phase 8a's scene, the bf16 metrics
+     within section 2's bf16 limits of the fp32 ones. Phase 8's folder
+     lives until phase 11 ends.
 
 Every trace (phases 5, 6c, 7c, 8c, 9d) also counts each port kernel's
 wrapper calls beside its device kernels; the segment plan and K8b's
@@ -356,6 +370,23 @@ KERNEL_META = {
     "take_along_axis": ("tdvnet_torch/csrc/take_along_axis.cu",
                         "tools/probe_mosaic_gather.py:49",
                         ("take_along_axis",)),
+    # the bf16 forms (bf16 inference): each its fp32 kernel's source,
+    # templated on the storage
+    "source_variance_bf16": ("tdvnet_torch/csrc/source_variance.cu",
+                             "tdvnet/ops/costvolume.py:36 (bf16 features)",
+                             ("source_variance_bf16",)),
+    "trilinear_sample_bf16": ("tdvnet_torch/csrc/trilinear_sample.cu",
+                              "tdvnet/ops/sampling.py:199 (bf16 grid)",
+                              ("trilinear_sample_bf16",)),
+    "voxelize_bf16": ("tdvnet_torch/csrc/voxelize.cu",
+                      "tdvnet/ops/voxelize.py:124 (bf16 rows)",
+                      ("scatter_anchors_to_dense_bf16",)),
+    "segment_max_bf16": ("tdvnet_torch/csrc/segment_max.cu",
+                         "tdvnet/models/pointnet.py:19 (bf16 rows)",
+                         ("segment_max_bf16", "gather_concat_bf16")),
+    "masked_group_norm_bf16": ("tdvnet_torch/csrc/masked_group_norm.cu",
+                               "tdvnet/models/layers.py:106 (bf16)",
+                               ("masked_group_norm_bf16",)),
 }
 
 
@@ -515,7 +546,11 @@ MAIN_PATHS = {"trilinear_sample_i8": "fast", "patch_fan_variance": "fast",
               "segment_max_backward": "train1",
               "masked_group_norm_backward": "train1",
               "trilinear_sample_backward": "train1",
-              "batched_dot": "probe", "take_along_axis": "probe"}
+              "batched_dot": "probe", "take_along_axis": "probe",
+              **{k: "bf16" for k in ("source_variance_bf16",
+                                     "trilinear_sample_bf16", "voxelize_bf16",
+                                     "segment_max_bf16",
+                                     "masked_group_norm_bf16")}}
 
 
 def fast_cases(device, gen, inputs):
@@ -1341,8 +1376,8 @@ def same_bits(a, b):
         if x.shape != y.shape or x.dtype != y.dtype:
             return False
         if x.is_floating_point():
-            x = x.contiguous().view(torch.int32 if x.element_size() == 4
-                                    else torch.int64)
+            x = x.contiguous().view({2: torch.int16, 4: torch.int32}.get(
+                x.element_size(), torch.int64))
             y = y.contiguous().view(x.dtype)
         if not torch.equal(x, y):
             return False
@@ -1656,17 +1691,15 @@ def profile_phase(run, what, card, prefix="stage_"):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tdvnet_torch.kernels import launch_counts
-
     torch.cuda.synchronize()
-    before = launch_counts()
+    before = all_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    calls = {w: n - before[w] for w, n in launch_counts().items()}
+    calls = {w: n - before[w] for w, n in all_launch_counts().items()}
     events = prof.events()
     on_card = [e for e in events if e.device_type == DeviceType.CUDA]
     # a stage span's device-side range covers its kernels: it is no work
@@ -2444,7 +2477,7 @@ def float64_twins():
         (mvsnet, "softargmax_depth", softargmax_depth_ref),
         (upsampling, "propagation_blend", propagation_blend_ref),
         (costvolume, "source_variance",
-         lambda pts, feats, sidx, smask, P_all, img, plane:
+         lambda pts, feats, sidx, smask, P_all, img, plane, out_dtype=None:
          source_variance_ref(fp32(pts), feats, sidx, smask, P_all, img)),
         (vox, "voxelize", lambda pts, *a: voxelize_ref(fp32(pts), *a)),
         (vox, "scatter_anchors_to_dense", scatter_anchors_to_dense_ref),
@@ -3373,6 +3406,503 @@ def cli_export_phase(root, trained):
     return ok, {"seconds": wall, "metrics": avg}
 
 
+# ---------------------------------------------------------------------- bf16
+# bf16 inference (ModelConfig(dtype=bfloat16), parameters fp32): the JAX
+# golden of its infer_depth and parity scene, which also records JAX's own
+# bf16 error against unquantized fp32 runs of the same inputs
+BF16_GOLDEN = os.path.join(ROOT, "tests", "data",
+                           "torch_golden_bf16_synth48.npz")
+# the port's bf16 depth against fp32 (median and p99 of |d depth|) at most
+# this times JAX's own bf16 error, as the CPU tests hold it; on the card the
+# port's fp32 run of the same batch or scene stands for JAX's fp32 (phases 3
+# and 6a hold the two together)
+BF16_ERR_RATIO = 1.5
+# K1/K2's bf16 form against its float64 referee (the exact variance of the
+# bf16 features' bilinear samples), relative to E[F^2], F the bilinear
+# sample of the features' magnitudes (F >= |f|; where the taps cancel, the
+# sample's fp32 rounding scales with F, not f): each sample rounds once to
+# bf16 (unit roundoff 2^-8: |df| <= 2^-8 F), and to first order d var =
+# (2/S) sum_s df_s (f_s - E f), so |d var| <= 2^-7 (E[F^2] + E[F]^2) <=
+# 2^-6 E[F^2], and 1% more for the fp32 arithmetic around it; against its
+# twin (the same roundings, the sample formed by fma in the kernel, so
+# that a sample may round to the neighbouring bf16 value): 2^-6 E[F^2]; a
+# bf16 variance adds one rounding of |var| <= E[F^2] to both
+BF16_VAR_REL = 1.01 * 2.0 ** -6
+BF16_VAR_TWIN_REL = 2.0 ** -6
+# phase 11a': `eval_3dvnet --bf16` against the fp32 eval of the same scene,
+# each metric within this share of the fp32 one: 1.5x the largest shift
+# that JAX's own bf16 run makes in a golden's abs_rel (0.0281 -> 0.0305,
+# 8.5%, the parity scene); counts within 1%
+BF16_EVAL_REL = 0.13
+BF16_EVAL_COUNT_REL = 1e-2
+# the wrappers whose bf16 form a bf16 inference launches instead
+BF16_OF = {"source_variance": "source_variance_bf16",
+           "trilinear_sample": "trilinear_sample_bf16",
+           "scatter_anchors_to_dense": "scatter_anchors_to_dense_bf16",
+           "segment_max": "segment_max_bf16",
+           "gather_concat": "gather_concat_bf16",
+           "masked_group_norm": "masked_group_norm_bf16"}
+
+
+def expected_bf16_launches(offsets_list, n_chunks, unet_res):
+    """(fp32 wrapper launches, bf16 form launches) in one bf16 inference:
+    `expected_launches` with the six calls that have a bf16 form moved to
+    it."""
+    fp = expected_launches(offsets_list, n_chunks, unet_res)
+    bf = {BF16_OF[w]: fp[w] for w in BF16_OF}
+    fp.update({w: 0 for w in BF16_OF})
+    return fp, bf
+
+
+def all_launch_counts():
+    from tdvnet_torch.kernels import bf16_launch_counts, launch_counts
+
+    return {**launch_counts(), **bf16_launch_counts()}
+
+
+def bf16_ulps(a, b, scale):
+    """|a - b| in bf16 ulps at the magnitudes `scale` (float64)."""
+    from tdvnet_torch.tools.timing import bf16_ulp
+
+    return (a.double() - b.double()).abs() / bf16_ulp(scale.double().abs())
+
+
+def gn_bf16_referee(x, mask, G, weight, bias, relu=False, skip=None):
+    """The float64 referee of the bf16 masked GroupNorm and its tail: the
+    statistics and the normalisation in float64, then the bf16 stores of
+    the JAX package's graph (the normalised x, its product with the bf16
+    weight, the sum with the bf16 bias, the residual add). Returns (the
+    result in float64, per element the magnitude its ops round at: the
+    largest of the product, the bias and the skip)."""
+    import torch
+
+    B, C = x.shape[:2]
+    bf = torch.bfloat16
+    r = lambda a: a.to(bf).double()
+    xg = x.double().reshape(B, G, C // G, -1)
+    m = mask.double().reshape(B, 1, 1, -1)
+    cnt = (m.sum(dim=(2, 3)) * (C // G)).clamp(min=1.0)
+    mean = (xg * m).sum(dim=(2, 3)) / cnt
+    var = (xg * xg * m).sum(dim=(2, 3)) / cnt - mean * mean
+    xn = (xg - mean[..., None, None]) \
+        / torch.sqrt(var.clamp(min=0.0) + 1e-5)[..., None, None]
+    shape = (1, C) + (1,) * (x.dim() - 2)
+    xn = r(xn.reshape(x.shape))
+    prod = r(xn * r(weight).reshape(shape))
+    b = r(bias).reshape(shape)
+    mk = mask.double()
+    y = r(prod + b) * mk
+    scale = torch.maximum(prod.abs(), b.abs().expand_as(prod))
+    if skip is not None:
+        y = r(y + skip.double())
+        scale = torch.maximum(scale, skip.double().abs())
+    if relu or skip is not None:
+        y = y.clamp(min=0.0) * mk
+    return y, scale
+
+
+@contextlib.contextmanager
+def capturing_bf16_calls(calls):
+    """Within the block the call sites of the six kernels that have a bf16
+    form record, per wrapper and shape, their first call's inputs (cloned)
+    and how often that shape is called: the inputs of phase 2c's cases."""
+    import tdvnet_torch.models.hypothesis as hypothesis
+    import tdvnet_torch.models.layers as layers
+    import tdvnet_torch.models.pointnet as pointnet
+    import tdvnet_torch.ops.costvolume as costvolume
+    import tdvnet_torch.ops.voxelize as vox
+    import torch
+
+    def copy(v):
+        if torch.is_tensor(v):
+            return v.clone()
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*(copy(x) for x in v))
+        if isinstance(v, tuple):
+            return tuple(copy(x) for x in v)
+        return v
+
+    def sig(v):
+        if torch.is_tensor(v):
+            return (tuple(v.shape), str(v.dtype))
+        if isinstance(v, tuple):
+            return tuple(sig(x) for x in v)
+        if hasattr(v, "_fields") or hasattr(v, "anchor_idx3"):
+            return "table"
+        return v
+
+    def recorder(name, fn):
+        def rec(*a, **kw):
+            key = (name, sig(a), tuple(sorted((k, sig(v))
+                                              for k, v in kw.items())))
+            if key not in calls:
+                calls[key] = [copy(a), copy(kw), 0]
+            calls[key][2] += 1
+            return fn(*a, **kw)
+        return rec
+
+    sites = ((costvolume, "source_variance"),
+             (hypothesis, "trilinear_sample"),
+             (pointnet, "segment_max"), (pointnet, "gather_concat"),
+             (vox, "scatter_anchors_to_dense"),
+             (layers, "masked_group_norm"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
+    for mod, name, fn in saved:
+        setattr(mod, name, recorder(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def bf16_cases(model, device):
+    """Phase 2c's cases: each bf16 form on the inputs one bf16
+    `infer_depth` of the golden batch gives it (captured), counted per
+    inference as often as that path calls the shape, against its twin and
+    its float64 referee (K1 within BF16_VAR_REL E[F^2] of the exact
+    variance, F the sample of the features' magnitudes; K6 and K5 within one bf16
+    ulp of theirs at the magnitude their ops round at; K4 and K3 equal to
+    their twins and to the fp32 op on the same values cast to bf16). The
+    byte bounds count bf16 storage."""
+    import torch
+
+    from tdvnet_torch.kernels import (gather_concat, masked_group_norm,
+                                      scatter_anchors_to_dense, segment_max,
+                                      source_variance, trilinear_sample)
+    from tdvnet_torch.kernels.groupnorm import masked_group_norm_ref
+    from tdvnet_torch.kernels.segmax import gather_concat_ref, segment_max_ref
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_ref
+    from tdvnet_torch.kernels.variance import source_variance_ref
+    from tdvnet_torch.kernels.voxelize import scatter_anchors_to_dense_ref
+    from tdvnet_torch.tools.time_sampling_gn import touched_cells
+
+    calls = {}
+    batch = golden_batch(GOLDEN_SEEDS)
+    with capturing_bf16_calls(calls):
+        model.infer_depth(batch, OFFSETS)
+    torch.cuda.synchronize()
+    bf = torch.bfloat16
+    cases = []
+
+    def equal_to(*refs):
+        """Bit-equal to the twin and to each referee (closures)."""
+        def tol(got, want):
+            g = got if torch.is_tensor(got) else got[0]
+            w = want if torch.is_tensor(want) else want[0]
+            err = float((g.double() - w.double()).abs().max()) \
+                if g.numel() else 0.0
+            ok = same_bits(got, want) and all(
+                same_bits(got, r()) for r in refs)
+            return err, ok
+        return tol
+
+    for (name, _, _), (a, kw, count) in calls.items():
+        if name == "source_variance":
+            pts, feats, sidx, smask, P_all, img, plane = a
+            od = kw.get("out_dtype") or torch.float32
+            R, P = pts.shape[:2]
+            C = feats.shape[-1]
+            v64 = source_variance_ref(pts, feats.double(), sidx, smask,
+                                      P_all, img)
+            va, ma = source_variance_ref(pts, feats.double().abs(), sidx,
+                                         smask, P_all, img, with_mean=True)
+            ef2 = (va + ma * ma).clamp(min=1e-30)
+            extra = 2.0 ** -8 if od == bf else 0.0
+            del va, ma
+
+            def var_tol(got, want, v64=v64, ef2=ef2, extra=extra, od=od):
+                rel = lambda x: float(((x.double() - v64).abs() / ef2).max())
+                twin = float(((got.double() - want.double()).abs()
+                              / ef2).max())
+                ref = rel(got)
+                log(f"    variance vs float64 referee {ref:.3e} of E[F^2] "
+                    f"(limit {BF16_VAR_REL + extra:.3e}), vs twin "
+                    f"{twin:.3e} (limit {BF16_VAR_TWIN_REL + extra:.3e}); "
+                    f"twin vs referee {rel(want):.3e}")
+                err = float((got.double() - want.double()).abs().max())
+                return err, (got.dtype == want.dtype == od
+                             and twin <= BF16_VAR_TWIN_REL + extra
+                             and ref <= BF16_VAR_REL + extra)
+
+            active = float(smask.sum())
+            osz = 2 if od == bf else 4
+            what = "cost volume" if P > 8 * plane[0] * plane[1] \
+                else ("scene cloud" if P == plane[0] * plane[1]
+                      else "pointflow")
+            cases.append(Case(
+                "source_variance_bf16",
+                f"{what} [{R},{P},{C}] bf16 -> {str(od)[6:]}", count,
+                lambda a=a, od=od: source_variance(*a, out_dtype=od),
+                lambda a=a, od=od: source_variance_ref(*a[:6], out_dtype=od),
+                var_tol,
+                4 * pts.numel() + 2 * feats.numel() + osz * R * P * C
+                + 4 * P_all.numel() + 12 * sidx.numel(),
+                active * P * (24 + 11 * C) + R * P * C * 4, path="bf16"))
+        elif name == "trilinear_sample":
+            grid, pts, c0, cell, out, off = a
+            B, Q = pts.shape[:2]
+            C = grid.shape[-1]
+            ref64 = trilinear_sample_ref(grid.double(), pts, c0, cell)
+            terms = trilinear_sample_ref(grid.double().abs(), pts, c0, cell)
+            scale = torch.maximum(ref64.abs(), terms * 2.0 ** -8)
+            del terms
+
+            def tri_tol(got, want, ref64=ref64, scale=scale):
+                twin = float(bf16_ulps(got, want, scale).max())
+                ref = float(bf16_ulps(got, ref64, scale).max())
+                log(f"    samples vs float64 referee {ref:.3f} ulp, vs twin "
+                    f"{twin:.3f} ulp (limit 1)")
+                err = float((got.double() - want.double()).abs().max())
+                return err, got.dtype == bf and twin <= 1.0 and ref <= 1.0
+
+            dims = "x".join(str(d) for d in grid.shape[1:4])
+            cases.append(Case(
+                "trilinear_sample_bf16",
+                f"s={round(cell / 0.08)} [{B},{dims},{C}] x {Q} bf16", count,
+                lambda a=a, c=C: trilinear_sample(
+                    *a[:4], torch.empty_like(a[4]), a[5])[..., a[5]:a[5] + c],
+                lambda a=a: trilinear_sample_ref(*a[:4]), tri_tol,
+                2 * (touched_cells(grid.shape, pts, c0, cell) * C + B * Q * C)
+                + 4 * (pts.numel() + c0.numel()), B * Q * (30 + 16 * C),
+                path="bf16"))
+        elif name == "masked_group_norm":
+            x, mask, G, w, b = a
+            relu, skip = kw.get("relu", False), kw.get("skip")
+            ref64, scale = gn_bf16_referee(x, mask, G, w, b, relu, skip)
+
+            def gn_tol(got, want, ref64=ref64, scale=scale):
+                twin = float(bf16_ulps(got, want, scale).max())
+                ref = float(bf16_ulps(got, ref64, scale).max())
+                log(f"    vs float64 referee {ref:.3f} ulp, vs twin "
+                    f"{twin:.3f} ulp (limit 1)")
+                err = float((got.double() - want.double()).abs().max())
+                return err, got.dtype == bf and twin <= 1.0 and ref <= 1.0
+
+            Bn, C = x.shape[:2]
+            V = x[0, 0].numel()
+            n_in = 2 if skip is not None else 1
+            tail = "skip" if skip is not None else "relu"
+            cases.append(Case(
+                "masked_group_norm_bf16",
+                f"{tail} [{Bn},{C},{'x'.join(map(str, x.shape[2:]))}] "
+                f"G={G} bf16", count,
+                lambda a=a, kw=kw: masked_group_norm(*a, **kw),
+                lambda a=a, kw=kw: masked_group_norm_ref(*a, **kw), gn_tol,
+                2 * (Bn * C * V * (n_in + 1) + Bn * V) + 8 * C,
+                Bn * C * V * 8, path="bf16"))
+        elif name == "segment_max":
+            y, seg, valid, n_seg, plan = a
+            P, C = y.shape
+            rows = int((valid & (seg >= 0) & (seg < n_seg)).sum())
+            idx = seg.clamp(0, n_seg - 1)[:, None].expand(P, C).contiguous()
+            yv = torch.where(valid[:, None], y, torch.full_like(y, -1e30))
+            pool0 = torch.full((n_seg, C), -1e30, device=device, dtype=bf)
+            cases.append(Case(
+                "segment_max_bf16", f"pool [{P},{C}] -> [{n_seg},{C}] bf16",
+                count, lambda a=a: segment_max(*a),
+                lambda a=a: segment_max_ref(*a[:4]),
+                equal_to(lambda a=a: segment_max_ref(
+                    a[0].float(), *a[1:4]).to(bf)),
+                2 * (rows * C + n_seg * C) + 4 * (n_seg + 1 + rows), P * C,
+                library=lambda p=pool0, i=idx, v=yv: p.scatter_reduce(
+                    0, i, v, "amax"), path="bf16", repeat=True))
+        elif name == "gather_concat":
+            y, pooled, seg = a
+            relu = kw.get("relu", False)
+            P, C = y.shape
+            used = torch.unique(seg.clamp(0, pooled.shape[0] - 1)).numel()
+            cases.append(Case(
+                "segment_max_bf16", f"concat-back [{P},{C}] -> [{P},{2 * C}]"
+                " bf16", count,
+                lambda a=a, r=relu: gather_concat(*a, relu=r),
+                lambda a=a, r=relu: gather_concat_ref(*a, relu=r),
+                equal_to(lambda a=a, r=relu: gather_concat_ref(
+                    a[0].float(), a[1].float(), a[2], relu=r).to(bf)),
+                2 * (P * C + used * C + 2 * P * C) + 8 * P, P * 2 * C,
+                path="bf16"))
+        elif name == "scatter_anchors_to_dense":
+            feats, vg, grid, B = a
+            A, C = feats.shape
+            n_cells = B * grid[0] * grid[1] * grid[2]
+            n_valid = int(vg.anchor_valid.sum())
+            flat = (vg.anchor_idx3[:, 0] * grid[1] + vg.anchor_idx3[:, 1]) \
+                * grid[2] + vg.anchor_idx3[:, 2]
+            seg_a = (vg.anchor_scene * (n_cells // B) + flat)[vg.anchor_valid]
+            feats_a = feats[vg.anchor_valid]
+            cases.append(Case(
+                "voxelize_bf16", f"scatter [{A},{C}] -> {B}x{grid} bf16",
+                count, lambda a=a: scatter_anchors_to_dense(*a),
+                lambda a=a: scatter_anchors_to_dense_ref(*a),
+                equal_to(lambda a=a: tuple(
+                    x.to(bf) for x in scatter_anchors_to_dense_ref(
+                        a[0].float(), *a[1:]))),
+                A + n_valid * (2 * C + 32) + n_cells * 2 * (C + 1), 0,
+                library=lambda c=C, n=n_cells, s_=seg_a, f_=feats_a:
+                torch.zeros(n, c, device=device, dtype=bf).index_put_(
+                    (s_,), f_), path="bf16"))
+    return cases
+
+
+def depth_error_check(what, got16, got32, jax_err):
+    """The port's |bf16 - fp32| against JAX's own (the golden's median and
+    p99), each at most BF16_ERR_RATIO times."""
+    import numpy as np
+
+    d = np.abs(np.asarray(got16, np.float64) - np.asarray(got32, np.float64))
+    ok = True
+    parts = []
+    for k, v in (("median", float(np.median(d))),
+                 ("p99", float(np.percentile(d, 99)))):
+        lim = BF16_ERR_RATIO * jax_err[k]
+        ok &= v <= lim
+        parts.append(f"{k} {v:.3e} m (JAX's {jax_err[k]:.3e}, x"
+                     f"{v / max(jax_err[k], 1e-30):.2f}, limit x"
+                     f"{BF16_ERR_RATIO})")
+    log(f"  {what} |bf16 - fp32|: " + ", ".join(parts)
+        + f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def bf16_golden_record():
+    import numpy as np
+
+    with np.load(BF16_GOLDEN) as z:
+        return json.loads(str(z["record"]))
+
+
+def bf16_full_path_phase(model, device, fp32_out):
+    """3': bf16 `infer_depth` on the golden batch: its |bf16 - fp32| per
+    stage (against this run's fp32 `infer_stages`, `fp32_out`) within
+    BF16_ERR_RATIO of JAX's own, its abs_rel and drop counters against the
+    bf16 golden's, the bf16 forms' launch counts."""
+    import numpy as np
+    import torch
+
+    from tdvnet_torch.eval.metrics2d import calc_2d_depth_metrics
+    from tdvnet_torch.kernels import (bf16_launch_counts, launch_counts,
+                                      reset_launch_counts)
+
+    rec = bf16_golden_record()
+    with np.load(BF16_GOLDEN) as z:
+        g_init = z["depth_init"]
+    if tuple(rec["seeds"]) != GOLDEN_SEEDS:
+        raise RuntimeError(f"bf16 golden seeds {rec['seeds']}")
+    batch = golden_batch(GOLDEN_SEEDS)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.infer_stages(batch, OFFSETS)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    counts, bcounts = launch_counts(), bf16_launch_counts()
+    want, bwant = expected_bf16_launches(OFFSETS, 1, model.cfg.unet_res)
+    final = out["final"]
+    finite = bool(torch.isfinite(final).all()) and final.dtype == \
+        torch.float32
+    ok = finite
+    for k in ("initial", "refined", "final"):
+        ok &= depth_error_check(k, out[k].cpu().numpy(),
+                                fp32_out[k].cpu().numpy(),
+                                rec["jax_bf16_error"][k])
+    d_init = np.abs(out["initial"].cpu().numpy() - g_init)
+    abs_rel = float(calc_2d_depth_metrics(
+        final, batch.depth_gt.to(device))["abs_rel"])
+    stats = {k: int(v) for k, v in out["stats"].items()}
+    log(f"  first bf16 infer_depth {first_ms:.1f} ms; initial depth vs the "
+        f"bf16 golden: median {np.median(d_init):.3e} m, max "
+        f"{d_init.max():.3e} m")
+    log(f"  abs_rel {abs_rel:.6f}, bf16 golden {rec['abs_rel']:.6f} (limit "
+        f"+-{ABS_REL_DELTA}); n_overflow={stats['n_overflow']} "
+        f"n_out_of_grid={stats['n_out_of_grid']}")
+    log(f"  launches: {json.dumps(counts)}; bf16 forms {json.dumps(bcounts)}"
+        f" (expected {json.dumps(bwant)})")
+    ok &= (abs(abs_rel - rec["abs_rel"]) <= ABS_REL_DELTA
+           and stats["n_overflow"] == rec["n_overflow"]
+           and stats["n_out_of_grid"] == rec["n_out_of_grid"]
+           and counts == want and bcounts == bwant
+           and all(n > 0 for n in bwant.values()))
+    return ok, {**counts, **bcounts}, first_ms
+
+
+def bf16_scene_phase(inf16, inf32, device):
+    """6a': bf16 `predict_scene` on the golden scene: its |bf16 - fp32|
+    against this run's fp32 `predict_scene` of the scene (unquantized
+    fetches) within BF16_ERR_RATIO of JAX's own, its grid, drop counters
+    and abs_rel against the bf16 golden's, the bf16 forms' launches."""
+    import torch
+
+    from tdvnet_torch.kernels import (bf16_launch_counts, launch_counts,
+                                      reset_launch_counts)
+
+    rec = bf16_golden_record()
+    sc = rec["scene"]
+    ev = inf16.cfg.eval
+    views = scene_views(sc["n_views"], sc["seed"])
+    d32 = inf32.predict_scene(views)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    d16 = inf16.predict_scene(views, timings)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    counts, bcounts = launch_counts(), bf16_launch_counts()
+    n_chunks = -(-sc["n_refs"] // ev.fused_chunk)
+    want, bwant = expected_bf16_launches(inf16.offsets_list, n_chunks,
+                                         inf16.model.cfg.unet_res)
+    import numpy as np
+
+    finite = bool(np.isfinite(d16).all())
+    ok = finite and d16.shape == d32.shape and depth_error_check(
+        "scene", d16, d32, rec["jax_bf16_error"]["scene"])
+    abs_rel = scene_abs_rel(d16, views, ev.n_src_on_either_side, device)
+    grid, stats = list(inf16.last_grid_size), inf16.last_scene_stats
+    log(f"  first bf16 predict_scene {first_ms:.1f} ms; abs_rel "
+        f"{abs_rel:.6f}, bf16 golden {sc['abs_rel']:.6f} (limit "
+        f"+-{ABS_REL_DELTA}); grid {grid} (golden {sc['grid_size']}); stats "
+        f"{json.dumps(stats)} (golden {json.dumps(sc['stats'])})")
+    log(f"  bf16 forms' launches {json.dumps(bcounts)} (expected "
+        f"{json.dumps(bwant)})")
+    ok &= (abs(abs_rel - sc["abs_rel"]) <= ABS_REL_DELTA
+           and grid == sc["grid_size"] and stats == sc["stats"]
+           and counts == want and bcounts == bwant)
+    return ok, {**counts, **bcounts}
+
+
+def cli_bf16_eval_phase(root):
+    """11a': `eval_3dvnet.main --bf16` from the shipped `.npz` over phase
+    8a's scene (the parity path), against the fp32 eval of the same scene
+    in this run: the averaged 2D and fused-cloud metrics within the bf16
+    limits of PERF.md section 2 (BF16_EVAL_*)."""
+    from tdvnet_torch.tools import eval_3dvnet
+
+    got = {}
+    secs = {}
+    for name, flags in (("fp32", []), ("bf16", ["--bf16"])):
+        t0 = time.perf_counter()
+        got[name] = eval_3dvnet.main([
+            "--ckpt-dir", WEIGHTS, "--dataset", f"synthetic:{root}",
+            "--save-dir", os.path.join(root, f"cli_eval_{name}")] + flags)
+        secs[name] = time.perf_counter() - t0
+    ok = set(got["bf16"]) == set(got["fp32"]) == set(CLI_METRICS)
+    for f in CLI_METRICS:
+        want, have = got["fp32"].get(f, {}), got["bf16"].get(f, {})
+        log(f"  {f}: fp32 {json.dumps(want)}")
+        log(f"  {f}: bf16 {json.dumps(have)}")
+        for k, w in want.items():
+            g = have.get(k, float("nan"))
+            if k.startswith("n_") or k == "n":
+                good = abs(g - w) <= BF16_EVAL_COUNT_REL * max(abs(w), 1)
+            else:
+                good = abs(g - w) <= BF16_EVAL_REL * max(abs(w), 1e-12)
+            if not good:
+                log(f"  {f} {k}: bf16 {g!r} against fp32 {w!r}")
+            ok &= good
+    log(f"  eval_3dvnet of {EVAL3D['scene']}: fp32 {secs['fp32']:.2f} s, "
+        f"bf16 {secs['bf16']:.2f} s {'ok' if ok else 'FAIL'}")
+    return ok, {"seconds": secs, "metrics": got}
+
+
 def main():
     import tempfile
 
@@ -3407,12 +3937,33 @@ def main():
         "inputs; K8b past 384 planes, K1 and K6 at odd channel counts")
     edge_ok, _ = kernel_phase(device, edge_cases(device))
 
+    log("phase 2c: the bf16 forms against their twins and float64 "
+        "referees, on the inputs of a bf16 infer_depth")
+    import dataclasses
+
+    from tdvnet_torch.config import Config, ModelConfig
+
+    model16 = load_threedvnet(WEIGHTS, ModelConfig(dtype=torch.bfloat16),
+                              device=device)
+    b_ok, bf16_kernels = kernel_phase(device, bf16_cases(model16, device))
+    per_kernel.update(bf16_kernels)
+
     log("phase 3: full-width infer_depth against the JAX golden")
     model = load_threedvnet(WEIGHTS, device=device)
     f_ok, counts, first_ms = full_path_phase(model, device)
+    log("phase 3': full-width bf16 infer_depth against this run's fp32 one "
+        "and the JAX bf16 golden")
+    fp32_out = model.infer_stages(golden_batch(GOLDEN_SEEDS), OFFSETS)
+    f16_ok, bf16_counts, first16_ms = bf16_full_path_phase(model16, device,
+                                                           fp32_out)
+    del fp32_out
 
     log("phase 4: serve")
     times, peak, n_refs = serve_phase(model, card)
+    log("phase 4': serve in bf16")
+    times16, peak16, _ = serve_phase(model16, card)
+    log(f"  ms per batch: bf16 {[round(t, 1) for t in times16]}, fp32 "
+        f"{[round(t, 1) for t in times]} (this run) [{card}]")
 
     log("phase 5: trace")
     batch = golden_batch((2 * SERVE_SEEDS[0], 2 * SERVE_SEEDS[0] + 1))
@@ -3420,7 +3971,6 @@ def main():
                           "infer_depth", card)
 
     log("phase 6a: whole-scene predict_scene against the JAX golden")
-    from tdvnet_torch.config import Config
     from tdvnet_torch.eval.fused_scene import FusedSceneInference
 
     inf = FusedSceneInference(model, Config(), offsets_list=OFFSETS,
@@ -3428,14 +3978,26 @@ def main():
     g_ok, scene_counts = scene_golden_phase(inf, device)
     log("phase 6b: predict_scenes over a stream of scenes")
     s_ok, stream = scene_stream_phase(inf, device, card)
+    log("phase 6a': bf16 predict_scene against this run's fp32 one and the "
+        "JAX bf16 golden")
+    cfg16 = dataclasses.replace(Config(), model=model16.cfg)
+    g16_ok, scene16_counts = bf16_scene_phase(
+        FusedSceneInference(model16, cfg16, offsets_list=OFFSETS,
+                            fetch_mm=False),
+        FusedSceneInference(model, Config(), offsets_list=OFFSETS,
+                            fetch_mm=False), device)
+    log("phase 6b': bf16 predict_scenes over the stream")
+    inf16 = FusedSceneInference(model16, cfg16, offsets_list=OFFSETS,
+                                fetch_mm=True)
+    s16_ok, stream16 = scene_stream_phase(inf16, device, card)
+    log(f"  s/scene: bf16 {stream16['scene_seconds']}, fp32 "
+        f"{stream['scene_seconds']} (this run) [{card}]")
     log("phase 6c: trace of one scene")
     views = scene_views(STREAM_VIEWS, STREAM_SEEDS[0])
     scene_trace = profile_phase(lambda: inf.predict_scene(views),
                                 f"predict_scene ({STREAM_VIEWS} views)", card)
 
     log("phase 7a: fast-path predict_scene against the JAX fast golden")
-    import dataclasses
-
     cfg = Config()
     fast = FusedSceneInference(
         model, dataclasses.replace(cfg, eval=dataclasses.replace(
@@ -3464,7 +4026,7 @@ def main():
     eval3d_trace = eval3d_trace_phase(model, scenes[0], root, device,
                                       card)
 
-    del model, inf, fast
+    del model, inf, fast, model16, inf16
     torch.cuda.empty_cache()
     train = train_phase(device, card)
     for name, k in train["per_kernel"].items():
@@ -3482,6 +4044,9 @@ def main():
     t11 = time.perf_counter()
     log("phase 11a: eval_3dvnet over phase 8b's scenes against phase 8b")
     ca_ok, cli = cli_eval_phase(root, eval3d_stream)
+    log("phase 11a': eval_3dvnet --bf16 over phase 8a's scene against the "
+        "fp32 eval of it")
+    ca16_ok, cli["bf16"] = cli_bf16_eval_phase(root)
     log("phase 11b: train_3dvnet at the full-width config")
     cb_ok, cli["train"], trained = cli_train_phase(root)
     log("phase 11c: export_weights of 11b's checkpoint, then eval_3dvnet "
@@ -3503,6 +4068,11 @@ def main():
             "train": (train["counts"][0], train["trace"][0]),
             "train1": (train["counts"][1], train["trace"][1]),
             "probe": (probe_counts, None)}
+    # every run's counts with the bf16 forms' (0 where none ran); the bf16
+    # infer_depth (phase 3') is the bf16 forms' main path
+    runs = {p: ({**{k: 0 for k in BF16_OF.values()}, **c}, t)
+            for p, (c, t) in runs.items()}
+    runs["bf16"] = (bf16_counts, None)
     sums = lambda t: t and {x: t[x] for x in (
         "ms", "plain_ms", "bound_ms", "library_ms")}
     for name, k in per_kernel.items():
@@ -3524,6 +4094,7 @@ def main():
             "library_ms": tot["library_ms"],
             "trace_ms": traced[main_path],
             "scene_launches": launches["scene"],
+            "bf16_scene_launches": sum(scene16_counts[w] for w in wrappers),
             "fast_scene_launches": launches["fast"],
             "eval3d_launches": launches["eval3d"],
             "train_launches": launches["train"],
@@ -3543,7 +4114,10 @@ def main():
                     "train": train["timing"], "train_trace": train["trace"],
                     "train_launches": train["counts"],
                     "variance_reading": train["variance_reading"],
-                    "fit": train["fit"], "probes": probes, "cli": cli}))
+                    "fit": train["fit"], "probes": probes, "cli": cli,
+                    "bf16": {"serve_ms": times16, "peak_bytes": peak16,
+                             "first_infer_ms": first16_ms,
+                             "scene_stream": stream16}}))
     # one device kernel a call, in every trace that calls them (the
     # profiler may drop a kernel of a trace, never add one)
     one_launch = {(k, p): t["ported_kernels"][k] for k in ONE_KERNEL_A_CALL
@@ -3552,6 +4126,9 @@ def main():
         log(f"  {k} in the {p} trace: {r['launches']} device kernels over "
             f"{r['calls']} calls")
     phases = {"kernels": k_ok, "edge inputs": edge_ok,
+              "bf16 kernels": b_ok, "bf16 full path": f16_ok,
+              "bf16 scene golden": g16_ok, "bf16 scene stream": s16_ok,
+              "cli eval bf16": ca16_ok,
               "one kernel a call": all(
                   r["launches"] <= r["calls"]
                   and (r["launches"] > 0 or r["calls"] == 0)
@@ -3572,12 +4149,12 @@ def main():
     if set(per_kernel) != set(KERNEL_META):
         return fail(f"kernels without a case: "
                     f"{sorted(set(KERNEL_META) - set(per_kernel))}")
-    from tdvnet_torch.kernels import WRAPPERS
+    from tdvnet_torch.kernels import BF16_FORMS, WRAPPERS
 
     listed = [w for k in kernels for w in k["wrappers"]]
-    if sorted(listed) != sorted(WRAPPERS):
+    if sorted(listed) != sorted([*WRAPPERS, *BF16_FORMS]):
         return fail(f"the kernels line lists wrappers {sorted(listed)}, the "
-                    f"package has {sorted(WRAPPERS)}")
+                    f"package has {sorted([*WRAPPERS, *BF16_FORMS])}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

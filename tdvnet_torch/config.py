@@ -1,6 +1,6 @@
 """Typed configuration of the port (a jax-free copy of `tdvnet/config.py`).
 
-Three deviations from the JAX package's `ModelConfig`:
+Four deviations from the JAX package's `ModelConfig`:
 - `warp_mode` is only ``"gather"`` (the default here). The two-pass
   homography matmul warp is a TPU matrix-unit artifact and is not ported.
 - `conv3d_impl` is gone: cuDNN runs the 3D convolutions.
@@ -23,6 +23,9 @@ import torch
 # the largest feat_dim: the PointNet's pools take 4 * feat_dim channels, at
 # most the 12288 floats of the pool kernel's 48 KB shared long path
 MAX_FEAT_DIM = 3072
+# the compute dtypes the port has (parameters stay fp32 in both)
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -83,10 +86,13 @@ class ModelConfig:
             raise ValueError(
                 f"warp_mode={self.warp_mode!r}: the port has only the exact "
                 f"gather warp")
-        if self.dtype != torch.float32:
+        if isinstance(self.dtype, str) and self.dtype in _DTYPE_NAMES:
+            # a YAML file names the dtype
+            object.__setattr__(self, "dtype", _DTYPE_NAMES[self.dtype])
+        if self.dtype not in COMPUTE_DTYPES:
             raise NotImplementedError(
                 f"ModelConfig.dtype={self.dtype!r}: the port computes in "
-                f"fp32 only so far")
+                f"fp32 or bf16 only")
 
     @property
     def n_hyp(self) -> int:
@@ -158,6 +164,25 @@ class EvalConfig:
     fast_path: bool = False
     fast_rank: int = 96
     fast_patch: bool = True
+
+
+def check_bf16_fast_path(model_cfg: "ModelConfig", fast_path: bool) -> None:
+    """The fast path has fp32 kernels only so far: K7 on bf16 features and
+    K6-int8 packed from a bf16 grid come in a later slice (ROADMAP.md queue
+    1 item 2c)."""
+    if fast_path and model_cfg.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "bf16 with the fast path: the port has it in fp32 only so far "
+            "(ROADMAP.md queue 1 item 2c, the bf16 fast path)")
+
+
+def check_fp32_training(model_cfg: "ModelConfig") -> None:
+    """Training runs in fp32 only so far: a bf16 backward of K1/K2, K3, K4,
+    K5 and K6 comes in a later slice (ROADMAP.md queue 1 item 2b)."""
+    if model_cfg.dtype != torch.float32:
+        raise NotImplementedError(
+            f"training a ModelConfig.dtype={model_cfg.dtype} model: the port "
+            f"trains in fp32 only so far (ROADMAP.md queue 1 item 2b)")
 
 
 @dataclass(frozen=True)

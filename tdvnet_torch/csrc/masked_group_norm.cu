@@ -58,9 +58,20 @@
 // A single cooperative launch (stats, grid barrier, apply) was not built:
 // at levels 1-2 a kernel's fixed cost is ~1.6 us of a 6-12 us call, which
 // is all that fusing the two would save.
+//
+// The bf16 form (inference only; tdv_masked_group_norm_bf16) reads a bf16
+// x, mask and skip and writes a bf16 output, both kernels templated on the
+// storage: the statistics are the same float64 sums of the (exactly
+// widened) bf16 values; the apply rounds to bf16 where the JAX package's
+// separate bf16 ops store (tdvnet/models/layers.py:126-144 and the U-Net's
+// tails): xn = bf16((x - mean) * rstd), then bf16(xn * bf16(w)),
+// bf16(+ bf16(b)), times the mask, and after a skip bf16(y + skip). Bound:
+// bytes, at bf16 half the fp32 form's reads and writes.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -91,6 +102,29 @@ __device__ __forceinline__ float lane_of(float4 v, int j) {
 }
 __device__ __forceinline__ float lane_of(float v, int) { return v; }
 
+// VEC consecutive elements from storage E (float, or bf16 widened)
+template <int VEC, typename E> struct Load;
+template <> struct Load<4, float> {
+  static __device__ __forceinline__ float4 at(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+};
+template <> struct Load<1, float> {
+  static __device__ __forceinline__ float at(const float* p) {
+    return __ldg(p);
+  }
+};
+template <> struct Load<4, bf16::bits16> {
+  static __device__ __forceinline__ float4 at(const bf16::bits16* p) {
+    return bf16::widen(__ldg(reinterpret_cast<const uint2*>(p)));
+  }
+};
+template <> struct Load<1, bf16::bits16> {
+  static __device__ __forceinline__ float at(const bf16::bits16* p) {
+    return bf16::widen(__ldg(p));
+  }
+};
+
 // grid (voxel blocks x channel chunks, B*G). A (b, g) slice is the group's
 // C/G channels of batch element b, each V contiguous floats. Block
 // (vb, cc) sums x m and x^2 m over voxels [vb * Vb, (vb + 1) * Vb) of the
@@ -101,9 +135,9 @@ __device__ __forceinline__ float lane_of(float v, int) { return v; }
 // {0, 1}). The last block of a slice to finish (a ticket taken after
 // __threadfence) adds the slice's partials in index order and writes its
 // statistics, then puts the ticket back to 0 for the next call.
-template <int VEC>
+template <int VEC, typename E>
 __global__ void __launch_bounds__(kThreads) masked_group_norm_stats_kernel(
-    const float* __restrict__ x, const float* __restrict__ mask,
+    const E* __restrict__ x, const E* __restrict__ mask,
     double* __restrict__ partial, unsigned* __restrict__ tickets,
     float* __restrict__ stats, int C, int G, long long V, long long Vb,
     int CC, float eps) {
@@ -116,11 +150,11 @@ __global__ void __launch_bounds__(kThreads) masked_group_norm_stats_kernel(
   const int vb = blockIdx.x / n_cc, cc = blockIdx.x - vb * n_cc;
   const long long v0 = vb * Vb;
   const long long v1 = v0 + Vb < V ? v0 + Vb : V;
-  const float* xs = x + ((long long)bg * cg + (long long)cc * CC) * V;
-  const float* m = mask + (long long)b * V;
+  const E* xs = x + ((long long)bg * cg + (long long)cc * CC) * V;
+  const E* m = mask + (long long)b * V;
   double s1 = 0.0, s2 = 0.0, cnt = 0.0;
   for (long long v = v0 + threadIdx.x * VEC; v < v1; v += VEC * kThreads) {
-    const T mt = __ldg(reinterpret_cast<const T*>(m + v));
+    const T mt = Load<VEC, E>::at(m + v);
     double md[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
@@ -133,7 +167,7 @@ __global__ void __launch_bounds__(kThreads) masked_group_norm_stats_kernel(
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         if (c + u < CC)
-          xv[u] = __ldg(reinterpret_cast<const T*>(xs + (c + u) * V + v));
+          xv[u] = Load<VEC, E>::at(xs + (c + u) * V + v);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (c + u < CC) {
@@ -208,14 +242,51 @@ __device__ __forceinline__ float apply_one(float x, float mean, float rstd,
   return y;
 }
 
+// the bf16 form's tail: w and b arrive rounded to bf16; a bf16 store after
+// each of the JAX package's bf16 ops (the mask is 0 or 1: exact)
+__device__ __forceinline__ float apply_one_bf16(float x, float mean,
+                                                float rstd, float w, float b,
+                                                float m, float skip,
+                                                int mode) {
+  const float xn = bf16::round((x - mean) * rstd);
+  float y = bf16::round(bf16::round(xn * w) + b) * m;
+  if (mode == 1) y = (y < 0.f ? 0.f : y) * m;
+  if (mode == 2) {
+    y = bf16::round(y + skip);
+    y = (y < 0.f ? 0.f : y) * m;
+  }
+  return y;
+}
+
+template <typename E>
+__device__ __forceinline__ float apply_as(float x, float mean, float rstd,
+                                          float w, float b, float m,
+                                          float skip, int mode) {
+  if constexpr (sizeof(E) == 2)
+    return apply_one_bf16(x, mean, rstd, w, b, m, skip, mode);
+  else
+    return apply_one(x, mean, rstd, w, b, m, skip, mode);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 y) {
+  *reinterpret_cast<float4*>(p) = y;
+}
+__device__ __forceinline__ void store4(bf16::bits16* p, float4 y) {
+  *reinterpret_cast<uint2*>(p) = bf16::narrow(y);
+}
+__device__ __forceinline__ void store1(float* p, float y) { *p = y; }
+__device__ __forceinline__ void store1(bf16::bits16* p, float y) {
+  *p = bf16::narrow(y);
+}
+
 // grid (vectors of a channel row / kThreads, rows): one thread per VEC
 // voxels of one (b, c) row, rows strided by gridDim.y
-template <int VEC>
+template <int VEC, typename E>
 __global__ void __launch_bounds__(kThreads) masked_group_norm_apply_kernel(
-    const float* __restrict__ x, const float* __restrict__ mask,
+    const E* __restrict__ x, const E* __restrict__ mask,
     const float* __restrict__ weight, const float* __restrict__ bias,
-    const float* __restrict__ stats, const float* __restrict__ skip,
-    float* __restrict__ out, int B, int C, int G, long long V, int mode) {
+    const float* __restrict__ stats, const E* __restrict__ skip,
+    E* __restrict__ out, int B, int C, int G, long long V, int mode) {
   const long long v = ((long long)blockIdx.x * kThreads + threadIdx.x) * VEC;
   if (v >= V) return;
   const int cg = C / G;
@@ -223,42 +294,66 @@ __global__ void __launch_bounds__(kThreads) masked_group_norm_apply_kernel(
     const int b = bc / C, c = bc - b * C;
     const int bg = b * G + c / cg;
     const float mean = stats[bg * 4], rstd = stats[bg * 4 + 1];
-    const float w = weight[c], bi = bias[c];
+    float w = weight[c], bi = bias[c];
+    if constexpr (sizeof(E) == 2) {
+      w = bf16::round(w);
+      bi = bf16::round(bi);
+    }
     const long long xi = (long long)bc * V + v, mi = (long long)b * V + v;
-    if (VEC == 4) {
-      const float4 xv = __ldg(reinterpret_cast<const float4*>(x + xi));
-      const float4 mv = __ldg(reinterpret_cast<const float4*>(mask + mi));
+    if constexpr (VEC == 4) {
+      const float4 xv = Load<4, E>::at(x + xi);
+      const float4 mv = Load<4, E>::at(mask + mi);
       float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (mode == 2) sv = __ldg(reinterpret_cast<const float4*>(skip + xi));
+      if (mode == 2) sv = Load<4, E>::at(skip + xi);
       float4 y;
-      y.x = apply_one(xv.x, mean, rstd, w, bi, mv.x, sv.x, mode);
-      y.y = apply_one(xv.y, mean, rstd, w, bi, mv.y, sv.y, mode);
-      y.z = apply_one(xv.z, mean, rstd, w, bi, mv.z, sv.z, mode);
-      y.w = apply_one(xv.w, mean, rstd, w, bi, mv.w, sv.w, mode);
-      *reinterpret_cast<float4*>(out + xi) = y;
+      y.x = apply_as<E>(xv.x, mean, rstd, w, bi, mv.x, sv.x, mode);
+      y.y = apply_as<E>(xv.y, mean, rstd, w, bi, mv.y, sv.y, mode);
+      y.z = apply_as<E>(xv.z, mean, rstd, w, bi, mv.z, sv.z, mode);
+      y.w = apply_as<E>(xv.w, mean, rstd, w, bi, mv.w, sv.w, mode);
+      store4(out + xi, y);
     } else {
-      out[xi] = apply_one(x[xi], mean, rstd, w, bi, mask[mi],
-                          mode == 2 ? skip[xi] : 0.f, mode);
+      store1(out + xi,
+             apply_as<E>(Load<1, E>::at(x + xi), mean, rstd, w, bi,
+                         Load<1, E>::at(mask + mi),
+                         mode == 2 ? Load<1, E>::at(skip + xi) : 0.f, mode));
     }
   }
 }
 
 // the two launches: statistics, then the apply
-template <int VEC>
-void launch(const float* x, const float* mask, const float* weight,
-            const float* bias, const float* skip, float* out,
+template <int VEC, typename E>
+void launch(const E* x, const E* mask, const float* weight,
+            const float* bias, const E* skip, E* out,
             double* partial, unsigned* tickets, float* stats, int B, int C,
             int G, long long V, float eps, int mode, long long Vb, int CC,
             cudaStream_t s) {
   const unsigned n_blk =
       (unsigned)((V + Vb - 1) / Vb) * (unsigned)(C / G / CC);
-  masked_group_norm_stats_kernel<VEC><<<dim3(n_blk, B * G), kThreads, 0, s>>>(
-      x, mask, partial, tickets, stats, C, G, V, Vb, CC, eps);
+  masked_group_norm_stats_kernel<VEC, E>
+      <<<dim3(n_blk, B * G), kThreads, 0, s>>>(
+          x, mask, partial, tickets, stats, C, G, V, Vb, CC, eps);
   const unsigned rows = B * C < 65535 ? B * C : 65535;
   const long long blocks = (V / VEC + kThreads - 1) / kThreads;
-  masked_group_norm_apply_kernel<VEC>
+  masked_group_norm_apply_kernel<VEC, E>
       <<<dim3((unsigned)blocks, rows), kThreads, 0, s>>>(
           x, mask, weight, bias, stats, skip, out, B, C, G, V, mode);
+}
+
+template <typename E>
+int launch_any(const E* x, const E* mask, const float* weight,
+               const float* bias, const E* skip, E* out, double* partial,
+               unsigned* tickets, float* stats, int B, int C, int G,
+               long long V, float eps, int mode, long long Vb, int CC,
+               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((long long)B * C * V == 0) return 0;
+  if (V % 4 == 0)
+    launch<4, E>(x, mask, weight, bias, skip, out, partial, tickets, stats, B,
+                 C, G, V, eps, mode, Vb, CC, s);
+  else
+    launch<1, E>(x, mask, weight, bias, skip, out, partial, tickets, stats, B,
+                 C, G, V, eps, mode, Vb, CC, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -273,13 +368,19 @@ extern "C" int tdv_masked_group_norm(
     const float* bias, const float* skip, float* out, double* partial,
     unsigned* tickets, float* stats, int B, int C, int G, long long V,
     float eps, int mode, long long Vb, int CC, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if ((long long)B * C * V == 0) return 0;
-  if (V % 4 == 0)
-    launch<4>(x, mask, weight, bias, skip, out, partial, tickets, stats, B, C,
-              G, V, eps, mode, Vb, CC, s);
-  else
-    launch<1>(x, mask, weight, bias, skip, out, partial, tickets, stats, B, C,
-              G, V, eps, mode, Vb, CC, s);
-  return (int)cudaGetLastError();
+  return launch_any(x, mask, weight, bias, skip, out, partial, tickets,
+                    stats, B, C, G, V, eps, mode, Vb, CC, stream);
+}
+
+// x, mask, skip and out bf16; the rest as above
+extern "C" int tdv_masked_group_norm_bf16(
+    const void* x, const void* mask, const float* weight, const float* bias,
+    const void* skip, void* out, double* partial, unsigned* tickets,
+    float* stats, int B, int C, int G, long long V, float eps, int mode,
+    long long Vb, int CC, void* stream) {
+  using E = bf16::bits16;
+  return launch_any(static_cast<const E*>(x), static_cast<const E*>(mask),
+                    weight, bias, static_cast<const E*>(skip),
+                    static_cast<E*>(out), partial, tickets, stats, B, C, G,
+                    V, eps, mode, Vb, CC, stream);
 }

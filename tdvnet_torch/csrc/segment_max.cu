@@ -56,10 +56,20 @@
 // linear layer, so neither the gathered copy nor the concatenation is
 // materialised; it writes a row for every point, invalid ones and ids out
 // of range included (clamped to [0, n_seg - 1]).
+//
+// The bf16 forms (inference only; tdv_segment_max_bf16,
+// tdv_gather_concat_bf16) are the same kernels templated on the rows'
+// storage: four bf16 channels a lane (8 bytes), widened exactly to fp32
+// for the order-preserving image, and each maximum narrowed back, which is
+// exact (it is one of the rows' values, or 0); the empty-segment threshold
+// is NEG / 2 rounded to bf16, as the JAX package compares in bf16. A max
+// and a copy round nothing, so both are bit-equal to the JAX package's
+// bf16 ops. Bound: bytes, half the fp32 forms'.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "segment_plan.cuh"
 
 namespace {
@@ -84,11 +94,37 @@ __device__ __forceinline__ float decode(unsigned e) {
   return __uint_as_float((e & 0x80000000u) ? (e ^ 0x80000000u) : ~e);
 }
 
+// the rows' storage: E one element, V four (a lane's load)
+template <typename E> struct Rows;
+template <> struct Rows<float> {
+  using V = float4;
+  // the reference's threshold NEG / 2
+  static __device__ __forceinline__ float neg_half() { return -5e29f; }
+  static __device__ __forceinline__ float4 load(const float4* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ float4 store(float4 v) { return v; }
+};
+template <> struct Rows<bf16::bits16> {
+  using V = uint2;
+  // NEG / 2 in bf16 (0xf0ca), as the JAX package compares bf16 rows
+  static __device__ __forceinline__ float neg_half() {
+    return __uint_as_float(0xf0ca0000u);
+  }
+  static __device__ __forceinline__ float4 load(const uint2* p) {
+    return bf16::widen(__ldg(p));
+  }
+  static __device__ __forceinline__ uint2 store(float4 v) {
+    return bf16::narrow(v);
+  }
+};
+
 // a segment's maximum as the reference reads it: 0 for an empty segment
-// and for a maximum at or below -5e29 (the reference's threshold NEG / 2)
+// and for a maximum at or below the threshold NEG / 2
+template <typename E>
 __device__ __forceinline__ float finish(unsigned e) {
   const float v = e ? decode(e) : 0.f;
-  return v <= -5e29f ? 0.f : v;
+  return v <= Rows<E>::neg_half() ? 0.f : v;
 }
 
 __device__ __forceinline__ void max4(uint4& m, const float4 v) {
@@ -102,10 +138,12 @@ __device__ __forceinline__ void max4(uint4& m, const float4 v) {
 // channel c4 (all 32 lanes call it; a lane that is not `live` loads
 // nothing); kUnroll row loads in flight, their ids read in one load and
 // handed out by shuffles
-__device__ __forceinline__ uint4 rows_max(const float* __restrict__ y,
+template <typename E>
+__device__ __forceinline__ uint4 rows_max(const E* __restrict__ y,
                                           const int* __restrict__ rows,
                                           int i0, int i1, int C, int c4,
                                           bool live) {
+  using V = typename Rows<E>::V;
   const int lane = threadIdx.x & 31;
   uint4 m = make_uint4(0u, 0u, 0u, 0u);
   for (int k = i0; k < i1; k += kUnroll) {
@@ -116,8 +154,8 @@ __device__ __forceinline__ uint4 rows_max(const float* __restrict__ y,
     for (int u = 0; u < kUnroll; ++u) {
       const int r = __shfl_sync(kFull, rid, u);
       v[u] = live && k + u < i1
-                 ? __ldg(reinterpret_cast<const float4*>(y + (size_t)r * C)
-                         + c4)
+                 ? Rows<E>::load(reinterpret_cast<const V*>(
+                                     y + (size_t)r * C) + c4)
                  : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
     }
 #pragma unroll
@@ -127,21 +165,24 @@ __device__ __forceinline__ uint4 rows_max(const float* __restrict__ y,
   return m;
 }
 
-__device__ __forceinline__ void store_row(float* __restrict__ out, int s,
+template <typename E>
+__device__ __forceinline__ void store_row(E* __restrict__ out, int s,
                                           int C, int c4, uint4 m) {
-  reinterpret_cast<float4*>(out + (size_t)s * C)[c4] =
-      make_float4(finish(m.x), finish(m.y), finish(m.z), finish(m.w));
+  reinterpret_cast<typename Rows<E>::V*>(out + (size_t)s * C)[c4] =
+      Rows<E>::store(make_float4(finish<E>(m.x), finish<E>(m.y),
+                                 finish<E>(m.z), finish<E>(m.w)));
 }
 
 // the long path: blocks `lb` of `n_lb` split every listed segment's rows;
 // `smem` holds C unsigned
-__device__ void pool_long(const float* __restrict__ y,
+template <typename E>
+__device__ void pool_long(const E* __restrict__ y,
                           const int* __restrict__ offsets,
                           const int* __restrict__ rows,
                           const int* __restrict__ longs,
                           unsigned* __restrict__ acc,
                           unsigned* __restrict__ tickets,
-                          float* __restrict__ out, int C, int lb, int n_lb,
+                          E* __restrict__ out, int C, int lb, int n_lb,
                           unsigned* smem) {
   const int n_long = longs[0];
   const int cq = C >> 2;
@@ -189,12 +230,14 @@ __device__ void pool_long(const float* __restrict__ y,
   }
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads, 4) segment_max_pool_kernel(
-    const float* __restrict__ y, const int* __restrict__ offsets,
+    const E* __restrict__ y, const int* __restrict__ offsets,
     const int* __restrict__ rows, const int* __restrict__ longs,
     const int* __restrict__ first, unsigned* __restrict__ acc,
-    unsigned* __restrict__ tickets, float* __restrict__ out, int C,
+    unsigned* __restrict__ tickets, E* __restrict__ out, int C,
     int n_seg, int work_blocks, int n_lb) {
+  using V = typename Rows<E>::V;
   extern __shared__ unsigned smem[];
   if ((int)blockIdx.x >= work_blocks) {
     pool_long(y, offsets, rows, longs, acc, tickets, out, C,
@@ -245,8 +288,8 @@ __global__ void __launch_bounds__(kThreads, 4) segment_max_pool_kernel(
       for (int u = 0; u < kUnroll; ++u) {
         const int r = __shfl_sync(kFull, rid, u);
         v[u] = live && k + u < R1
-                   ? __ldg(reinterpret_cast<const float4*>(
-                               y + (size_t)r * C) + c4)
+                   ? Rows<E>::load(reinterpret_cast<const V*>(
+                                       y + (size_t)r * C) + c4)
                    : make_float4(-INFINITY, -INFINITY, -INFINITY,
                                  -INFINITY);
       }
@@ -272,10 +315,12 @@ __global__ void __launch_bounds__(kThreads, 4) segment_max_pool_kernel(
   }
 }
 
+template <typename E>
 __global__ void segment_max_gather_concat_kernel(
-    const float* __restrict__ y, const float* __restrict__ pooled,
-    const long long* __restrict__ seg, float* __restrict__ out, long long P,
+    const E* __restrict__ y, const E* __restrict__ pooled,
+    const long long* __restrict__ seg, E* __restrict__ out, long long P,
     int C, long long n_seg, int relu) {
+  using V = typename Rows<E>::V;
   const int cq = C >> 2;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= P * 2 * cq) return;
@@ -283,11 +328,14 @@ __global__ void segment_max_gather_concat_kernel(
   const int q = (int)(t % (2 * cq));
   float4 v;
   if (q < cq) {
-    v = reinterpret_cast<const float4*>(y + p * C)[q];
+    if constexpr (sizeof(E) == 2)
+      v = bf16::widen(reinterpret_cast<const uint2*>(y + p * C)[q]);
+    else
+      v = reinterpret_cast<const float4*>(y + p * C)[q];
   } else {
     long long s = seg[p];
     s = s < 0 ? 0 : (s >= n_seg ? n_seg - 1 : s);
-    v = __ldg(reinterpret_cast<const float4*>(pooled + s * C) + (q - cq));
+    v = Rows<E>::load(reinterpret_cast<const V*>(pooled + s * C) + (q - cq));
   }
   if (relu) {                         // a NaN stays a NaN, as in the twin
     v.x = v.x < 0.f ? 0.f : v.x;
@@ -295,42 +343,81 @@ __global__ void segment_max_gather_concat_kernel(
     v.z = v.z < 0.f ? 0.f : v.z;
     v.w = v.w < 0.f ? 0.f : v.w;
   }
-  reinterpret_cast<float4*>(out + p * 2 * C)[q] = v;
+  reinterpret_cast<V*>(out + p * 2 * C)[q] = Rows<E>::store(v);
 }
 
 inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-}  // namespace
-
 // out [n_seg, C] fp32, C % 4 == 0; the plan from tdv_segment_plan over
 // the same ids (`first` sized for P rows: n_work + 1 entries); `acc`
 // [cap, C] and `tickets` [cap] uint32 arrive zero and are left zero (cap:
 // the plan's long-list capacity).
+template <typename E>
+int launch_pool(const E* y, const int* offsets, const int* rows,
+                const int* longs, const int* first, unsigned* acc,
+                unsigned* tickets, E* out, int C, int n_seg, int n_work,
+                int n_long_blocks, void* stream) {
+  if (n_seg == 0 || C == 0) return 0;
+  const int work_blocks = (n_work + kPoolWarps - 1) / kPoolWarps;
+  segment_max_pool_kernel<E><<<work_blocks + n_long_blocks, kThreads,
+                               C * sizeof(unsigned), (cudaStream_t)stream>>>(
+      y, offsets, rows, longs, first, acc, tickets, out, C, n_seg,
+      work_blocks, n_long_blocks);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int launch_concat(const E* y, const E* pooled, const long long* seg, E* out,
+                  long long P, int C, long long n_seg, int relu,
+                  void* stream) {
+  const long long total = P * 2 * (C / 4);
+  if (total == 0) return 0;
+  segment_max_gather_concat_kernel<E><<<blocks_for(total), kThreads, 0,
+                                        (cudaStream_t)stream>>>(
+      y, pooled, seg, out, P, C, n_seg, relu);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int tdv_segment_max(const float* y, const int* offsets,
                                const int* rows, const int* longs,
                                const int* first, unsigned* acc,
                                unsigned* tickets, float* out, int C,
                                int n_seg, int n_work, int n_long_blocks,
                                void* stream) {
-  if (n_seg == 0 || C == 0) return 0;
-  const int work_blocks = (n_work + kPoolWarps - 1) / kPoolWarps;
-  segment_max_pool_kernel<<<work_blocks + n_long_blocks, kThreads,
-                            C * sizeof(unsigned), (cudaStream_t)stream>>>(
-      y, offsets, rows, longs, first, acc, tickets, out, C, n_seg,
-      work_blocks, n_long_blocks);
-  return (int)cudaGetLastError();
+  return launch_pool(y, offsets, rows, longs, first, acc, tickets, out, C,
+                     n_seg, n_work, n_long_blocks, stream);
 }
 
 extern "C" int tdv_gather_concat(const float* y, const float* pooled,
                                  const long long* seg, float* out,
                                  long long P, int C, long long n_seg,
                                  int relu, void* stream) {
-  const long long total = P * 2 * (C / 4);
-  if (total == 0) return 0;
-  segment_max_gather_concat_kernel<<<blocks_for(total), kThreads, 0,
-                                     (cudaStream_t)stream>>>(
-      y, pooled, seg, out, P, C, n_seg, relu);
-  return (int)cudaGetLastError();
+  return launch_concat(y, pooled, seg, out, P, C, n_seg, relu, stream);
+}
+
+// bf16 rows and outputs; the rest as above
+extern "C" int tdv_segment_max_bf16(const void* y, const int* offsets,
+                                    const int* rows, const int* longs,
+                                    const int* first, unsigned* acc,
+                                    unsigned* tickets, void* out, int C,
+                                    int n_seg, int n_work,
+                                    int n_long_blocks, void* stream) {
+  using E = bf16::bits16;
+  return launch_pool(static_cast<const E*>(y), offsets, rows, longs, first,
+                     acc, tickets, static_cast<E*>(out), C, n_seg, n_work,
+                     n_long_blocks, stream);
+}
+
+extern "C" int tdv_gather_concat_bf16(const void* y, const void* pooled,
+                                      const long long* seg, void* out,
+                                      long long P, int C, long long n_seg,
+                                      int relu, void* stream) {
+  using E = bf16::bits16;
+  return launch_concat(static_cast<const E*>(y),
+                       static_cast<const E*>(pooled), seg,
+                       static_cast<E*>(out), P, C, n_seg, relu, stream);
 }

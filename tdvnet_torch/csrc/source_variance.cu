@@ -40,10 +40,22 @@
 // sources, which the backward (source_variance_backward.cu, through the
 // same sv::project, sv::footprint and sv::sample4) reads instead of
 // reducing over the sources again.
+//
+// The bf16 form (inference only; tdv_source_variance_bf16) is the same
+// kernel templated on the features' and the output's storage: it reads
+// four bf16 channels a tap (8 bytes), samples in fp32 as above, rounds each
+// source's sample to bf16 once (the JAX package's bilinear sample is a bf16
+// value: tdvnet/ops/sampling.py `bilinear_sample_quads` interpolates in the
+// table's dtype), sums in fp32, and writes the variance in fp32 (the point
+// variance) or rounded once to bf16 (the cost volume: the JAX package's
+// cast of the fp32 variance before CostRegNet, tdvnet/models/mvsnet.py:88,
+// which halves the [R, D*h*w, C] write that bounds the call). It writes
+// no mean (no backward in bf16).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "source_variance.cuh"
 
 namespace {
@@ -54,16 +66,23 @@ constexpr int SAMPLE = 1;  // sampled from its four taps
 constexpr int POISON = 2;  // a non-finite coordinate: the result is NaN
 constexpr int THREADS = 256;
 
+// storage of one 4-channel group: float4 for fp32, uint2 for four bf16
+template <typename T> struct Quad { using V = float4; };
+template <> struct Quad<bf16::bits16> { using V = uint2; };
+
+// In / Out: float, or bf16::bits16 for bf16 storage
+template <typename In, typename Out>
 __global__ void __launch_bounds__(THREADS, 6) source_variance_kernel(
-    const float* __restrict__ feats,      // [N, Hf, Wf, C]
+    const In* __restrict__ feats,         // [N, Hf, Wf, C]
     const float* __restrict__ pts,        // [R, P, 3]
     const int64_t* __restrict__ src_idx,  // [R, S]
     const float* __restrict__ src_w,      // [R, S]: 1 real source, 0 padding
     const float* __restrict__ proj,       // [N, 3, 4]
-    float* __restrict__ out,              // [R, P, C]
+    Out* __restrict__ out,                // [R, P, C]
     float* __restrict__ mean_out,         // [R, P, C] or null
     long long P, int tiles, int S, int Hf, int Wf, int C, float sx,
     float sy) {
+  using InV = typename Quad<In>::V;
   const int cq = C >> 2;
   const int cs = min(cq, THREADS);  // channel groups a block
   const int t = threadIdx.x;
@@ -130,11 +149,12 @@ __global__ void __launch_bounds__(THREADS, 6) source_variance_kernel(
         fp.xin1 = fp.x0 + 1 <= Wf - 1;
         fp.yin0 = fp.y0 >= 0;
         fp.yin1 = fp.y0 + 1 <= Hf - 1;
-        const float4* fm =
-            reinterpret_cast<const float4*>(
+        const InV* fm =
+            reinterpret_cast<const InV*>(
                 feats + (size_t)node[s0 + k] * Hf * Wf * C) +
             qc;
-        const float4 f = sv::sample4(fm, fp, Wf, cq);
+        float4 f = sv::sample4(fm, fp, Wf, cq);
+        if constexpr (sizeof(In) == 2) f = bf16::round(f);
         sv::fma4(acc, f, m);
         acc2.x = fmaf(f.x * f.x, m, acc2.x);
         acc2.y = fmaf(f.y * f.y, m, acc2.y);
@@ -151,8 +171,31 @@ __global__ void __launch_bounds__(THREADS, 6) source_variance_kernel(
   mu.z = acc.z / c; v.z = acc2.z / c - mu.z * mu.z;
   mu.w = acc.w / c; v.w = acc2.w / c - mu.w * mu.w;
   const size_t o = rp * cq + q;
-  reinterpret_cast<float4*>(out)[o] = v;
+  if constexpr (sizeof(Out) == 2)
+    reinterpret_cast<uint2*>(out)[o] = bf16::narrow(v);
+  else
+    reinterpret_cast<float4*>(out)[o] = v;
   if (mean_out) reinterpret_cast<float4*>(mean_out)[o] = mu;
+}
+
+template <typename In, typename Out>
+int launch_variance(const In* feats, const float* pts,
+                    const int64_t* src_idx, const float* src_w,
+                    const float* proj, Out* out, float* mean_out, int R,
+                    long long P, int S, int Hf, int Wf, int C, float sx,
+                    float sy, void* stream) {
+  const int cq = C / 4;
+  if ((long long)R * P * cq == 0) return 0;
+  const int cs = cq < THREADS ? cq : THREADS;
+  const int ppb = THREADS / cs;  // points a block
+  const long long tiles = (P + ppb - 1) / ppb;
+  if (tiles * R > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(tiles * R), (unsigned)((cq + cs - 1) / cs));
+  source_variance_kernel<In, Out>
+      <<<grid, ppb * cs, 0, (cudaStream_t)stream>>>(
+          feats, pts, src_idx, src_w, proj, out, mean_out, P, (int)tiles, S,
+          Hf, Wf, C, sx, sy);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -163,15 +206,25 @@ extern "C" int tdv_source_variance(const float* feats, const float* pts,
                                    float* mean_out, int R, long long P, int S,
                                    int Hf, int Wf, int C, float sx, float sy,
                                    void* stream) {
-  const int cq = C / 4;
-  if ((long long)R * P * cq == 0) return 0;
-  const int cs = cq < THREADS ? cq : THREADS;
-  const int ppb = THREADS / cs;  // points a block
-  const long long tiles = (P + ppb - 1) / ppb;
-  if (tiles * R > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(tiles * R), (unsigned)((cq + cs - 1) / cs));
-  source_variance_kernel<<<grid, ppb * cs, 0, (cudaStream_t)stream>>>(
-      feats, pts, src_idx, src_w, proj, out, mean_out, P, (int)tiles, S, Hf,
-      Wf, C, sx, sy);
-  return (int)cudaGetLastError();
+  return launch_variance(feats, pts, src_idx, src_w, proj, out, mean_out, R,
+                         P, S, Hf, Wf, C, sx, sy, stream);
+}
+
+// bf16 features [N, Hf, Wf, C]; out [R, P, C] bf16 when half_out, else
+// fp32; no mean
+extern "C" int tdv_source_variance_bf16(const void* feats, const float* pts,
+                                        const int64_t* src_idx,
+                                        const float* src_w, const float* proj,
+                                        void* out, int half_out, int R,
+                                        long long P, int S, int Hf, int Wf,
+                                        int C, float sx, float sy,
+                                        void* stream) {
+  const auto* f = static_cast<const bf16::bits16*>(feats);
+  if (half_out)
+    return launch_variance(f, pts, src_idx, src_w, proj,
+                           static_cast<bf16::bits16*>(out), nullptr, R, P,
+                           S, Hf, Wf, C, sx, sy, stream);
+  return launch_variance(f, pts, src_idx, src_w, proj,
+                         static_cast<float*>(out), nullptr, R, P, S, Hf, Wf,
+                         C, sx, sy, stream);
 }

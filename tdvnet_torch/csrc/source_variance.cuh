@@ -6,6 +6,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bf16.cuh"
+
 namespace sv {
 
 __device__ __forceinline__ void fma4(float4& acc, const float4 v, float w) {
@@ -57,21 +59,29 @@ __device__ __forceinline__ bool footprint(float x, float y, int Hf, int Wf,
   return true;
 }
 
-// The bilinear sample of one 4-channel group; fm points at the group's
-// channels of pixel (0, 0), cq = C / 4 float4s per pixel.
-__device__ __forceinline__ float4 sample4(const float4* fm, const Footprint& fp,
+// one 4-channel group of a pixel: fp32, or bf16 widened exactly
+__device__ __forceinline__ float4 load4(const float4* p) { return __ldg(p); }
+__device__ __forceinline__ float4 load4(const uint2* p) {
+  return bf16::widen(__ldg(p));
+}
+
+// The bilinear sample of one 4-channel group, in fp32; fm points at the
+// group's channels of pixel (0, 0), cq = C / 4 groups per pixel (float4,
+// or uint2 for four bf16).
+template <typename V>
+__device__ __forceinline__ float4 sample4(const V* fm, const Footprint& fp,
                                           int Wf, int cq) {
   const int x0 = fp.x0, y0 = fp.y0;
   const float wx = fp.wx, wy = fp.wy;
   float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
   if (fp.yin0 && fp.xin0)
-    fma4(f, __ldg(fm + ((size_t)y0 * Wf + x0) * cq), (1.f - wx) * (1.f - wy));
+    fma4(f, load4(fm + ((size_t)y0 * Wf + x0) * cq), (1.f - wx) * (1.f - wy));
   if (fp.yin0 && fp.xin1)
-    fma4(f, __ldg(fm + ((size_t)y0 * Wf + x0 + 1) * cq), wx * (1.f - wy));
+    fma4(f, load4(fm + ((size_t)y0 * Wf + x0 + 1) * cq), wx * (1.f - wy));
   if (fp.yin1 && fp.xin0)
-    fma4(f, __ldg(fm + ((size_t)(y0 + 1) * Wf + x0) * cq), (1.f - wx) * wy);
+    fma4(f, load4(fm + ((size_t)(y0 + 1) * Wf + x0) * cq), (1.f - wx) * wy);
   if (fp.yin1 && fp.xin1)
-    fma4(f, __ldg(fm + ((size_t)(y0 + 1) * Wf + x0 + 1) * cq), wx * wy);
+    fma4(f, load4(fm + ((size_t)(y0 + 1) * Wf + x0 + 1) * cq), wx * wy);
   return f;
 }
 

@@ -54,9 +54,21 @@
 // stores, L = C lanes a query rounded as above, the channels of a query
 // past 32 in slices of 32), with the same operations per channel: the
 // kernel is templated on a lane's channel group, float4 or float.
+//
+// The bf16 form (inference only; tdv_trilinear_sample_bf16) is the same
+// kernel over a bf16 grid and a bf16 output: a lane's group is four bf16
+// channels (one 8-byte load a tap, widened exactly to fp32) or one, the
+// sum is the fp32 form's, and the result is rounded once to bf16 as it is
+// stored. The JAX package sums in bf16 (tdvnet/ops/sampling.py:199-281:
+// `out` is zeros of the grid's dtype), each product and partial sum
+// rounded; one rounding of the fp32 sum keeps the result within half a
+// bf16 ulp of the sum of the fp32 products. Bound: bytes, at bf16 the
+// output and the touched nodes are half the fp32 form's.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -73,6 +85,46 @@ template <> __device__ __forceinline__ float4 splat<float4>(float x) {
 template <> __device__ __forceinline__ float splat<float>(float x) {
   return x;
 }
+
+// a lane's channel group M in memory: E its element, A the fp32 values a
+// lane holds and sums (float4 or float); load widens, store narrows
+template <typename M> struct Group;
+template <> struct Group<float4> {
+  using E = float;
+  using A = float4;
+  static __device__ __forceinline__ float4 load(const float4* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ float4 store(float4 a) { return a; }
+};
+template <> struct Group<float> {
+  using E = float;
+  using A = float;
+  static __device__ __forceinline__ float load(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ float store(float a) { return a; }
+};
+template <> struct Group<uint2> {      // four bf16 channels
+  using E = bf16::bits16;
+  using A = float4;
+  static __device__ __forceinline__ A load(const uint2* p) {
+    return bf16::widen(__ldg(p));
+  }
+  static __device__ __forceinline__ uint2 store(A a) {
+    return bf16::narrow(a);
+  }
+};
+template <> struct Group<bf16::bits16> {
+  using E = bf16::bits16;
+  using A = float;
+  static __device__ __forceinline__ A load(const bf16::bits16* p) {
+    return bf16::widen(__ldg(p));
+  }
+  static __device__ __forceinline__ bf16::bits16 store(A a) {
+    return bf16::narrow(a);
+  }
+};
 __device__ __forceinline__ void fma_tap(float4& acc, const float4 t,
                                         float w) {
   acc.x = fmaf(t.x, w, acc.x);
@@ -87,32 +139,34 @@ __device__ __forceinline__ void fma_tap(float& acc, const float t, float w) {
 // the 8 taps of one query and one channel group: in-grid taps from the
 // grid, the others 0 (all 8 unpredicated for an interior anchor, the
 // common case)
-template <typename T>
-__device__ __forceinline__ void load_taps(T (&t)[8], const T* __restrict__ g,
+template <typename M, typename A = typename Group<M>::A>
+__device__ __forceinline__ void load_taps(A (&t)[8], const M* __restrict__ g,
                                           int base, unsigned mask,
                                           const int (&off)[8], int cq) {
   if (mask == 0xffu) {
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      t[k] = __ldg(g + (long long)(base + off[k]) * cq);
+      t[k] = Group<M>::load(g + (long long)(base + off[k]) * cq);
   } else {
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      t[k] = (mask >> k & 1u) ? __ldg(g + (long long)(base + off[k]) * cq)
-                              : splat<T>(0.f);
+      t[k] = (mask >> k & 1u)
+                 ? Group<M>::load(g + (long long)(base + off[k]) * cq)
+                 : splat<A>(0.f);
   }
 }
 
-// T: a lane's channel group, float4 or float; cq = C / (its channels),
-// out_stride and ch_off counted in floats
-template <typename T>
+// M: a lane's channel group in memory (float4 or float; uint2 or one bf16);
+// cq = C / (its channels), out_stride and ch_off counted in elements
+template <typename M>
 __global__ void __launch_bounds__(kWarps * 32) trilinear_sample_kernel(
-    const float* __restrict__ grid,     // [B, X, Y, Z, C]
+    const typename Group<M>::E* __restrict__ grid,  // [B, X, Y, Z, C]
     const float* __restrict__ pts,      // [B, Q, 3] world points
     const float* __restrict__ center0,  // [B, 3] world position of node 0
-    float* __restrict__ out,            // [B, Q, out_stride]
+    typename Group<M>::E* __restrict__ out,  // [B, Q, out_stride]
     int B, long long Q, int X, int Y, int Z, int cq, float cell,
     int out_stride, int ch_off, int L) {
+  using T = typename Group<M>::A;
   const int lane = threadIdx.x & 31;
   const long long n = (long long)B * Q;
   const long long q0 = ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5))
@@ -160,11 +214,11 @@ __global__ void __launch_bounds__(kWarps * 32) trilinear_sample_kernel(
 #pragma unroll
   for (int k = 0; k < 8; ++k)
     off[k] = (k >> 2) * YZ + (k >> 1 & 1) * Z + (k & 1);
-  const T* g = reinterpret_cast<const T*>(grid);
+  const M* g = reinterpret_cast<const M*>(grid);
   for (int cbase = 0; cbase < cq; cbase += 32) {
     const int c4 = cbase + c4_lane;
     const bool live = c4 < cq;
-    const T* gc = g + c4;
+    const M* gc = g + c4;
     T t[8];
     int b_have = 0;
     unsigned k_have = 0;                 // no taps held yet
@@ -198,7 +252,8 @@ __global__ void __launch_bounds__(kWarps * 32) trilinear_sample_kernel(
             fma_tap(acc, t[k], w);
           }
         }
-        reinterpret_cast<T*>(out + gq * out_stride + ch_off)[c4] = acc;
+        reinterpret_cast<M*>(out + gq * out_stride + ch_off)[c4] =
+            Group<M>::store(acc);
       }
     }
   }
@@ -225,5 +280,30 @@ extern "C" int tdv_trilinear_sample(const float* grid, const float* pts,
   kernel<<<(unsigned)blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
       grid, pts, center0, out, B, Q, X, Y, Z, cq, cell, out_stride, ch_off,
       L);
+  return (int)cudaGetLastError();
+}
+
+// a bf16 grid into a bf16 output (grid and output start on 8 bytes: the
+// wrapper checks)
+extern "C" int tdv_trilinear_sample_bf16(const void* grid, const float* pts,
+                                         const float* center0, void* out,
+                                         int B, long long Q, int X, int Y,
+                                         int Z, int C, float cell,
+                                         int out_stride, int ch_off,
+                                         void* stream) {
+  const long long n = (long long)B * Q;
+  if (n == 0 || C == 0) return 0;
+  const bool quads = C % 4 == 0 && out_stride % 4 == 0 && ch_off % 4 == 0;
+  const int cq = quads ? C / 4 : C;
+  int L = 1;
+  while (L < cq && L < 32) L <<= 1;
+  const long long tiles = (n + 31) / 32;
+  const long long blocks = (tiles + kWarps - 1) / kWarps;
+  const auto* g = static_cast<const bf16::bits16*>(grid);
+  auto* o = static_cast<bf16::bits16*>(out);
+  const auto kernel = quads ? trilinear_sample_kernel<uint2>
+                            : trilinear_sample_kernel<bf16::bits16>;
+  kernel<<<(unsigned)blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      g, pts, center0, o, B, Q, X, Y, Z, cq, cell, out_stride, ch_off, L);
   return (int)cudaGetLastError();
 }

@@ -296,12 +296,32 @@ __global__ void voxelize_scatter_map_kernel(
 // read again here); 32-bit indices: n_cells * C / 4 < 2^31. Measured
 // against variants on the H100 (PERF.md, PR 8): several items a thread, a
 // grid-stride loop or plain stores were 10-45% slower.
+// V: four channels of the grid (float4, or uint2 for four bf16); O: an
+// occupancy element (float, or the bits of a bf16). The bf16 form is a
+// copy too: bit-equal to the JAX package's bf16 `segment_sum` (each cell
+// takes at most one anchor row), with half the fp32 form's bytes.
+template <typename V> __device__ __forceinline__ V zero4();
+template <> __device__ __forceinline__ float4 zero4<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+template <> __device__ __forceinline__ uint2 zero4<uint2>() {
+  return make_uint2(0u, 0u);
+}
+__device__ __forceinline__ float one_if(bool hit, float*) {
+  return hit ? 1.f : 0.f;
+}
+__device__ __forceinline__ unsigned short one_if(bool hit,
+                                                 unsigned short*) {
+  return hit ? (unsigned short)0x3f80u : (unsigned short)0u;  // bf16 1.0
+}
+
+template <typename V, typename O>
 __global__ void __launch_bounds__(kThreads) voxelize_scatter_stream_kernel(
-    const float4* __restrict__ feats, const int* __restrict__ cell_anchor,
+    const V* __restrict__ feats, const int* __restrict__ cell_anchor,
     const long long* __restrict__ anchor_idx3,
     const long long* __restrict__ anchor_scene,
-    const uint8_t* __restrict__ anchor_valid, float4* __restrict__ dense,
-    float* __restrict__ occ, unsigned n, unsigned cq, int A, int gx, int gy,
+    const uint8_t* __restrict__ anchor_valid, V* __restrict__ dense,
+    O* __restrict__ occ, unsigned n, unsigned cq, int A, int gx, int gy,
     int gz) {
   const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
@@ -314,10 +334,9 @@ __global__ void __launch_bounds__(kThreads) voxelize_scatter_stream_kernel(
                __ldg(anchor_idx3 + 3LL * a + 1)) * gz +
               __ldg(anchor_idx3 + 3LL * a + 2) ==
           (long long)cell;
-  const float4 v = hit ? __ldg(feats + (size_t)a * cq + q)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  const V v = hit ? __ldg(feats + (size_t)a * cq + q) : zero4<V>();
   __stcs(dense + t, v);
-  if (q == 0) __stcs(occ + cell, hit ? 1.f : 0.f);
+  if (q == 0) __stcs(occ + cell, one_if(hit, occ));
 }
 
 inline unsigned blocks_for(long long n) {
@@ -380,13 +399,13 @@ extern "C" int tdv_voxelize(
 // [B*gx*gy*gz] arrive uninitialised (the scratch stays so where no anchor
 // lies); every element of the first two is written once. C % 4 == 0 and
 // B*gx*gy*gz * C / 4 < 2^31.
-extern "C" int tdv_scatter_dense(const float* feats,
-                                 const long long* anchor_idx3,
-                                 const long long* anchor_scene,
-                                 const uint8_t* anchor_valid, float* dense,
-                                 float* occ, int* cell_anchor, int A, int C,
-                                 int n_scenes, int gx, int gy, int gz,
-                                 void* stream) {
+namespace {
+
+template <typename V, typename O>
+int scatter_dense(const V* feats, const long long* anchor_idx3,
+                  const long long* anchor_scene, const uint8_t* anchor_valid,
+                  V* dense, O* occ, int* cell_anchor, int A, int C,
+                  int n_scenes, int gx, int gy, int gz, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long n_cells = (long long)n_scenes * gx * gy * gz;
   const int cq = C / 4;
@@ -396,9 +415,38 @@ extern "C" int tdv_scatter_dense(const float* feats,
   if (A > 0)
     voxelize_scatter_map_kernel<<<blocks_for(A), kThreads, 0, s>>>(
         anchor_idx3, anchor_scene, anchor_valid, cell_anchor, A, gx, gy, gz);
-  voxelize_scatter_stream_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-      reinterpret_cast<const float4*>(feats), cell_anchor, anchor_idx3,
-      anchor_scene, anchor_valid, reinterpret_cast<float4*>(dense), occ,
-      (unsigned)n, (unsigned)cq, A, gx, gy, gz);
+  voxelize_scatter_stream_kernel<V, O><<<blocks_for(n), kThreads, 0, s>>>(
+      feats, cell_anchor, anchor_idx3, anchor_scene, anchor_valid, dense,
+      occ, (unsigned)n, (unsigned)cq, A, gx, gy, gz);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tdv_scatter_dense(const float* feats,
+                                 const long long* anchor_idx3,
+                                 const long long* anchor_scene,
+                                 const uint8_t* anchor_valid, float* dense,
+                                 float* occ, int* cell_anchor, int A, int C,
+                                 int n_scenes, int gx, int gy, int gz,
+                                 void* stream) {
+  return scatter_dense(reinterpret_cast<const float4*>(feats), anchor_idx3,
+                       anchor_scene, anchor_valid,
+                       reinterpret_cast<float4*>(dense), occ, cell_anchor, A,
+                       C, n_scenes, gx, gy, gz, stream);
+}
+
+// bf16 anchor rows into a bf16 grid and occupancy
+extern "C" int tdv_scatter_dense_bf16(const void* feats,
+                                      const long long* anchor_idx3,
+                                      const long long* anchor_scene,
+                                      const uint8_t* anchor_valid,
+                                      void* dense, void* occ,
+                                      int* cell_anchor, int A, int C,
+                                      int n_scenes, int gx, int gy, int gz,
+                                      void* stream) {
+  return scatter_dense(static_cast<const uint2*>(feats), anchor_idx3,
+                       anchor_scene, anchor_valid, static_cast<uint2*>(dense),
+                       static_cast<unsigned short*>(occ), cell_anchor, A, C,
+                       n_scenes, gx, gy, gz, stream);
 }

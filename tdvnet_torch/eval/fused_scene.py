@@ -24,6 +24,11 @@ with the `trilinear_sample` kernel. The JAX class packs oct gather tables
 (`pack_scales`) because the TPU's gather costs per row; that is exact in
 real arithmetic and has no counterpart here.
 
+A bf16 model (`ModelConfig.dtype`) runs the parity path in bf16: the
+images, cameras, depths and the fetched result stay fp32, the features and
+scene tables bf16 (see `models/threedvnet.py`); the fast path in bf16
+raises (ROADMAP.md queue 1 item 2c).
+
 Fast path (`fast_path=True`, the JAX class's op mix): iteration 2 runs one
 fine offset pass (`FAST_OFFSETS`); per iteration the U-Net scales merge
 into one fine lattice (`combine_scales`), which is projected onto the top
@@ -42,7 +47,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from tdvnet_torch.config import Config, GridConfig, set_fp32_numerics
+from tdvnet_torch.config import (Config, GridConfig, check_bf16_fast_path,
+                                 set_fp32_numerics)
 from tdvnet_torch.data.batch import FrameBatch
 from tdvnet_torch.models import hypothesis
 from tdvnet_torch.models.threedvnet import ThreeDVNet
@@ -67,6 +73,7 @@ class FusedSceneInference:
         self.cfg = cfg
         e = cfg.eval
         self.fast_path = e.fast_path if fast_path is None else fast_path
+        check_bf16_fast_path(model.cfg, self.fast_path)
         offsets = tuple(tuple(float(o) for o in off) for off in offsets_list)
         if self.fast_path and offsets == PARITY_OFFSETS:
             offsets = FAST_OFFSETS

@@ -11,7 +11,8 @@ reached through a `torch.autograd.Function` when autograd records the
 call; on CUDA tensors every other wrapper (the fast path's, 3D
 evaluation's, voxelization, the probes) raises `NotImplementedError` when an
 input requires grad, since its launch returns a tensor without a
-`grad_fn`.
+`grad_fn`. Six forwards have a bf16 form for bf16 inference (`BF16_FORMS`),
+which their wrapper launches for bf16 inputs; any other dtype raises.
 """
 from tdvnet_torch.kernels.fusion import consistency_fuse
 from tdvnet_torch.kernels.groupnorm import (masked_group_norm,
@@ -64,10 +65,30 @@ WRAPPERS = {
 }
 
 
+# the bf16 forms (bf16 inference): each counts its launches in its
+# wrapper's `bf16_launches` (the fp32 form's stay in `launches`)
+BF16_FORMS = {
+    "source_variance_bf16": source_variance,
+    "trilinear_sample_bf16": trilinear_sample,
+    "scatter_anchors_to_dense_bf16": scatter_anchors_to_dense,
+    "segment_max_bf16": segment_max,
+    "gather_concat_bf16": gather_concat,
+    "masked_group_norm_bf16": masked_group_norm,
+}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in BF16_FORMS.values():
+        fn.bf16_launches = 0
 
 
 def launch_counts() -> dict:
+    """Launches by wrapper since the last reset (fp32 forms)."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def bf16_launch_counts() -> dict:
+    """Launches by bf16 form since the last reset."""
+    return {name: fn.bf16_launches for name, fn in BF16_FORMS.items()}

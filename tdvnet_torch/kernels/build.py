@@ -73,6 +73,15 @@ SIGNATURES = {
     "tdv_trilinear_sample_backward": [_P] * 7 + [_I, _L, _I, _I, _I, _I, _F,
                                                  _P],
 }
+# the bf16 forms take the fp32 entry points' arguments (the variance's
+# `half_out` flag where the fp32 form has its mean pointer)
+SIGNATURES.update({
+    "tdv_source_variance_bf16": [_P] * 6 + [_I, _I, _L, _I, _I, _I, _I, _F,
+                                            _F, _P],
+    **{name + "_bf16": SIGNATURES[name] for name in (
+        "tdv_trilinear_sample", "tdv_scatter_dense", "tdv_segment_max",
+        "tdv_gather_concat", "tdv_masked_group_norm")},
+})
 
 
 class BuildError(RuntimeError):

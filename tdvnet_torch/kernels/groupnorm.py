@@ -15,6 +15,14 @@ PyTorch twins; the wrappers run them only for CPU tensors. When autograd
 records a call (grad mode on and an input requiring grad), it goes through
 `MaskedGroupNormFn`, which keeps the forward's statistics, bias and output
 for `masked_group_norm_backward`.
+
+A bf16 x (with its bf16 mask and skip; inference only) goes to the
+forward's bf16 form: the same float64 statistics of the bf16 values, then
+the tail in fp32 arithmetic rounded to bf16 where the JAX package's
+separate bf16 ops store: the normalised x, its product with the bf16
+weight, the sum with the bf16 bias, and the residual add (the twin does
+the same in torch's bf16 ops, which round each result). Its launches count
+in `masked_group_norm.bf16_launches`.
 """
 from __future__ import annotations
 
@@ -77,7 +85,9 @@ def masked_group_norm_ref(x: torch.Tensor, mask: torch.Tensor,
     per (batch, group) over the active sites and the group's channels: the
     count is that of the batch element's own mask times C/G. The result is
     y = (normalized * weight + bias) * mask, then `relu(y) * mask` with
-    `relu`, or `relu(y + skip) * mask` with a `skip` of x's shape.
+    `relu`, or `relu(y + skip) * mask` with a `skip` of x's shape. The
+    normalized x, the weight, the bias and the mask take x's dtype, so a
+    bf16 x rounds each of those ops to bf16, as the JAX package's do.
     """
     B, C = x.shape[:2]
     xg, mean, var, _ = _group_stats(x, mask, num_groups)
@@ -86,7 +96,8 @@ def masked_group_norm_ref(x: torch.Tensor, mask: torch.Tensor,
         * rstd.to(xg.dtype)[..., None, None]
     xn = xn.reshape(x.shape).to(x.dtype)
     shape = (1, C) + (1,) * (x.dim() - 2)
-    y = (xn * weight.reshape(shape) + bias.reshape(shape)) * mask
+    y = (xn * weight.reshape(shape).to(x.dtype)
+         + bias.reshape(shape).to(x.dtype)) * mask.to(x.dtype)
     if skip is not None:
         return F.relu(y + skip) * mask
     return F.relu(y) * mask if relu else y
@@ -181,12 +192,14 @@ def _masked_group_norm(x, mask, num_groups, weight, bias, eps, relu, skip):
     V = 1
     for d in dims:
         V *= d
-    check(x, "x", torch.float32)
-    check(mask, "mask", torch.float32, (B, 1, *dims))
+    half = x.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if half else torch.float32
+    check(x, "x", dtype)
+    check(mask, "mask", dtype, (B, 1, *dims))
     check(weight, "weight", torch.float32, (C,))
     check(bias, "bias", torch.float32, (C,))
     if skip is not None:
-        check(skip, "skip", torch.float32, tuple(x.shape))
+        check(skip, "skip", dtype, tuple(x.shape))
     dev = x.device
     out = torch.empty_like(x)
     vb, cc = stats_blocks(B, C, G, V, _sm_count(dev))
@@ -194,12 +207,15 @@ def _masked_group_norm(x, mask, num_groups, weight, bias, eps, relu, skip):
     partial, tickets = _scratch(dev, B * G * n_blk * 3, B * G)
     stats = torch.empty((B * G, 4), dtype=torch.float32, device=dev)
     mode = 2 if skip is not None else int(relu)
-    launch("tdv_masked_group_norm", dev, x.data_ptr(), mask.data_ptr(),
-           weight.data_ptr(), bias.data_ptr(),
-           skip.data_ptr() if skip is not None else None, out.data_ptr(),
-           partial, tickets, stats.data_ptr(), B, C, G, V, float(eps), mode,
-           vb, cc)
-    masked_group_norm.launches += 1
+    launch("tdv_masked_group_norm_bf16" if half else "tdv_masked_group_norm",
+           dev, x.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+           bias.data_ptr(), skip.data_ptr() if skip is not None else None,
+           out.data_ptr(), partial, tickets, stats.data_ptr(), B, C, G, V,
+           float(eps), mode, vb, cc)
+    if half:
+        masked_group_norm.bf16_launches += 1
+    else:
+        masked_group_norm.launches += 1
     return out, stats
 
 
@@ -246,6 +262,7 @@ def masked_group_norm(x: torch.Tensor, mask: torch.Tensor, num_groups: int,
 
 
 masked_group_norm.launches = 0
+masked_group_norm.bf16_launches = 0
 
 
 def masked_group_norm_backward(grad: torch.Tensor, x: torch.Tensor,

@@ -12,6 +12,13 @@ only for CPU tensors.
 When autograd records a pool or a concat-back (grad mode on and an input
 requiring grad), it goes through `SegmentMaxFn` or `GatherConcatFn`, whose
 backwards are `segment_max_backward` and `gather_concat_backward`.
+
+bf16 rows (inference only) go to the pool's and the concat-back's bf16
+forms: a max and a copy are exact in any type, so these are bit-equal to
+the JAX package's bf16 ops and to an fp32 run of the same values followed
+by a cast (the empty-segment threshold NEG / 2 taken in bf16, as there).
+Their launches count in `segment_max.bf16_launches` and
+`gather_concat.bf16_launches`.
 """
 from __future__ import annotations
 
@@ -161,10 +168,10 @@ def gather_concat_backward_ref(grad: torch.Tensor, y: torch.Tensor,
     return gy, torch.zeros_like(pooled).index_add_(0, seg, gp)
 
 
-def _check_rows(y, seg, P, C, name):
+def _check_rows(y, seg, P, C, name, half=False):
     if C % 4:
         raise ValueError(f"{name}: C={C} must be a multiple of 4")
-    check(y, "y", torch.float32, (P, C))
+    check(y, "y", torch.bfloat16 if half else torch.float32, (P, C))
     check(seg, "seg", torch.int64, (P,))
 
 
@@ -257,7 +264,8 @@ def _long_scratch(dev, n_rows, C):
 
 def _segment_max(y, seg, valid, n_seg, plan):
     P, C = y.shape
-    _check_rows(y, seg, P, C, "segment_max")
+    half = y.dtype == torch.bfloat16
+    _check_rows(y, seg, P, C, "segment_max", half)
     check(valid, "valid", torch.bool, (P,))
     if C > 12288:
         raise ValueError(f"segment_max: C={C} is more than the long path's "
@@ -270,15 +278,18 @@ def _segment_max(y, seg, valid, n_seg, plan):
     check(plan.rows, "plan.rows", torch.int32, (P,))
     check(plan.longs, "plan.longs", torch.int32, (1 + cap,))
     check(plan.first, "plan.first", torch.int32, (n_work + 1,))
-    out = torch.empty((n_seg, C), dtype=torch.float32, device=y.device)
+    out = torch.empty((n_seg, C), dtype=y.dtype, device=y.device)
     n_long_blocks = LONG_BLOCKS if P > SEGMENT_LONG else 0
     acc, tickets = _long_scratch(y.device, cap, C) if n_long_blocks \
         else (0, 0)
-    launch("tdv_segment_max", y.device, y.data_ptr(),
-           plan.offsets.data_ptr(), plan.rows.data_ptr(),
+    launch("tdv_segment_max_bf16" if half else "tdv_segment_max", y.device,
+           y.data_ptr(), plan.offsets.data_ptr(), plan.rows.data_ptr(),
            plan.longs.data_ptr(), plan.first.data_ptr(), acc, tickets,
            out.data_ptr(), C, n_seg, n_work, n_long_blocks)
-    segment_max.launches += 1
+    if half:
+        segment_max.bf16_launches += 1
+    else:
+        segment_max.launches += 1
     return out
 
 
@@ -310,6 +321,7 @@ def segment_max(y: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
 
 
 segment_max.launches = 0
+segment_max.bf16_launches = 0
 
 
 def segment_max_backward(grad: torch.Tensor, y: torch.Tensor,
@@ -339,13 +351,18 @@ segment_max_backward.launches = 0
 
 def _gather_concat(y, pooled, seg, relu):
     P, C = y.shape
-    _check_rows(y, seg, P, C, "gather_concat")
+    half = y.dtype == torch.bfloat16
+    _check_rows(y, seg, P, C, "gather_concat", half)
     n_seg = pooled.shape[0]
-    check(pooled, "pooled", torch.float32, (n_seg, C))
-    out = torch.empty((P, 2 * C), dtype=torch.float32, device=y.device)
-    launch("tdv_gather_concat", y.device, y.data_ptr(), pooled.data_ptr(),
-           seg.data_ptr(), out.data_ptr(), P, C, n_seg, int(relu))
-    gather_concat.launches += 1
+    check(pooled, "pooled", y.dtype, (n_seg, C))
+    out = torch.empty((P, 2 * C), dtype=y.dtype, device=y.device)
+    launch("tdv_gather_concat_bf16" if half else "tdv_gather_concat",
+           y.device, y.data_ptr(), pooled.data_ptr(), seg.data_ptr(),
+           out.data_ptr(), P, C, n_seg, int(relu))
+    if half:
+        gather_concat.bf16_launches += 1
+    else:
+        gather_concat.launches += 1
     return out
 
 
@@ -377,6 +394,7 @@ def gather_concat(y: torch.Tensor, pooled: torch.Tensor, seg: torch.Tensor,
 
 
 gather_concat.launches = 0
+gather_concat.bf16_launches = 0
 
 
 def gather_concat_backward(grad: torch.Tensor, y: torch.Tensor,

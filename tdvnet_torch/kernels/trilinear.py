@@ -27,6 +27,12 @@ add zero channels (`_launch.pad_channels`) to the incoming gradient, or to
 the int8 grid and its scales (sampled into a whole-group scratch copied
 into the slice), and slice the real channels out; every channel's sum is
 its own, so those are exact.
+
+A bf16 grid (inference only) goes to the forward's bf16 form: it reads the
+bf16 taps, sums in fp32 in the fp32 form's order and rounds once to bf16
+into a bf16 output's channel slice (the JAX package sums in bf16: each
+product and partial sum rounded, up to ~180 bf16 ulps off where taps
+cancel). Its launches count in `trilinear_sample.bf16_launches`.
 """
 from __future__ import annotations
 
@@ -59,9 +65,10 @@ def trilinear_sample_ref(grid: torch.Tensor, pts: torch.Tensor,
     """grid [B, X, Y, Z, C]; pts [B, Q, 3] world points; center0 [B, 3] the
     world position of node 0; cell the node spacing in meters. Returns
     [B, Q, C]: trilinear samples at node coords (pts - center0) / cell, zero
-    outside the grid."""
-    return trilinear_sample_batched(grid, _node_coords(pts, center0, cell,
-                                                       0.0))
+    outside the grid; a bf16 grid is summed in fp32 and rounded once."""
+    out = trilinear_sample_batched(grid, _node_coords(pts, center0, cell,
+                                                      0.0))
+    return out.to(grid.dtype)
 
 
 def trilinear_sample_backward_ref(grad: torch.Tensor, pts: torch.Tensor,
@@ -127,9 +134,10 @@ def trilinear_sample(grid: torch.Tensor, pts: torch.Tensor,
                      center0: torch.Tensor, cell: float, out: torch.Tensor,
                      ch_off: int) -> torch.Tensor:
     """Write `trilinear_sample_ref(grid, pts, center0, cell)` into channels
-    [ch_off, ch_off + C) of `out` [B, Q, Ctot] fp32 and return `out`. On the
-    card the in-place write carries no gradient: a grid that requires grad
-    raises (`trilinear_sample_scale` differentiates)."""
+    [ch_off, ch_off + C) of `out` [B, Q, Ctot] (fp32, or bf16 for a bf16
+    grid) and return `out`. On the card the in-place write carries no
+    gradient: a grid that requires grad raises (`trilinear_sample_scale`
+    differentiates)."""
     if on_cpu(grid, pts, center0, out):
         C = grid.shape[-1]
         out[..., ch_off:ch_off + C] = trilinear_sample_ref(grid, pts, center0,
@@ -147,18 +155,27 @@ def _trilinear_sample(grid, pts, center0, cell, out, ch_off):
     if B * X * Y * Z >= 2 ** 31:
         raise ValueError(f"trilinear_sample: {B} grids of {X}x{Y}x{Z} nodes "
                          f"are outside the kernel's int32 cell indices")
-    check(grid, "grid", torch.float32, (B, X, Y, Z, C))
+    half = grid.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if half else torch.float32
+    check(grid, "grid", dtype, (B, X, Y, Z, C))
     check(pts, "pts", torch.float32, (B, Q, 3))
     check(center0, "center0", torch.float32, (B, 3))
-    check(out, "out", torch.float32, (B, Q, Ctot))
-    launch("tdv_trilinear_sample", grid.device, grid.data_ptr(),
-           pts.data_ptr(), center0.data_ptr(), out.data_ptr(), B, Q, X, Y, Z,
-           C, float(cell), Ctot, ch_off)
-    trilinear_sample.launches += 1
+    check(out, "out", dtype, (B, Q, Ctot))
+    if half and (grid.data_ptr() % 8 or out.data_ptr() % 8):
+        raise ValueError("trilinear_sample: a bf16 grid and output must "
+                         "start on 8 bytes")
+    launch("tdv_trilinear_sample_bf16" if half else "tdv_trilinear_sample",
+           grid.device, grid.data_ptr(), pts.data_ptr(), center0.data_ptr(),
+           out.data_ptr(), B, Q, X, Y, Z, C, float(cell), Ctot, ch_off)
+    if half:
+        trilinear_sample.bf16_launches += 1
+    else:
+        trilinear_sample.launches += 1
     return out
 
 
 trilinear_sample.launches = 0
+trilinear_sample.bf16_launches = 0
 
 
 class TrilinearSampleFn(torch.autograd.Function):

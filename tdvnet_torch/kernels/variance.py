@@ -17,6 +17,14 @@ the inputs' largest magnitudes and the count of terms, which zeros do not
 change. (A form with one channel a thread ran 2.8x slower than padding at
 the cost volume with 30 channels: its lanes no longer share a point's
 projections; PERF.md, section 6.)
+
+bf16 features (inference only): the kernel's bf16 form reads the bf16
+taps, interpolates and sums in fp32, and rounds each source's sample to
+bf16 once, where the JAX package stores a bf16 sample (its bilinear
+interpolation runs in the table's dtype); the variance is fp32, or rounded
+once to bf16 as it is written (`out_dtype`), which is the JAX package's
+cast of the fp32 variance before CostRegNet, bit for bit. Its launches
+count in `source_variance.bf16_launches`, the fp32 form's in `launches`.
 """
 from __future__ import annotations
 
@@ -45,12 +53,14 @@ def _source_xy(pts_world, P_all, idx, scale):
 def source_variance_ref(pts_world: torch.Tensor, feats: torch.Tensor,
                         src_idx: torch.Tensor, src_mask: torch.Tensor,
                         P_all: torch.Tensor, img_size: Tuple[int, int],
-                        with_mean: bool = False):
+                        with_mean: bool = False, out_dtype=None):
     """pts_world [R, P, 3]; feats [N, Hf, Wf, C]; src_idx/src_mask [R, S];
     P_all [N, 3, 4] (full-image pixel units). Returns var [R, P, C] fp32:
     E[f^2] - E[f]^2 over the real sources, with cnt = max(sum(mask), 1);
     with `with_mean`, (var, mean) as the JAX package's `_source_variance`
-    returns them."""
+    returns them. bf16 features are sampled in fp32 and each sample is
+    rounded to bf16 once; `out_dtype` (None: the working type, fp32 or
+    float64) is the variance's."""
     R, P, _ = pts_world.shape
     S = src_idx.shape[1]
     C = feats.shape[-1]
@@ -64,11 +74,15 @@ def source_variance_ref(pts_world: torch.Tensor, feats: torch.Tensor,
         idx = src_idx[:, s]
         f = bilinear_sample_batched(feats[idx],
                                     _source_xy(pts_world, P_all, idx, scale))
+        if feats.dtype == torch.bfloat16:
+            f = f.to(torch.bfloat16).float()
         m = mask[:, s, None, None]
         acc = acc + f * m
         acc_sq = acc_sq + f * f * m
     mean = acc / cnt
     var = acc_sq / cnt - mean * mean
+    if out_dtype is not None:
+        var = var.to(out_dtype)
     return (var, mean) if with_mean else var
 
 
@@ -116,12 +130,13 @@ def source_variance_backward_ref(grad: torch.Tensor, mean: torch.Tensor,
     return out.reshape(N, Hf, Wf, C)
 
 
-def _check_args(pts_world, feats, src_idx, src_mask, P_all, name):
+def _check_args(pts_world, feats, src_idx, src_mask, P_all, name,
+                feats_dtype=torch.float32):
     R, P, _ = pts_world.shape
     N, Hf, Wf, C = feats.shape
     S = src_idx.shape[1]
     check(pts_world, "pts_world", torch.float32, (R, P, 3))
-    check(feats, "feats", torch.float32, (N, Hf, Wf, C))
+    check(feats, "feats", feats_dtype, (N, Hf, Wf, C))
     check(src_idx, "src_idx", torch.int64, (R, S))
     check(P_all, "P_all", torch.float32, (N, 3, 4))
     check(src_mask, "src_mask", src_mask.dtype, (R, S), contiguous=False)
@@ -129,22 +144,40 @@ def _check_args(pts_world, feats, src_idx, src_mask, P_all, name):
 
 
 def _source_variance(pts_world, feats, src_idx, src_mask, P_all, img_size,
-                     with_mean):
+                     with_mean, out_dtype=None):
     if on_cpu(pts_world, feats, src_idx, src_mask, P_all):
         return source_variance_ref(pts_world, feats, src_idx, src_mask,
-                                   P_all, img_size, with_mean)
+                                   P_all, img_size, with_mean, out_dtype)
     C = feats.shape[-1]
     if C % 4:
         got = _source_variance(pts_world, pad_channels(feats, quad(C)),
-                               src_idx, src_mask, P_all, img_size, with_mean)
+                               src_idx, src_mask, P_all, img_size, with_mean,
+                               out_dtype)
         if with_mean:
             return tuple(x[..., :C].contiguous() for x in got)
         return got[..., :C].contiguous()
-    R, P, S, N, Hf, Wf, C = _check_args(pts_world, feats, src_idx, src_mask,
-                                        P_all, "source_variance")
+    half = feats.dtype == torch.bfloat16
+    out_dtype = out_dtype or torch.float32
+    if out_dtype not in ((torch.float32, torch.bfloat16) if half
+                         else (torch.float32,)):
+        raise TypeError(f"source_variance: no {out_dtype} variance from "
+                        f"{feats.dtype} features")
+    if half and with_mean:
+        raise NotImplementedError("source_variance: the bf16 form has no "
+                                  "backward (inference only)")
+    R, P, S, N, Hf, Wf, C = _check_args(
+        pts_world, feats, src_idx, src_mask, P_all, "source_variance",
+        torch.bfloat16 if half else torch.float32)
     src_w = src_mask.to(torch.float32).contiguous()
     sx, sy = _feature_scale(feats, img_size)
-    out = torch.empty((R, P, C), dtype=torch.float32, device=feats.device)
+    out = torch.empty((R, P, C), dtype=out_dtype, device=feats.device)
+    if half:
+        launch("tdv_source_variance_bf16", feats.device, feats.data_ptr(),
+               pts_world.data_ptr(), src_idx.data_ptr(), src_w.data_ptr(),
+               P_all.data_ptr(), out.data_ptr(),
+               int(out_dtype == torch.bfloat16), R, P, S, Hf, Wf, C, sx, sy)
+        source_variance.bf16_launches += 1
+        return out
     mean = torch.empty_like(out) if with_mean else None
     launch("tdv_source_variance", feats.device, feats.data_ptr(),
            pts_world.data_ptr(), src_idx.data_ptr(), src_w.data_ptr(),
@@ -180,7 +213,7 @@ class SourceVarianceFn(torch.autograd.Function):
 def source_variance(pts_world: torch.Tensor, feats: torch.Tensor,
                     src_idx: torch.Tensor, src_mask: torch.Tensor,
                     P_all: torch.Tensor, img_size: Tuple[int, int],
-                    plane: Tuple[int, int]) -> torch.Tensor:
+                    plane: Tuple[int, int], out_dtype=None) -> torch.Tensor:
     """Same contract as `source_variance_ref`; launches the CUDA kernel for
     CUDA tensors. Differentiable in `feats` only: the JAX package stops the
     gradient of every point set it samples at, so a call where the points
@@ -189,7 +222,8 @@ def source_variance(pts_world: torch.Tensor, feats: torch.Tensor,
     plane-sweep volume's depths, or the hypotheses over a depth map; (1, P)
     for points in no such order): the backward
     kernel tiles them by pixels and neighbouring planes, whose taps crowd
-    together."""
+    together. `out_dtype`: the variance's dtype (None: fp32, or the twin's
+    float64; bf16 features may ask for bf16)."""
     if wants_grad(pts_world, P_all):
         raise NotImplementedError(
             "source_variance: no gradient with respect to the points or the "
@@ -198,10 +232,11 @@ def source_variance(pts_world: torch.Tensor, feats: torch.Tensor,
         return SourceVarianceFn.apply(pts_world, feats, src_idx, src_mask,
                                       P_all, img_size, plane)
     return _source_variance(pts_world, feats, src_idx, src_mask, P_all,
-                            img_size, False)
+                            img_size, False, out_dtype)
 
 
 source_variance.launches = 0
+source_variance.bf16_launches = 0
 
 
 def source_variance_backward(grad: torch.Tensor, mean: torch.Tensor,

@@ -23,6 +23,11 @@ the keys, and so also returns the sorted view (`order`, `p2a_sorted`). The
 kernel ranks the occupied cells of the grid with a prefix sum and sorts
 nothing: on the card those two fields are None and points keep their input
 order.
+
+bf16 anchor rows (inference only) go to the scatter's bf16 form, which
+writes a bf16 grid and a bf16 occupancy (the JAX package's `segment_sum` in
+the features' dtype): a copy, bit-equal to the JAX package's. Its launches
+count in `scatter_anchors_to_dense.bf16_launches`.
 """
 from __future__ import annotations
 
@@ -252,7 +257,9 @@ def _scatter_dense(anchor_feats, vg, grid_size, n_scenes):
         dense, occ = _scatter_dense(pad_channels(anchor_feats, quad(C)), vg,
                                     grid_size, n_scenes)
         return dense[..., :C].contiguous(), occ
-    check(anchor_feats, "anchor_feats", torch.float32, (A, C))
+    half = anchor_feats.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if half else torch.float32
+    check(anchor_feats, "anchor_feats", dtype, (A, C))
     _check_anchor_table(vg, A)
     dev = anchor_feats.device
     n_all = n_scenes * gx * gy * gz
@@ -263,16 +270,18 @@ def _scatter_dense(anchor_feats, vg, grid_size, n_scenes):
     # the kernel writes every element of both outputs once; its cell map is
     # never filled. Three allocations and no views: the host path is most
     # of this call's time at the per-scene shape
-    dense = torch.empty((n_scenes, gx, gy, gz, C), dtype=torch.float32,
-                        device=dev)
-    occ = torch.empty((n_scenes, gx, gy, gz, 1), dtype=torch.float32,
-                      device=dev)
+    dense = torch.empty((n_scenes, gx, gy, gz, C), dtype=dtype, device=dev)
+    occ = torch.empty((n_scenes, gx, gy, gz, 1), dtype=dtype, device=dev)
     cell_anchor = torch.empty((n_all,), dtype=torch.int32, device=dev)
-    launch("tdv_scatter_dense", dev, anchor_feats.data_ptr(),
-           vg.anchor_idx3.data_ptr(), vg.anchor_scene.data_ptr(),
-           vg.anchor_valid.data_ptr(), dense.data_ptr(), occ.data_ptr(),
-           cell_anchor.data_ptr(), A, C, n_scenes, gx, gy, gz)
-    scatter_anchors_to_dense.launches += 1
+    launch("tdv_scatter_dense_bf16" if half else "tdv_scatter_dense", dev,
+           anchor_feats.data_ptr(), vg.anchor_idx3.data_ptr(),
+           vg.anchor_scene.data_ptr(), vg.anchor_valid.data_ptr(),
+           dense.data_ptr(), occ.data_ptr(), cell_anchor.data_ptr(), A, C,
+           n_scenes, gx, gy, gz)
+    if half:
+        scatter_anchors_to_dense.bf16_launches += 1
+    else:
+        scatter_anchors_to_dense.launches += 1
     return dense, occ
 
 
@@ -320,6 +329,7 @@ def scatter_anchors_to_dense(anchor_feats: torch.Tensor, vg: VoxelGrid,
 
 
 scatter_anchors_to_dense.launches = 0
+scatter_anchors_to_dense.bf16_launches = 0
 
 
 def scatter_anchors_to_dense_backward(grad_dense: torch.Tensor,

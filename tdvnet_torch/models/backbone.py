@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tdvnet_torch.models.layers import batch_norm
+from tdvnet_torch.models.layers import Conv2d, batch_norm
 
 
 class _MBConv(nn.Module):
@@ -18,12 +18,12 @@ class _MBConv(nn.Module):
                  stride: int, kernel: int):
         super().__init__()
         mid = in_ch * expansion
-        self.Conv_0 = nn.Conv2d(in_ch, mid, 1, bias=False)
+        self.Conv_0 = Conv2d(in_ch, mid, 1, bias=False)
         self.BatchNorm_0 = batch_norm(2, mid)
-        self.Conv_1 = nn.Conv2d(mid, mid, kernel, stride=stride,
+        self.Conv_1 = Conv2d(mid, mid, kernel, stride=stride,
                                 padding=kernel // 2, groups=mid, bias=False)
         self.BatchNorm_1 = batch_norm(2, mid)
-        self.Conv_2 = nn.Conv2d(mid, features, 1, bias=False)
+        self.Conv_2 = Conv2d(mid, features, 1, bias=False)
         self.BatchNorm_2 = batch_norm(2, features)
         self.residual = stride == 1 and in_ch == features
 
@@ -61,11 +61,11 @@ class MnasMulti(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(3, 32, 3, stride=2, padding=1, bias=False)
+        self.Conv_0 = Conv2d(3, 32, 3, stride=2, padding=1, bias=False)
         self.BatchNorm_0 = batch_norm(2, 32)
-        self.Conv_1 = nn.Conv2d(32, 32, 3, padding=1, groups=32, bias=False)
+        self.Conv_1 = Conv2d(32, 32, 3, padding=1, groups=32, bias=False)
         self.BatchNorm_1 = batch_norm(2, 32)
-        self.Conv_2 = nn.Conv2d(32, 16, 1, bias=False)
+        self.Conv_2 = Conv2d(32, 16, 1, bias=False)
         self.BatchNorm_2 = batch_norm(2, 16)
         in_ch = 16
         for i, (f, e, s, k, n) in enumerate(_STACKS):

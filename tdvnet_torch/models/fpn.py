@@ -7,6 +7,7 @@ from typing import Sequence
 
 import torch.nn as nn
 
+from tdvnet_torch.models.layers import Conv2d
 from tdvnet_torch.ops.sampling import resize_nearest
 
 BACKBONE_CHANNELS = (16, 24, 40, 96, 320)
@@ -18,8 +19,8 @@ class FPN(nn.Module):
         super().__init__()
         self.n = len(in_channels)
         for i, c in enumerate(in_channels):
-            setattr(self, f"lateral{i}", nn.Conv2d(c, feat_dim, 1))
-            setattr(self, f"smooth{i}", nn.Conv2d(feat_dim, feat_dim, 3,
+            setattr(self, f"lateral{i}", Conv2d(c, feat_dim, 1))
+            setattr(self, f"smooth{i}", Conv2d(feat_dim, feat_dim, 3,
                                                   padding=1))
 
     def forward(self, feats):

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from tdvnet_torch.kernels import trilinear_sample, trilinear_sample_i8
 from tdvnet_torch.kernels.trilinear import trilinear_sample_scale
-from tdvnet_torch.models.layers import batch_norm
+from tdvnet_torch.models.layers import Conv1d, batch_norm
 from tdvnet_torch.ops.sampling import upsample_linear_zeropad
 
 # The JAX package's byte budget for the fast path's packed tables: a merged
@@ -105,8 +105,8 @@ def sample_scales(scales, pts: torch.Tensor, origins: torch.Tensor,
     points grouped per scene; origins [B, 3]. Node i of a stride-s scale
     sits at origin + edge/2 + s*(i - o)*edge. Returns [B, Q, sum C] with
     the finest scale first, in bf16 when every grid is int8 (as the JAX
-    package samples its int8 tables), else fp32; each scale's kernel launch
-    writes its own channel slice. When autograd records a grid (training),
+    package samples its int8 tables) or bf16 (a bf16 model), else fp32;
+    each scale's kernel launch writes its own channel slice. When autograd records a grid (training),
     each scale returns its own samples and the scales are concatenated: an
     in-place write would drop the grids' gradients.
     """
@@ -125,7 +125,9 @@ def sample_scales(scales, pts: torch.Tensor, origins: torch.Tensor,
             for sc in fine_first], dim=-1)
     n_ch = sum(sc["grid"].shape[-1] for sc in scales)
     int8 = [sc["grid"].dtype == torch.int8 for sc in fine_first]
-    dtype = torch.bfloat16 if all(int8) else torch.float32
+    half = all(i8 or sc["grid"].dtype == torch.bfloat16
+               for sc, i8 in zip(fine_first, int8))
+    dtype = torch.bfloat16 if half else torch.float32
     out = torch.empty((B, Q, n_ch), dtype=dtype, device=pts.device)
     pts = pts.contiguous()
     off = 0
@@ -192,7 +194,7 @@ def projected_decoder(decoder: "HypothesisDecoder", n_var: int, rank: int):
     V, weight, tail = decoder_scene_projection(decoder, n_var, rank)
     conv = decoder.Conv_0
     new = copy.deepcopy(decoder)
-    new.Conv_0 = nn.Conv1d(weight.shape[1], weight.shape[0],
+    new.Conv_0 = Conv1d(weight.shape[1], weight.shape[0],
                            conv.kernel_size, padding=conv.padding, bias=False)
     with torch.no_grad():
         new.Conv_0.weight.copy_(weight)
@@ -203,13 +205,13 @@ class HypothesisDecoder(nn.Module):
     def __init__(self, in_ch: int, hidden: int = 128, ksize: int = 3):
         super().__init__()
         p = ksize // 2    # SAME for an odd kernel at stride 1
-        self.Conv_0 = nn.Conv1d(in_ch, hidden, ksize, padding=p, bias=False)
+        self.Conv_0 = Conv1d(in_ch, hidden, ksize, padding=p, bias=False)
         self.BatchNorm_0 = batch_norm(1, hidden)
-        self.Conv_1 = nn.Conv1d(hidden, hidden, ksize, padding=p, bias=False)
+        self.Conv_1 = Conv1d(hidden, hidden, ksize, padding=p, bias=False)
         self.BatchNorm_1 = batch_norm(1, hidden)
-        self.Conv_2 = nn.Conv1d(hidden, hidden, ksize, padding=p, bias=False)
+        self.Conv_2 = Conv1d(hidden, hidden, ksize, padding=p, bias=False)
         self.BatchNorm_2 = batch_norm(1, hidden)
-        self.Conv_3 = nn.Conv1d(hidden, 1, ksize, padding=p)
+        self.Conv_3 = Conv1d(hidden, 1, ksize, padding=p)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         """feats [M, n_hyp, C] -> softmax scores [M, n_hyp]."""

@@ -3,10 +3,19 @@ training rules and masked GroupNorm (port of `tdvnet/models/layers.py`).
 
 Submodule names mirror the flax parameter tree (`Conv_0`, `BatchNorm_0`,
 ...), so each checkpoint key maps one to one onto a state-dict key.
+
+The compute dtype: the convolutions and linear layers here (`Conv1d`,
+`Conv2d`, `Conv3d`, `Linear`, the up-conv) compute in their
+`compute_dtype` once `set_compute_dtype` has set it (bf16 inference), their
+input and their fp32 parameters cast at use, as flax's `dtype` with an fp32
+`param_dtype` does; None, the default, leaves each as torch's (fp32, or
+float64 in a float64 reference run). torch's BatchNorm in eval mode takes a
+bf16 input with its fp32 parameters and statistics, computes in fp32 and
+rounds once, as flax's BatchNorm(dtype=bf16) does.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -14,7 +23,52 @@ import torch.nn.functional as F
 
 from tdvnet_torch.kernels.groupnorm import masked_group_norm
 
-_CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
+
+class _Cast:
+    """A layer with a compute dtype (None: torch's own behaviour)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def cast(self, x):
+        """(x, weight, bias) in the compute dtype, or as they are."""
+        dt = self.compute_dtype
+        if dt is None:
+            return x, self.weight, self.bias
+        b = self.bias
+        return (x.to(dt), self.weight.to(dt),
+                None if b is None else b.to(dt))
+
+
+class Conv1d(_Cast, nn.Conv1d):
+    def forward(self, x):
+        return self._conv_forward(*self.cast(x))
+
+
+class Conv2d(_Cast, nn.Conv2d):
+    def forward(self, x):
+        return self._conv_forward(*self.cast(x))
+
+
+class Conv3d(_Cast, nn.Conv3d):
+    def forward(self, x):
+        return self._conv_forward(*self.cast(x))
+
+
+class Linear(_Cast, nn.Linear):
+    def forward(self, x):
+        return F.linear(*self.cast(x))
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Every layer of `module` that has a compute dtype computes in `dtype`
+    (fp32: torch's own behaviour)."""
+    dt = None if dtype == torch.float32 else dtype
+    for m in module.modules():
+        if isinstance(m, _Cast):
+            m.compute_dtype = dt
+
+
+_CONV = {1: Conv1d, 2: Conv2d, 3: Conv3d}
 
 
 class _FlaxBatchNorm:
@@ -150,7 +204,7 @@ class _UpConvFunction(torch.autograd.Function):
         return gx, gw
 
 
-class _RepeatableConvTranspose3d(nn.ConvTranspose3d):
+class _RepeatableConvTranspose3d(_Cast, nn.ConvTranspose3d):
     """The stride-2 up-conv with a forward that repeats bit for bit.
     cuDNN's default pick for the cost regularisation's last up-conv and the
     scene U-Net's sums in a run-dependent order: the initial depth then
@@ -164,7 +218,8 @@ class _RepeatableConvTranspose3d(nn.ConvTranspose3d):
     def forward(self, x, output_size=None):
         if output_size is not None:
             raise ValueError("the up-conv's output size is fixed: 2x")
-        return _UpConvFunction.apply(x, self.weight)
+        x, w, _ = self.cast(x)
+        return _UpConvFunction.apply(x, w)
 
 
 def up_conv3d(in_ch: int, features: int):

@@ -11,7 +11,7 @@ import torch.nn as nn
 from tdvnet_torch.kernels import softargmax_depth
 from tdvnet_torch.models.backbone import MnasMulti
 from tdvnet_torch.models.fpn import FPN
-from tdvnet_torch.models.layers import ConvBnRelu, ConvTransposeUp3d
+from tdvnet_torch.models.layers import Conv3d, ConvBnRelu, ConvTransposeUp3d
 from tdvnet_torch.ops import camera, costvolume
 
 
@@ -37,7 +37,7 @@ class CostRegNet(nn.Module):
         self.ConvTransposeUp3d_0 = ConvTransposeUp3d(8 * b, 4 * b)
         self.ConvTransposeUp3d_1 = ConvTransposeUp3d(4 * b, 2 * b)
         self.ConvTransposeUp3d_2 = ConvTransposeUp3d(2 * b, b)
-        self.Conv_0 = nn.Conv3d(b, 1, 3, padding=1)
+        self.Conv_0 = Conv3d(b, 1, 3, padding=1)
 
     def forward(self, x):
         conv0 = self.ConvBnRelu_0(x)
@@ -72,12 +72,17 @@ class MVSNet(nn.Module):
                       src_idx, src_mask, depth_start, depth_interval,
                       n_planes, depth_size) -> torch.Tensor:
         """Cost volume -> regularization -> soft-argmax. Returns depth
-        [R, h, w] (the probability volume is not kept)."""
+        [R, h, w] (the probability volume is not kept). bf16 features give
+        a bf16 cost volume (the variance rounded once, as the JAX package's
+        cast before CostRegNet) and a bf16 cost, which the soft-argmax
+        takes in fp32, as there."""
         var = costvolume.plane_sweep_cost_volume(
             feats_quarter, rotmats, tvecs, K, ref_idx, src_idx, src_mask,
             depth_start, depth_interval, n_planes, self.img_size, depth_size)
         # [R, D, h, w, C] -> [R, C, D, h, w] as a view (channels-last-3d)
         cost = self.cost_reg(var.permute(0, 4, 1, 2, 3))[:, 0]
+        if cost.dtype == torch.bfloat16:
+            cost = cost.float()
         depth_end = depth_start + depth_interval * (n_planes - 1)
         depth_vals = camera.linspace_f32(depth_start, depth_end, n_planes,
                                          cost.device)

@@ -15,18 +15,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tdvnet_torch.kernels import gather_concat, segment_max, segment_plan
+from tdvnet_torch.models.layers import Linear
 
 
 class PointNet(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int):
         super().__init__()
         h = hidden_dim
-        self.fc_pos = nn.Linear(in_dim, h)
-        self.fc1 = nn.Linear(h, h)
-        self.fc2 = nn.Linear(2 * h, h)
-        self.fc3 = nn.Linear(2 * h, h)
-        self.fc4 = nn.Linear(2 * h, h)
-        self.fc_out = nn.Linear(h, out_dim)
+        self.fc_pos = Linear(in_dim, h)
+        self.fc1 = Linear(h, h)
+        self.fc2 = Linear(2 * h, h)
+        self.fc3 = Linear(2 * h, h)
+        self.fc4 = Linear(2 * h, h)
+        self.fc_out = Linear(h, out_dim)
 
     def forward(self, x, point2anchor, point_valid, n_anchors: int):
         """x [P, in_dim]; point2anchor [P] in [0, n_anchors] (n_anchors =

@@ -15,8 +15,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tdvnet_torch.models.layers import (MaskedGroupNorm, downsample_mask,
-                                        same_pads, up_conv3d)
+from tdvnet_torch.models.layers import (Conv3d, MaskedGroupNorm,
+                                        downsample_mask, same_pads,
+                                        up_conv3d)
 
 
 class MaskedConv3d(nn.Module):
@@ -28,18 +29,18 @@ class MaskedConv3d(nn.Module):
                  kernel: int = 3, use_bias: bool = False):
         super().__init__()
         self.kernel, self.strides = kernel, strides
-        self.Conv_0 = nn.Conv3d(in_ch, features, kernel, stride=strides,
-                                bias=use_bias)
+        self.Conv_0 = Conv3d(in_ch, features, kernel, stride=strides,
+                             bias=use_bias)
 
     def forward(self, x, mask_out):
         k, s = self.kernel, self.strides
         pads = same_pads(x.shape[2:], (k,) * 3, (s,) * 3)
+        x, w, b = self.Conv_0.cast(x)
         if all(lo == hi for lo, hi in pads):
-            y = F.conv3d(x, self.Conv_0.weight, self.Conv_0.bias, s,
-                         tuple(lo for lo, _ in pads))
+            y = F.conv3d(x, w, b, s, tuple(lo for lo, _ in pads))
         else:
             x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
-            y = self.Conv_0(x)
+            y = F.conv3d(x, w, b, s)
         return y * mask_out
 
 

@@ -13,6 +13,14 @@ supervision with the masked MAE at every stage and a lambda weight on the
 refinement passes. Inference is `infer_stages` / `infer_depth`. Where the
 JAX package stops the gradient of a point set (the scene cloud's variance
 and voxelization, the hypothesis points), the port detaches it.
+
+`ModelConfig.dtype=torch.bfloat16` (inference only: `forward` refuses it)
+computes as the JAX package's bf16 model: the parameters stay fp32 and
+every convolution and linear layer casts its input and parameters to bf16
+at use (`layers.set_compute_dtype`); the features, the cost volume, the
+PointNet rows, the dense grid, the scene U-Net and the decoder are bf16;
+the point variance, the cameras, the points, the soft-argmax (K8b) and the
+propagation blend (K8a) take fp32, as there.
 """
 from __future__ import annotations
 
@@ -23,10 +31,11 @@ import torch
 import torch.nn as nn
 
 from tdvnet_torch.config import (DepthConfig, GridConfig, ModelConfig,
-                                 set_fp32_numerics)
+                                 check_fp32_training, set_fp32_numerics)
 from tdvnet_torch.data.batch import FrameBatch
 from tdvnet_torch.eval.metrics2d import calc_2d_depth_metrics, mae_loss
 from tdvnet_torch.models.hypothesis import HypothesisDecoder, sample_scales
+from tdvnet_torch.models.layers import set_compute_dtype
 from tdvnet_torch.models.mvsnet import MVSNet
 from tdvnet_torch.models.pointnet import PointNet
 from tdvnet_torch.models.scene_unet import SceneUNet
@@ -79,6 +88,7 @@ class ThreeDVNet(nn.Module):
         self.refine_quarter = PropagationNet(f, c.propagation_hidden)
         self.refine_half = PropagationNet(f, c.propagation_hidden)
         self.refine_full = PropagationNet(3, c.propagation_hidden)
+        set_compute_dtype(self, c.dtype)
 
     # ---------------------------------------------------------------- 2D stage
     def extract_features(self, images):
@@ -180,15 +190,18 @@ class ThreeDVNet(nn.Module):
         scene_feats = sample_scales(scales, pts_hyp.reshape(B, n_ref * H * P, 3),
                                     origins, g.edge_len)
         # as in the JAX package, the variance takes the scene features'
-        # dtype before the concat (bf16 from the fast path's int8 tables)
-        # and the decoder widens its input to its own fp32 (float64, the
-        # reference run on the card, stays float64)
+        # dtype before the concat (bf16 from the fast path's int8 tables
+        # and from a bf16 model's grids) and the decoder casts its input to
+        # its compute dtype: an fp32 model's widens to fp32 (float64, the
+        # reference run on the card, stays float64), a bf16 model's convs
+        # take bf16
         feats = torch.cat([scene_feats.reshape(R, H, P, -1),
                            var.reshape(R, H, P, -1).to(scene_feats.dtype)],
                           dim=-1)
         feats = feats.transpose(1, 2).reshape(R * P, H, -1)
-        probs = (decoder or self.decoder)(                       # [RP, H]
-            feats.to(torch.promote_types(feats.dtype, torch.float32)))
+        if self.cfg.dtype != torch.bfloat16:
+            feats = feats.to(torch.promote_types(feats.dtype, torch.float32))
+        probs = (decoder or self.decoder)(feats)                 # [RP, H]
         pred = (probs * (ivals * offset)[None, :]).sum(dim=-1)
         return pred.reshape(R, h, w)
 
@@ -230,7 +243,9 @@ class ThreeDVNet(nn.Module):
         depth hypotheses of `depth_train` or `depth_test`.
         `backbone_train=False` keeps the backbone's BatchNorm in eval mode
         for the call, the reference's non-finetune regime; None follows the
-        module's mode. The batch moves to the model's device."""
+        module's mode. The batch moves to the model's device. A bf16 model
+        raises (training is fp32 only so far)."""
+        check_fp32_training(self.cfg)
         set_fp32_numerics()
         c = self.cfg
         train = self.training

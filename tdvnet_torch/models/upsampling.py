@@ -29,4 +29,6 @@ class PropagationNet(nn.Module):
             self.ConvBnRelu_0(x))))
         # logits pass through BN and ReLU before the softmax, as in the
         # JAX package; [N, 9, H, W] is handed over as an [N, H, W, 9] view
+        # (a bf16 model's logits widen to fp32, as there: K8a is fp32)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         return propagation_blend(x.permute(0, 2, 3, 1), depth.contiguous())

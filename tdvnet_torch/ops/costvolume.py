@@ -26,7 +26,9 @@ def plane_sweep_cost_volume(feats: torch.Tensor, rotmats: torch.Tensor,
     """Variance cost volume for each ref view.
 
     feats [N, Hf, Wf, C] (quarter-res features); ref_idx [R];
-    src_idx/src_mask [R, S]. Returns [R, D, h, w, C] fp32.
+    src_idx/src_mask [R, S]. Returns [R, D, h, w, C] fp32, or bf16 for bf16
+    features: the kernel rounds the fp32 variance once as it writes it, the
+    JAX package's cast before CostRegNet.
     """
     h, w = plane_size
     pts = camera.plane_sweep_points(depth_start, depth_interval, n_planes,
@@ -34,7 +36,8 @@ def plane_sweep_cost_volume(feats: torch.Tensor, rotmats: torch.Tensor,
                                     K[ref_idx], img_size, plane_size)
     P_all = camera.projection_matrix(K, rotmats, tvecs)
     var = source_variance(pts.contiguous(), feats.contiguous(), src_idx,
-                          src_mask, P_all.contiguous(), img_size, (h, w))
+                          src_mask, P_all.contiguous(), img_size, (h, w),
+                          out_dtype=feats.dtype)
     return var.reshape(ref_idx.shape[0], n_planes, h, w, -1)
 
 
@@ -44,9 +47,9 @@ def hypothesis_point_variance(pts_world: torch.Tensor, feats: torch.Tensor,
                               K: torch.Tensor,
                               img_size: Tuple[int, int],
                               plane: Tuple[int, int]) -> torch.Tensor:
-    """Variance feature [R, P, C] at world points [R, P, 3] owned by ref r;
-    `plane` (h, w): the points are planes of an h x w pixel grid (see
-    `source_variance`)."""
+    """Variance feature [R, P, C] fp32 (from fp32 or bf16 features) at
+    world points [R, P, 3] owned by ref r; `plane` (h, w): the points are
+    planes of an h x w pixel grid (see `source_variance`)."""
     P_all = camera.projection_matrix(K, rotmats, tvecs)
     return source_variance(pts_world.contiguous(), feats.contiguous(),
                            src_idx, src_mask, P_all.contiguous(), img_size,

@@ -9,14 +9,20 @@ or an exported `.npz` (the JAX package's exports included) through
     python -m tdvnet_torch.tools.eval_3dvnet --ckpt-dir w.npz \\
         --dataset synthetic:/tmp/synth --save-dir eval_results
 
-`--bf16` (ROADMAP.md queue 1 item 2) and `--dp` / `--space-shard` (item
-5) raise before any checkpoint is read: the port has neither yet.
+`--bf16` computes in bf16 with fp32 parameters (`ModelConfig.dtype`), as
+the JAX tool's flag does, on the parity path; `--bf16 --fast-path`
+(ROADMAP.md queue 1 item 2c) and `--dp` / `--space-shard` (item 5) raise
+before any checkpoint is read: the port has neither yet.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
-from tdvnet_torch.config import load_config, resolve_device
+import torch
+
+from tdvnet_torch.config import (check_bf16_fast_path, load_config,
+                                 resolve_device)
 
 
 def main(argv=None):
@@ -52,10 +58,6 @@ def main(argv=None):
                     help="where to evaluate (default: the CUDA card; 'cpu' "
                          "runs the kernels' plain twins)")
     args = ap.parse_args(argv)
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16: the port computes in fp32 only so far (ROADMAP.md "
-            "queue 1 item 2, bf16 compute)")
     if args.dp or args.space_shard:
         raise NotImplementedError(
             "--dp / --space-shard: the port evaluates on one device so far "
@@ -89,6 +91,10 @@ def main(argv=None):
     if data_over:
         overrides["data"] = data_over
     cfg = load_config(overrides)
+    if args.bf16:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, dtype=torch.bfloat16))
+    check_bf16_fast_path(cfg.model, cfg.eval.fast_path)
 
     # params-only restore: whatever optimizer the training run used
     restored = C.restore_params(args.ckpt_dir)

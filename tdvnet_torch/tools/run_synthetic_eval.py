@@ -11,14 +11,22 @@ Scenes that exist are reused.
     python -m tdvnet_torch.tools.run_synthetic_eval --workdir /tmp/se
     python -m tdvnet_torch.tools.run_synthetic_eval --workdir /tmp/se \\
         --ckpt-dir weights/3dvnet_synth48.npz
+
+`--bf16` runs the flagship in bf16 with fp32 parameters, as
+`eval_3dvnet --bf16` does (the JAX tool has no such flag); with
+`--fast-path` it raises before any work (ROADMAP.md queue 1 item 2c).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
-from tdvnet_torch.config import load_config, resolve_device
+import torch
+
+from tdvnet_torch.config import (check_bf16_fast_path, load_config,
+                                 resolve_device)
 
 
 def main(argv=None):
@@ -43,6 +51,9 @@ def main(argv=None):
     ap.add_argument("--fast-patch", type=int, choices=(0, 1), default=None,
                     help="fast-path patch-fan image variance (default: "
                          "EvalConfig.fast_patch = on)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bfloat16 compute of the flagship (params stay "
+                         "fp32)")
     ap.add_argument("--name", default=None,
                     help="results dirname (default: 3dvnet / "
                          "3dvnet_fast / gt_passthrough)")
@@ -50,6 +61,9 @@ def main(argv=None):
                     help="where to run (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain twins)")
     args = ap.parse_args(argv)
+    if args.bf16:
+        check_bf16_fast_path(load_config({"model": {
+            "dtype": torch.bfloat16}}).model, args.fast_path)
     device = resolve_device(args.device)
 
     from tdvnet_torch.data.synthetic_dataset import ensure_scene_dir
@@ -76,6 +90,9 @@ def main(argv=None):
                     if args.fast_patch is not None else {})},
     })
 
+    if args.bf16:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, dtype=torch.bfloat16))
     if args.ckpt_dir:
         from tdvnet_torch.models.threedvnet import ThreeDVNet
         from tdvnet_torch.train import checkpoints as C

@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from tdvnet_torch.config import Config, resolve_device
+from tdvnet_torch.config import Config, check_fp32_training, resolve_device
 from tdvnet_torch.models.threedvnet import ThreeDVNet
 from tdvnet_torch.weights import load_flax_into, to_flax_variables
 
@@ -119,6 +119,7 @@ def create_state(cfg: Config, steps_per_epoch: int = 100, device=None,
                  start_epoch: int = 0) -> TrainState:
     """A fresh model (weights drawn from `cfg.train.seed`) on `device` (the
     card unless named) and its optimizer."""
+    check_fp32_training(cfg.model)
     dev = resolve_device(device)
     torch.manual_seed(cfg.train.seed)
     model = ThreeDVNet(cfg.model).to(dev)
@@ -165,6 +166,7 @@ def make_train_step(model: ThreeDVNet, cfg: Config, n_iters: int):
     port's backward kernels sum in fixed point, so a step repeats bit for
     bit on the card; the forward (as inference) keeps cuDNN's default
     picks, and already repeats."""
+    check_fp32_training(model.cfg)
     offsets = list(cfg.train.offsets)
     bb_train = bool(cfg.train.finetune)
     span = torch.profiler.record_function

@@ -370,7 +370,30 @@ def test_eval_cli_matches_the_harness(eval_dataset, tmp_path, monkeypatch):
     assert np.isfinite(got["metrics_2d.json"]["abs_rel"])
 
 
-@pytest.mark.parametrize("flags,item", [(["--bf16"], "item 2"),
+def test_eval_cli_bf16_matches_the_harness(eval_dataset, tmp_path,
+                                           monkeypatch):
+    """`eval_3dvnet --bf16` (the parity path in bf16, parameters fp32): the
+    averaged metrics of a direct `harness.main` call with a bf16 model of
+    the same weights, and finite."""
+    from tdvnet_torch.tools import eval_3dvnet as EV
+
+    data, npz = eval_dataset
+    load = _tiny_load_config(**EVAL)
+    monkeypatch.setattr(EV, "load_config", load)
+    got = EV.main(["--ckpt-dir", npz, "--dataset", f"synthetic:{data}",
+                   "--save-dir", str(tmp_path / "cli"), "--eval-grid",
+                   "16", "16", "16", "--max-anchors", "2048", "--bf16",
+                   "--device", "cpu"])
+    cfg = load({"eval": {"dataset_type": f"synthetic:{data}"}})
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype=torch.bfloat16))
+    want = _direct_eval(cfg, npz, str(tmp_path / "direct"), "3dvnet")
+    assert got == want
+    assert all(np.isfinite(v) for m in got.values() for v in m.values())
+
+
+@pytest.mark.parametrize("flags,item", [(["--bf16", "--fast-path"],
+                                         "item 2c"),
                                         (["--dp"], "item 5"),
                                         (["--space-shard"], "item 5")])
 def test_eval_cli_refuses_before_reading_a_checkpoint(flags, item, tmp_path):

@@ -2130,3 +2130,111 @@ def test_blend_backward_kernel_matches_twin_at_edges(case):
     for a, b in zip(propagation_blend_backward(bad, view, depth, out),
                     propagation_blend_backward_ref(bad, view, depth, out)):
         _nonfinite_check(a, b, chip_smoke.BACKWARD_TOL)
+
+
+# ----------------------------------------------------------- bf16 inference
+BF16_KERNELS = ("source_variance_bf16", "trilinear_sample_bf16",
+                "voxelize_bf16", "segment_max_bf16",
+                "masked_group_norm_bf16")
+
+
+@pytest.fixture(scope="module")
+def bf16_cases():
+    """`chip_smoke.bf16_cases`: each bf16 form on the inputs of one bf16
+    `infer_depth` of the golden batch (synth48 weights), with its twin and
+    its float64 referee."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.config import ModelConfig
+    from tdvnet_torch.weights import load_threedvnet
+
+    model = load_threedvnet(chip_smoke.WEIGHTS,
+                            ModelConfig(dtype=torch.bfloat16), device="cuda")
+    return chip_smoke.bf16_cases(model, torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", BF16_KERNELS)
+def test_bf16_form_matches_twin_and_referee_on_the_main_path(kernel,
+                                                             bf16_cases):
+    import chip_smoke
+
+    cases = [c for c in bf16_cases if c.kernel == kernel]
+    assert cases
+    for case in cases:
+        err, ok = chip_smoke.check_case(case)
+        assert ok, f"{kernel} {case.label}: max |d| {err:.3e}"
+
+
+@pytest.mark.cuda
+def test_bf16_forms_count_apart_and_take_odd_shapes():
+    """Each bf16 form counts in its wrapper's `bf16_launches` only, and
+    matches its twin where the kernel takes its one-channel or unvectorised
+    form (K6 at C = 5, K5 at V % 4 != 0) or the wrapper pads (K1 at C =
+    6): K6 within one bf16 ulp, K5 within one ulp of its ops' scale, K1
+    within `chip_smoke.BF16_VAR_TWIN_REL` E[F^2] (and one rounding of a
+    bf16 variance)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch import kernels as K
+    from tdvnet_torch.kernels.groupnorm import masked_group_norm_ref
+    from tdvnet_torch.kernels.trilinear import trilinear_sample_ref
+    from tdvnet_torch.kernels.variance import source_variance_ref
+    from tdvnet_torch.tools.timing import bf16_ulp
+
+    g = torch.Generator().manual_seed(5)
+    dev, bf = "cuda", torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    K.reset_launch_counts()
+    grid = rnd(2, 7, 6, 5, 5).to(bf)
+    pts = (torch.rand(2, 300, 3, generator=g) * 8 - 1).to(dev)
+    c0 = torch.zeros(2, 3, device=dev)
+    out = torch.empty(2, 300, 9, dtype=bf, device=dev)
+    got = K.trilinear_sample(grid, pts, c0, 1.0, out, 3)[..., 3:8]
+    want = trilinear_sample_ref(grid, pts, c0, 1.0)
+    scale = torch.maximum(got.double().abs(), want.double().abs())
+    assert bool(((got.double() - want.double()).abs()
+                 <= bf16_ulp(scale)).all())
+    mask = (torch.rand(2, 1, 5, 3, 3, generator=g) > 0.3).to(dev).to(bf)
+    x = (rnd(2, 8, 5, 3, 3) * mask).to(bf)
+    skip = (rnd(2, 8, 5, 3, 3) * mask).to(bf)
+    w, b = rnd(8), rnd(8)
+    for kw in ({"relu": True}, {"skip": skip}):
+        y = K.masked_group_norm(x, mask, 2, w, b, **kw)
+        ref, scale = chip_smoke.gn_bf16_referee(x, mask, 2, w, b,
+                                                kw.get("relu", False),
+                                                kw.get("skip"))
+        assert y.dtype == bf
+        assert float(chip_smoke.bf16_ulps(y, ref, scale).max()) <= 1.0
+        assert float(chip_smoke.bf16_ulps(
+            y, masked_group_norm_ref(x, mask, 2, w, b, **kw),
+            scale).max()) <= 1.0
+    feats = (rnd(4, 9, 11, 6) + 0.5).to(bf)
+    cam = torch.tensor([[20., 0, 5, 0], [0, 20., 4, 0], [0, 0, 1, 0]])
+    P_all = cam.expand(4, 3, 4).contiguous().to(dev)
+    pts3 = torch.cat([torch.rand(2, 50, 2, generator=g) - 0.5,
+                      torch.full((2, 50, 1), 2.0)], -1).to(dev)
+    sidx = torch.tensor([[1, 2], [2, 3]], device=dev)
+    smask = torch.ones(2, 2, dtype=torch.bool, device=dev)
+    args = (pts3, feats, sidx, smask, P_all, (36, 44))
+    for od in (torch.float32, bf):
+        v = K.source_variance(*args, (1, 50), out_dtype=od)
+        vr = source_variance_ref(*args, out_dtype=od)
+        va, ma = source_variance_ref(pts3, feats.double().abs(), *args[2:],
+                                     with_mean=True)
+        ef2 = (va + ma ** 2).clamp(min=1e-30)
+        assert v.dtype == od
+        assert float(((v.double() - vr.double()).abs() / ef2).max()) \
+            <= chip_smoke.BF16_VAR_TWIN_REL + 2.0 ** -8
+    torch.cuda.synchronize()
+    assert K.bf16_launch_counts() == {
+        "source_variance_bf16": 2, "trilinear_sample_bf16": 1,
+        "scatter_anchors_to_dense_bf16": 0, "segment_max_bf16": 0,
+        "gather_concat_bf16": 0, "masked_group_norm_bf16": 2}
+    assert all(n == 0 for n in K.launch_counts().values())
+    with pytest.raises(TypeError):
+        K.trilinear_sample(grid.half(), pts, c0, 1.0,
+                           torch.empty(2, 300, 5, dtype=torch.half,
+                                       device=dev), 0)

@@ -46,6 +46,14 @@ and ~6 GB on the CPU):
 
     python tests/test_torch_golden.py --write-train
 
+A seventh holds bf16 inference (`ModelConfig(dtype=bfloat16)`, parameters
+fp32, as `tools/eval_3dvnet.py --bf16` sets it): `infer_depth` on the first
+golden's batch and `FusedSceneInference` on the parity golden's scene, with
+the same weights and settings, and JAX's own bf16 error against unquantized
+fp32 runs of both (JAX on the CPU, about five minutes):
+
+    python tests/test_torch_golden.py --write-bf16
+
 A sixth holds n_iters=1 training: the same three steps, batch and weights
 at the epoch-5 lambda (0.5; epoch 0's is 0, which zeroes every refinement
 loss term), with one gradient leaf more in each scene stage (PointNet,
@@ -79,6 +87,8 @@ FAST_SCENE_GOLDEN = os.path.join(ROOT, "tests", "data",
                                  "torch_golden_fastscene_synth48.npz")
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
                             "torch_golden_train_synth48.npz")
+BF16_GOLDEN = os.path.join(ROOT, "tests", "data",
+                           "torch_golden_bf16_synth48.npz")
 WEIGHTS = os.path.join(ROOT, "weights", "3dvnet_synth48.npz")
 SCENE_VIEWS, SCENE_SEED = 24, 11
 
@@ -155,6 +165,123 @@ def write_golden():
     np.savez_compressed(GOLDEN, depth_init=d0.astype(np.float32),
                         depth_refined=d.astype(np.float32),
                         depth_final=final.astype(np.float16),
+                        record=np.array(json.dumps(record)))
+    print(json.dumps(record))
+
+
+def _err_stats(a, b):
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return {"median": float(np.median(d)),
+            "p99": float(np.percentile(d, 99))}
+
+
+def write_bf16_golden():
+    """JAX's bf16 `infer_depth` on the golden batch and its bf16 parity
+    `FusedSceneInference` on the parity golden's scene, with JAX's own bf16
+    error: the median and p99 of |bf16 - fp32| per stage, from unquantized
+    fp32 runs of the same inputs (the fp32 goldens keep the final depth in
+    fp16 and the scene in millimetres, coarser than that error)."""
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    sys.path.insert(0, ROOT)
+    import time
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from chip_smoke import GOLDEN_SEEDS, OFFSETS
+    from tdvnet.config import BatchConfig, Config, ModelConfig
+    from tdvnet.data import batch as B, synthetic
+    from tdvnet.eval import metrics2d
+    from tdvnet.eval.fused_scene import FusedSceneInference
+    from tdvnet.models.threedvnet import ThreeDVNet
+    from tdvnet.train.checkpoints import load_npz
+
+    mc32 = ModelConfig(warp_mode="gather")
+    mc = dataclasses.replace(mc32, dtype=jnp.bfloat16)
+    bc = BatchConfig()
+    scenes = [synthetic.make_batch_scene(bc.n_views, bc.img_size,
+                                         bc.depth_img_size, seed=s,
+                                         n_src_on_either_side=bc.n_src_on_either_side)
+              for s in GOLDEN_SEEDS]
+    fb = B.collate_scenes(scenes, bc.n_views, bc.n_ref,
+                          bc.n_src_on_either_side)
+    variables, epoch = load_npz(WEIGHTS)
+
+    def run(m, batch):
+        dc = m.cfg.depth_test
+        half, quarter, _ = m.extract_features(batch.images)
+        d0, _ = m.initial_depth(batch, dc, quarter)
+        d = d0
+        for offs in OFFSETS:
+            scales, origins, stats = m.model_scene(d, quarter, batch)
+            for off in offs:
+                d = d + m.run_pointflow(scales, origins, d, quarter, batch,
+                                        off, 3)
+        final = m.upsample(d, half, quarter, batch.images, batch.ref_idx)
+        return d0, d, final, stats
+
+    outs = {}
+    for name, c in (("fp32", mc32), ("bf16", mc)):
+        t0 = time.perf_counter()
+        model = ThreeDVNet(c)
+        fn = jax.jit(lambda v, b: model.apply(v, b, method=run))
+        outs[name] = jax.tree.map(np.asarray, fn(variables, fb))
+        print(f"infer_depth {name}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    d0, d, final, stats = outs["bf16"]
+    err = {k: _err_stats(outs["bf16"][i], outs["fp32"][i])
+           for i, k in enumerate(("initial", "refined", "final"))}
+    mets = metrics2d.calc_2d_depth_metrics(final, fb.depth_gt)
+
+    views = synthetic.make_scene(n_views=SCENE_VIEWS, img_size=mc.img_size,
+                                 seed=SCENE_SEED)
+    cfg = Config(model=mc)
+    depths, grids = {}, []
+    for name, c in (("fp32", mc32), ("bf16", mc)):
+        t0 = time.perf_counter()
+        inf = FusedSceneInference(ThreeDVNet(c), variables,
+                                  Config(model=c), offsets_list=OFFSETS,
+                                  fast_path=False, fetch_mm=False)
+        choose = inf._grid_from_extent
+
+        def recording(extent, choose=choose):
+            gc = choose(extent)
+            grids.append(list(gc.grid_size))
+            return gc
+        inf._grid_from_extent = recording
+        depths[name] = inf.predict_scene(views)
+        print(f"scene {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    err["scene"] = _err_stats(depths["bf16"], depths["fp32"])
+    depth = depths["bf16"]
+    k = cfg.eval.n_src_on_either_side
+    s_mets = metrics2d.calc_2d_depth_metrics(
+        depth, views["depth"][k:SCENE_VIEWS - k])
+    record = {
+        "config": _config_record(mc, bc),
+        "dtype": "bfloat16",
+        "seeds": list(GOLDEN_SEEDS),
+        "offsets": [list(o) for o in OFFSETS],
+        "weights": os.path.relpath(WEIGHTS, ROOT),
+        "weights_sha256": file_sha256(WEIGHTS),
+        "weights_epoch": int(epoch),
+        "warp_mode": "gather",
+        "abs_rel": float(mets["abs_rel"]),
+        "n_out_of_grid": int(stats["n_out_of_grid"]),
+        "n_overflow": int(stats["n_overflow"]),
+        "jax_bf16_error": err,
+        "scene": {"eval": _eval_record(cfg.eval), "n_views": SCENE_VIEWS,
+                  "seed": SCENE_SEED, "n_refs": int(depth.shape[0]),
+                  "grid_size": grids[-1], "fetch_mm": False,
+                  "abs_rel": float(s_mets["abs_rel"]),
+                  "stats": {k_: int(v) for k_, v in
+                            inf.last_scene_stats.items()}},
+    }
+    np.savez_compressed(BF16_GOLDEN, depth_init=d0.astype(np.float32),
+                        depth_refined=d.astype(np.float32),
+                        depth_final=final.astype(np.float16),
+                        scene_depth_mm=np.round(depth * 1000.0)
+                        .astype(np.uint16),
                         record=np.array(json.dumps(record)))
     print(json.dumps(record))
 
@@ -553,6 +680,44 @@ def test_fast_scene_golden_matches_chip_smoke_settings():
     assert 0.0 < rec["tail"] < 1.0
 
 
+def test_bf16_golden_matches_chip_smoke_settings():
+    import chip_smoke
+    import torch
+    from tdvnet_torch.config import BatchConfig, EvalConfig, ModelConfig
+
+    assert chip_smoke.BF16_GOLDEN == BF16_GOLDEN
+    rec = read_record(BF16_GOLDEN)
+    assert rec == chip_smoke.bf16_golden_record()
+    assert rec["dtype"] == "bfloat16"
+    assert rec["config"] == _config_record(
+        ModelConfig(dtype=torch.bfloat16), BatchConfig())
+    assert tuple(rec["seeds"]) == tuple(chip_smoke.GOLDEN_SEEDS)
+    assert [tuple(o) for o in rec["offsets"]] == \
+        [tuple(o) for o in chip_smoke.OFFSETS]
+    assert rec["weights_sha256"] == file_sha256(WEIGHTS)
+    assert rec["warp_mode"] == "gather"
+    # the parity golden's scene and settings
+    parity = read_record(SCENE_GOLDEN)
+    sc = rec["scene"]
+    assert sc["eval"] == _eval_record(EvalConfig()) == parity["eval"]
+    assert (sc["n_views"], sc["seed"], sc["n_refs"], sc["grid_size"]) == \
+        (parity["n_views"], parity["seed"], parity["n_refs"],
+         parity["grid_size"])
+    assert sc["stats"]["n_points"] == parity["stats"]["n_points"]
+    # JAX's own bf16 error per stage, the yardstick of phases 3' and 6a'
+    assert sorted(rec["jax_bf16_error"]) == ["final", "initial", "refined",
+                                             "scene"]
+    for e in rec["jax_bf16_error"].values():
+        assert 0.0 < e["median"] < e["p99"] < 0.1
+    with np.load(BF16_GOLDEN) as z:
+        n_ref = BatchConfig().n_refs_total
+        assert z["depth_init"].shape == (n_ref, *ModelConfig().depth_test.size)
+        assert z["depth_final"].shape == (n_ref, *ModelConfig().img_size)
+        assert z["scene_depth_mm"].shape == (sc["n_refs"],
+                                             *ModelConfig().img_size)
+    assert os.path.getsize(BF16_GOLDEN) < 1.5 * (1 << 20)
+
+
 def test_train_golden_matches_chip_smoke_settings():
     import chip_smoke
     from tdvnet_torch.config import BatchConfig, ModelConfig, TrainConfig
@@ -645,6 +810,8 @@ if __name__ == "__main__":
         elif "--write-train" in sys.argv:
             write_train_golden()
             write_train_golden(refine=True)
+        elif "--write-bf16" in sys.argv:
+            write_bf16_golden()
         elif "--train-bn-error" in sys.argv:
             train_bn_error()
         elif "--write" in sys.argv:
@@ -652,5 +819,5 @@ if __name__ == "__main__":
         else:
             sys.exit("usage: python tests/test_torch_golden.py --write | "
                      "--write-scene [n_views] | --write-fast-scene [n_views]"
-                     " | --write-eval3d | --write-train | "
+                     " | --write-eval3d | --write-bf16 | --write-train | "
                      "--write-train-refine | --train-bn-error")

@@ -369,18 +369,22 @@ def test_train_config_refuses_what_the_port_lacks():
 
 
 def test_model_config_refuses_a_dtype_the_port_lacks():
-    """JAX's eval CLI sets `ModelConfig.dtype` to bf16 for `--bf16`; the
-    port computes in fp32 only, so it refuses rather than ignore it."""
+    """JAX's eval CLI sets `ModelConfig.dtype` to bf16 for `--bf16`, which
+    the port takes (bf16 inference); it computes in no other dtype than
+    those two, so it refuses fp16 and fp64 rather than ignore them."""
     import dataclasses
 
     from tdvnet_torch.config import ModelConfig, tiny_test_config
 
-    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+    for dtype in (torch.float16, torch.float64):
         with pytest.raises(NotImplementedError, match="dtype"):
             ModelConfig(dtype=dtype)
         with pytest.raises(NotImplementedError, match="dtype"):
             dataclasses.replace(tiny_test_config().model, dtype=dtype)
-    assert ModelConfig(dtype=torch.float32).dtype == torch.float32
+    for dtype in (torch.float32, torch.bfloat16):
+        assert ModelConfig(dtype=dtype).dtype == dtype
+        assert dataclasses.replace(tiny_test_config().model,
+                                   dtype=dtype).dtype == dtype
 
 
 def _datasets(root, n_scenes, hw, n_ref):
