@@ -176,22 +176,16 @@ def check_bf16_fast_path(model_cfg: "ModelConfig", fast_path: bool) -> None:
             "(ROADMAP.md queue 1 item 2c, the bf16 fast path)")
 
 
-def check_fp32_training(model_cfg: "ModelConfig") -> None:
-    """Training runs in fp32 only so far: a bf16 backward of K1/K2, K3, K4,
-    K5 and K6 comes in a later slice (ROADMAP.md queue 1 item 2b)."""
-    if model_cfg.dtype != torch.float32:
-        raise NotImplementedError(
-            f"training a ModelConfig.dtype={model_cfg.dtype} model: the port "
-            f"trains in fp32 only so far (ROADMAP.md queue 1 item 2b)")
-
-
 @dataclass(frozen=True)
 class TrainConfig:
     """The training schedule (the JAX package's `TrainConfig`): Adam with a
     StepLR schedule, the lambda ramp on the refinement losses and the
-    n_iters switch, or the finetune regime. `bf16_compute`, `remat` and
-    `grad_accum_steps` keep the JAX package's defaults; another value
-    raises until the port has them."""
+    n_iters switch, or the finetune regime. `bf16_compute` trains a bf16
+    model (`ModelConfig.dtype`; the parameters, gradients and Adam's state
+    stay fp32), `remat` recomputes the forward in the backward (one
+    checkpoint around the whole forward, as `jax.checkpoint` wraps it), and
+    `grad_accum_steps` = k updates once every k microbatches with the mean
+    of their gradients (`optax.MultiSteps`)."""
 
     lr: float = 1e-3
     lr_step: int = 100               # epochs between decays (StepLR)
@@ -216,13 +210,11 @@ class TrainConfig:
     loader_prefetch: int = 3         # batches built ahead
 
     def __post_init__(self):
-        for name, default in (("bf16_compute", False), ("remat", False),
-                              ("grad_accum_steps", 1)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(self, name)!r}: the port "
-                    f"trains in fp32, without rematerialisation or gradient "
-                    f"accumulation, so far")
+        if int(self.grad_accum_steps) != self.grad_accum_steps \
+                or self.grad_accum_steps < 1:
+            raise ValueError(f"TrainConfig.grad_accum_steps="
+                             f"{self.grad_accum_steps!r}: a count of "
+                             f"microbatches, at least 1")
 
 
 @dataclass(frozen=True)

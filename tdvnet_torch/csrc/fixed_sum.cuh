@@ -27,10 +27,15 @@
 // x + Inf = Inf, Inf + -Inf = NaN and NaN + anything = NaN in any order, so
 // an element comes out non-finite exactly where the float sum's would, and
 // the pass costs one early exit when the flag is down.
+//
+// The amax pass reads fp32 or bf16 storage (`bf16::bits16`, the bf16
+// backward forms'): a bf16 value widens to fp32 exactly.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 namespace {
 namespace fx {
@@ -54,20 +59,24 @@ __device__ __forceinline__ unsigned max4(float4 v, unsigned m) {
   return m;
 }
 
-__device__ __forceinline__ float4 load_at(const float* __restrict__ a,
+template <typename T>
+__device__ __forceinline__ float4 load_at(const T* __restrict__ a,
                                           long long j, int cq,
                                           long long stride) {
+  using V = typename bf16::Quad<T>::V;
   if (stride == 4LL * cq)   // contiguous rows: no division
-    return __ldg(reinterpret_cast<const float4*>(a) + j);
+    return bf16::load4(reinterpret_cast<const V*>(a) + j);
   const long long r = j / cq;
-  return __ldg(reinterpret_cast<const float4*>(a + r * stride) + (j - r * cq));
+  return bf16::load4(reinterpret_cast<const V*>(a + r * stride) +
+                     (j - r * cq));
 }
 
 // *out = max(*out, the finite |a[r, c]| bit patterns) over rows r < rows,
-// columns c < cols (cols % 4 == 0, rows `stride` floats apart, 16-byte
-// aligned); a grid-stride loop with kAmaxUnroll loads in flight
+// columns c < cols (cols % 4 == 0, rows `stride` elements apart, aligned
+// to four of them); a grid-stride loop with kAmaxUnroll loads in flight
+template <typename T>
 __global__ void __launch_bounds__(kAmaxThreads) amax_kernel(
-    const float* __restrict__ a, long long rows, int cols, long long stride,
+    const T* __restrict__ a, long long rows, int cols, long long stride,
     unsigned* __restrict__ out) {
   const int cq = cols >> 2;
   const long long n = rows * cq;
@@ -97,14 +106,15 @@ __global__ void __launch_bounds__(kAmaxThreads) amax_kernel(
 }
 
 // launch amax_kernel on at most ~4 blocks an SM's worth of a 132-SM card
-inline void amax(const float* a, long long rows, int cols, long long stride,
+template <typename T>
+inline void amax(const T* a, long long rows, int cols, long long stride,
                  unsigned* out, cudaStream_t s) {
   const long long n = rows * (cols / 4);
   if (n <= 0) return;
   long long blocks = (n + kAmaxThreads - 1) / kAmaxThreads;
   if (blocks > 132 * 8) blocks = 132 * 8;
-  amax_kernel<<<(unsigned)blocks, kAmaxThreads, 0, s>>>(a, rows, cols,
-                                                        stride, out);
+  amax_kernel<T><<<(unsigned)blocks, kAmaxThreads, 0, s>>>(a, rows, cols,
+                                                           stride, out);
 }
 
 // e with |v| < 2^(e + 1) for an amax bit pattern (0 when the maximum is 0:

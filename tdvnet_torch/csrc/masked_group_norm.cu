@@ -59,7 +59,7 @@
 // at levels 1-2 a kernel's fixed cost is ~1.6 us of a 6-12 us call, which
 // is all that fusing the two would save.
 //
-// The bf16 form (inference only; tdv_masked_group_norm_bf16) reads a bf16
+// The bf16 form (tdv_masked_group_norm_bf16) reads a bf16
 // x, mask and skip and writes a bf16 output, both kernels templated on the
 // storage: the statistics are the same float64 sums of the (exactly
 // widened) bf16 values; the apply rounds to bf16 where the JAX package's

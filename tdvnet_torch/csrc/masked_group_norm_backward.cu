@@ -59,9 +59,24 @@
 // partials, per-(b, c) sums and coefficients, and the counters (zeroed
 // once; each launch leaves them zero: the last item of a slice and of a
 // group put theirs back).
+//
+// The bf16 form (tdv_masked_group_norm_backward_bf16; a bf16 model's scene
+// U-Net in training) is the same kernel templated on the storage of g, x,
+// the mask, the output, d x and d skip: bf16 loads widened exactly, the
+// arithmetic in fp32 as above with the forward's statistics, the weight
+// cast to bf16 as the bf16 forward multiplies by it; d x and d skip rounded
+// once to bf16 where stored; d weight and d bias, the gradients of the
+// bf16-cast affine, rounded once to bf16 values and stored in fp32 (the
+// cast's gradient widens them to the fp32 parameters). Every tail sees the
+// ReLU in the bf16 output (the bf16 forward's y is not the fp32 form's
+// expression). Its block shape is its own
+// (tdv_masked_group_norm_backward_shape_bf16: its own resident blocks).
+// Bound: bytes, half the fp32 form's.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -70,16 +85,56 @@ constexpr int kMaxCC = 32;                 // channels a block sums at most
 constexpr int kMaxGroup = 256;             // channels a group holds at most
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int VEC>
+// E: an element's storage (float, or bf16::bits16); T: VEC of them; W: the
+// same widened (float4 or float)
+template <typename E, int VEC>
 struct Vec;
 template <>
-struct Vec<4> {
+struct Vec<float, 4> {
   using T = float4;
+  using W = float4;
 };
 template <>
-struct Vec<1> {
+struct Vec<float, 1> {
   using T = float;
+  using W = float;
 };
+template <>
+struct Vec<bf16::bits16, 4> {
+  using T = uint2;
+  using W = float4;
+};
+template <>
+struct Vec<bf16::bits16, 1> {
+  using T = bf16::bits16;
+  using W = float;
+};
+
+__device__ __forceinline__ float4 wide(float4 v) { return v; }
+__device__ __forceinline__ float wide(float v) { return v; }
+__device__ __forceinline__ float4 wide(uint2 v) { return bf16::widen(v); }
+__device__ __forceinline__ float wide(bf16::bits16 v) {
+  return bf16::widen(v);
+}
+__device__ __forceinline__ void put(float4* p, float4 v) { *p = v; }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(uint2* p, float4 v) {
+  *p = bf16::narrow(v);
+}
+__device__ __forceinline__ void put(bf16::bits16* p, float v) {
+  *p = bf16::narrow(v);
+}
+
+// the weight as the form multiplies by it: fp32, or cast to bf16
+template <typename E>
+__device__ __forceinline__ float weight_of(const float* w, int c) {
+  return sizeof(E) == 2 ? bf16::round(w[c]) : w[c];
+}
+// d weight, d bias as stored: fp32, or rounded to a bf16 value
+template <typename E>
+__device__ __forceinline__ float affine_grad(float v) {
+  return sizeof(E) == 2 ? bf16::round(v) : v;
+}
 
 __device__ __forceinline__ float lane_of(float4 v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
@@ -100,8 +155,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 struct Args {
-  const float *grad, *x, *mask, *out, *weight, *bias, *stats;
-  float *grad_x, *grad_w, *grad_b, *grad_skip;
+  // [B, C, V] or [B, V] of E
+  const void *grad, *x, *mask, *out;
+  const float *weight, *bias, *stats;
+  void* grad_x;                       // [B, C, V] of E
+  float *grad_w, *grad_b;
+  void* grad_skip;                    // [B, C, V] of E
   float *partial, *chan, *coef;       // [B*G, n_vb, cg, 2], [B*C, 2], [B*G, 2]
   unsigned* sync;                     // counters (see `Sync`), zero
   unsigned* ready;                    // [B*G] the epoch each slice is at
@@ -134,13 +193,19 @@ __device__ __forceinline__ float gprime(float g, float x, float m, float out,
   return out > 0.f ? gm : 0.f;
 }
 
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads) masked_group_norm_backward_kernel(
     Args p) {
-  using T = typename Vec<VEC>::T;
+  using T = typename Vec<E, VEC>::T;
+  using W = typename Vec<E, VEC>::W;
   __shared__ float smem[2][kMaxCC][kThreads / 32];
   __shared__ float csum[2][kMaxGroup];
   __shared__ bool last_s, group_last;
+  const E* grad = static_cast<const E*>(p.grad);
+  const E* xs = static_cast<const E*>(p.x);
+  const E* outs = static_cast<const E*>(p.out);
+  E* grad_x = static_cast<E*>(p.grad_x);
+  E* grad_skip = static_cast<E*>(p.grad_skip);
   const int BG = p.B * p.G;
   Sync sy(p.sync, p.ready, BG);
   const int cg = p.C / p.G, n_cc = cg / p.CC;
@@ -148,7 +213,9 @@ __global__ void __launch_bounds__(kThreads) masked_group_norm_backward_kernel(
   const long long n_blk = n_vb * n_cc;              // items of a slice
   const long long n_items = (long long)BG * n_blk;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const bool read_out = p.mode == 2;
+  // the bf16 form sees every ReLU in the output
+  const int gmode = sizeof(E) == 2 && p.mode == 1 ? 2 : p.mode;
+  const bool read_out = gmode == 2;
 
   for (long long blk = blockIdx.x; blk < n_items; blk += gridDim.x) {
     const int bg = (int)(blk / n_blk);
@@ -159,25 +226,26 @@ __global__ void __launch_bounds__(kThreads) masked_group_norm_backward_kernel(
     const int c0 = g * cg + cc * p.CC;
     const long long v0 = (long long)vb * p.Vb;
     const long long v1 = v0 + p.Vb < p.V ? v0 + p.Vb : p.V;
-    const float* m = p.mask + (long long)b * p.V;
+    const E* m = static_cast<const E*>(p.mask) + (long long)b * p.V;
 
     // reduce: per channel of the chunk, sum g' and g' xn over the voxels
     for (int k = 0; k < p.CC; ++k) {
       const int c = c0 + k;
       const long long row = ((long long)b * p.C + c) * p.V;
-      const float w = p.weight[c], bi = p.mode == 1 ? p.bias[c] : 0.f;
+      const float w = p.weight[c], bi = gmode == 1 ? p.bias[c] : 0.f;
       float sg = 0.f, sgx = 0.f;
       for (long long v = v0 + t * VEC; v < v1; v += VEC * kThreads) {
-        const T gv = __ldg(reinterpret_cast<const T*>(p.grad + row + v));
-        const T xv = __ldg(reinterpret_cast<const T*>(p.x + row + v));
-        const T mv = __ldg(reinterpret_cast<const T*>(m + v));
-        T ov = gv;
-        if (read_out) ov = __ldg(reinterpret_cast<const T*>(p.out + row + v));
+        const W gv = wide(__ldg(reinterpret_cast<const T*>(grad + row + v)));
+        const W xv = wide(__ldg(reinterpret_cast<const T*>(xs + row + v)));
+        const W mv = wide(__ldg(reinterpret_cast<const T*>(m + v)));
+        W ov = gv;
+        if (read_out)
+          ov = wide(__ldg(reinterpret_cast<const T*>(outs + row + v)));
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           const float xj = lane_of(xv, j);
           const float gp = gprime(lane_of(gv, j), xj, lane_of(mv, j),
-                                  lane_of(ov, j), mean, rstd, w, bi, p.mode);
+                                  lane_of(ov, j), mean, rstd, w, bi, gmode);
           sg += gp;
           sgx += gp * ((xj - mean) * rstd);
         }
@@ -226,8 +294,8 @@ __global__ void __launch_bounds__(kThreads) masked_group_norm_backward_kernel(
         // the coefficients: lanes over the group's channels, a fixed tree
         float a = 0.f, bx = 0.f;
         for (int k = lane; k < cg; k += 32) {
-          a += p.weight[g * cg + k] * csum[0][k];
-          bx += p.weight[g * cg + k] * csum[1][k];
+          a += weight_of<E>(p.weight, g * cg + k) * csum[0][k];
+          bx += weight_of<E>(p.weight, g * cg + k) * csum[1][k];
         }
         a = warp_sum(a);
         bx = warp_sum(bx);
@@ -252,8 +320,8 @@ __global__ void __launch_bounds__(kThreads) masked_group_norm_backward_kernel(
               sb += __ldcg(p.chan + ((long long)bb * p.C + c) * 2);
               sw += __ldcg(p.chan + ((long long)bb * p.C + c) * 2 + 1);
             }
-            p.grad_w[c] = sw;
-            p.grad_b[c] = sb;
+            p.grad_w[c] = affine_grad<E>(sw);
+            p.grad_b[c] = affine_grad<E>(sb);
           }
           if (lane == 0) sy.group_done[g] = 0u;
         }
@@ -274,28 +342,30 @@ __global__ void __launch_bounds__(kThreads) masked_group_norm_backward_kernel(
     for (int k = p.CC - 1; k >= 0; --k) {
       const int c = c0 + k;
       const long long row = ((long long)b * p.C + c) * p.V;
-      const float w = p.weight[c], bi = p.mode == 1 ? p.bias[c] : 0.f;
+      const float w = weight_of<E>(p.weight, c),
+                  bi = gmode == 1 ? p.bias[c] : 0.f;
       const long long n_v = (v1 - v0 + VEC * kThreads - 1) / (VEC * kThreads);
       for (long long s = n_v - 1; s >= 0; --s) {
         const long long v = v0 + (s * kThreads + t) * VEC;
         if (v >= v1) continue;
-        const T gv = __ldg(reinterpret_cast<const T*>(p.grad + row + v));
-        const T xv = __ldg(reinterpret_cast<const T*>(p.x + row + v));
-        const T mv = __ldg(reinterpret_cast<const T*>(m + v));
-        T ov = gv;
-        if (read_out) ov = __ldg(reinterpret_cast<const T*>(p.out + row + v));
-        T dx = gv, ds = gv;
+        const W gv = wide(__ldg(reinterpret_cast<const T*>(grad + row + v)));
+        const W xv = wide(__ldg(reinterpret_cast<const T*>(xs + row + v)));
+        const W mv = wide(__ldg(reinterpret_cast<const T*>(m + v)));
+        W ov = gv;
+        if (read_out)
+          ov = wide(__ldg(reinterpret_cast<const T*>(outs + row + v)));
+        W dx = gv, ds = gv;
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           const float xj = lane_of(xv, j), mj = lane_of(mv, j);
           const float gp = gprime(lane_of(gv, j), xj, mj, lane_of(ov, j),
-                                  mean, rstd, w, bi, p.mode);
+                                  mean, rstd, w, bi, gmode);
           const float xn = (xj - mean) * rstd;
           set_lane(dx, j, rstd * (w * gp - mj * (a + xn * bx)));
           set_lane(ds, j, gp);
         }
-        *reinterpret_cast<T*>(p.grad_x + row + v) = dx;
-        if (p.mode == 2) *reinterpret_cast<T*>(p.grad_skip + row + v) = ds;
+        put(reinterpret_cast<T*>(grad_x + row + v), dx);
+        if (p.mode == 2) put(reinterpret_cast<T*>(grad_skip + row + v), ds);
       }
     }
     __syncthreads();     // the shared sums and flags of the next item
@@ -303,7 +373,7 @@ __global__ void __launch_bounds__(kThreads) masked_group_norm_backward_kernel(
 }
 
 // resident blocks of the kernel on the current device (once per device)
-template <int VEC>
+template <typename E, int VEC>
 int resident_blocks() {
   constexpr int kDevices = 64;
   static int cached[kDevices];
@@ -313,25 +383,17 @@ int resident_blocks() {
   int n_sm = 0, per_sm = 0;
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, masked_group_norm_backward_kernel<VEC>, kThreads, 0);
+      &per_sm, masked_group_norm_backward_kernel<E, VEC>, kThreads, 0);
   const int n = per_sm * n_sm;
   if (dev < kDevices) cached[dev] = n;
   return n;
 }
 
-}  // namespace
-
-// The block shape of a call: CC channels (a divisor of C/G, at most 32)
-// and VB voxels (a multiple of 4 * 256) an item, chosen here from the
-// shape and the card: CC is halved from C/G until the items number 4 an
-// SM, then VB doubled until a slice's items fit in half the resident
-// blocks (the items of a slice wait for each other; see the kernel's
-// header). Writes (CC, VB, n_vb) to `shape` for the wrapper's scratch.
-extern "C" int tdv_masked_group_norm_backward_shape(int B, int C, int G,
-                                                    long long V,
-                                                    long long* shape) {
+template <typename E>
+int backward_shape(int B, int C, int G, long long V, long long* shape) {
   const int vec = V % 4 == 0 ? 4 : 1;
-  const int resident = vec == 4 ? resident_blocks<4>() : resident_blocks<1>();
+  const int resident =
+      vec == 4 ? resident_blocks<E, 4>() : resident_blocks<E, 1>();
   const int half = resident / 2;
   int n_sm = 0, dev = 0, coop = 0;
   cudaGetDevice(&dev);
@@ -363,6 +425,56 @@ extern "C" int tdv_masked_group_norm_backward_shape(int B, int C, int G,
   return 0;
 }
 
+template <typename E>
+int backward(const void* grad, const void* x, const void* mask,
+             const void* out, const float* weight, const float* bias,
+             const float* stats, void* grad_x, float* grad_w, float* grad_b,
+             void* grad_skip, float* partial, float* chan, float* coef,
+             unsigned* sync, unsigned* ready, int B, int C, int G,
+             long long V, int mode, int CC, long long Vb, unsigned epoch,
+             void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((long long)B * C * V == 0) return 0;
+  Args a{grad, x, mask, out, weight, bias, stats, grad_x, grad_w, grad_b,
+         grad_skip, partial, chan, coef, sync, ready, epoch, B, C, G, CC,
+         mode, V, Vb};
+  const long long items =
+      (long long)B * G * ((V + Vb - 1) / Vb) * (C / G / CC);
+  const bool v4 = V % 4 == 0;
+  const long long resident =
+      v4 ? resident_blocks<E, 4>() : resident_blocks<E, 1>();
+  const unsigned grid = (unsigned)(items < resident ? items : resident);
+  void* args[] = {&a};
+  const void* fn =
+      v4 ? reinterpret_cast<const void*>(
+               masked_group_norm_backward_kernel<E, 4>)
+         : reinterpret_cast<const void*>(
+               masked_group_norm_backward_kernel<E, 1>);
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads),
+                                          args, 0, s);
+}
+
+}  // namespace
+
+// The block shape of a call: CC channels (a divisor of C/G, at most 32)
+// and VB voxels (a multiple of 4 * 256) an item, chosen here from the
+// shape and the card: CC is halved from C/G until the items number 4 an
+// SM, then VB doubled until a slice's items fit in half the resident
+// blocks (the items of a slice wait for each other; see the kernel's
+// header). Writes (CC, VB, n_vb) to `shape` for the wrapper's scratch.
+extern "C" int tdv_masked_group_norm_backward_shape(int B, int C, int G,
+                                                    long long V,
+                                                    long long* shape) {
+  return backward_shape<float>(B, C, G, V, shape);
+}
+
+// the same for the bf16 form (its own resident blocks)
+extern "C" int tdv_masked_group_norm_backward_shape_bf16(int B, int C, int G,
+                                                         long long V,
+                                                         long long* shape) {
+  return backward_shape<bf16::bits16>(B, C, G, V, shape);
+}
+
 // grad, x, out, grad_x, grad_skip [B, C, V]; mask [B, V]; stats [B*G, 4]
 // from the forward; bias [C] (read in mode 1); out read in mode 2 only;
 // partial [B*G, n_vb, C/G, 2], chan [B*C, 2], coef [B*G, 2] float scratch;
@@ -380,20 +492,23 @@ extern "C" int tdv_masked_group_norm_backward(
     float* chan, float* coef, unsigned* sync, unsigned* ready, int B, int C,
     int G, long long V, int mode, int CC, long long Vb, unsigned epoch,
     void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if ((long long)B * C * V == 0) return 0;
-  Args a{grad, x, mask, out, weight, bias, stats, grad_x, grad_w, grad_b,
-         grad_skip, partial, chan, coef, sync, ready, epoch, B, C, G, CC,
-         mode, V, Vb};
-  const long long items =
-      (long long)B * G * ((V + Vb - 1) / Vb) * (C / G / CC);
-  const bool v4 = V % 4 == 0;
-  const long long resident = v4 ? resident_blocks<4>() : resident_blocks<1>();
-  const unsigned grid = (unsigned)(items < resident ? items : resident);
-  void* args[] = {&a};
-  const void* fn =
-      v4 ? reinterpret_cast<const void*>(masked_group_norm_backward_kernel<4>)
-         : reinterpret_cast<const void*>(masked_group_norm_backward_kernel<1>);
-  return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads),
-                                          args, 0, s);
+  return backward<float>(grad, x, mask, out, weight, bias, stats, grad_x,
+                         grad_w, grad_b, grad_skip, partial, chan, coef, sync,
+                         ready, B, C, G, V, mode, CC, Vb, epoch, stream);
+}
+
+// the bf16 form: grad, x, mask, out, grad_x and grad_skip bf16 (out read
+// in modes 1 and 2), weight, bias, stats, grad_w and grad_b fp32, (CC, Vb)
+// from tdv_masked_group_norm_backward_shape_bf16; the rest as above
+extern "C" int tdv_masked_group_norm_backward_bf16(
+    const void* grad, const void* x, const void* mask, const void* out,
+    const float* weight, const float* bias, const float* stats, void* grad_x,
+    float* grad_w, float* grad_b, void* grad_skip, float* partial,
+    float* chan, float* coef, unsigned* sync, unsigned* ready, int B, int C,
+    int G, long long V, int mode, int CC, long long Vb, unsigned epoch,
+    void* stream) {
+  return backward<bf16::bits16>(grad, x, mask, out, weight, bias, stats,
+                                grad_x, grad_w, grad_b, grad_skip, partial,
+                                chan, coef, sync, ready, B, C, G, V, mode, CC,
+                                Vb, epoch, stream);
 }

@@ -17,33 +17,56 @@
 // one anchor, so each thread moves one 16-byte vector from its cell's
 // contiguous row; an invalid anchor writes zeros. Keys are unique, so
 // there is nothing to sum: deterministic, and bit-equal to the twin.
+//
+// The bf16 form (tdv_scatter_dense_backward_bf16, a bf16 model's grid in
+// training) is the same kernel on bf16 storage, four channels (8 bytes) a
+// thread: a copy, bit-equal to its twin. Bound: half the fp32 form's bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
+// V: four channels of the rows (float4, or uint2 for four bf16)
+template <typename V>
 __global__ void scatter_dense_backward_kernel(
-    const float* __restrict__ grad_dense,       // [B, gx, gy, gz, C]
+    const V* __restrict__ grad_dense,           // [B, gx, gy, gz, C]
     const long long* __restrict__ anchor_idx3,  // [A, 3]
     const long long* __restrict__ anchor_scene, // [A]
     const uint8_t* __restrict__ anchor_valid,   // [A]
-    float* __restrict__ grad_feats,             // [A, C]
+    V* __restrict__ grad_feats,                 // [A, C]
     int A, int C, int gx, int gy, int gz) {
   const int cq = C >> 2;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)A * cq) return;
   const int a = (int)(t / cq), q = (int)(t % cq);
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  V v{};
   if (anchor_valid[a]) {
     const long long seg =
         anchor_scene[a] * ((long long)gx * gy * gz) +
         (anchor_idx3[a * 3LL] * gy + anchor_idx3[a * 3LL + 1]) * gz +
         anchor_idx3[a * 3LL + 2];
-    v = __ldg(reinterpret_cast<const float4*>(grad_dense + seg * C) + q);
+    v = __ldg(grad_dense + seg * cq + q);
   }
-  reinterpret_cast<float4*>(grad_feats + (long long)a * C)[q] = v;
+  grad_feats[(long long)a * cq + q] = v;
+}
+
+template <typename V>
+int scatter_dense_backward(const V* grad_dense, const long long* anchor_idx3,
+                           const long long* anchor_scene,
+                           const uint8_t* anchor_valid, V* grad_feats, int A,
+                           int C, int gx, int gy, int gz, void* stream) {
+  const long long total = (long long)A * (C / 4);
+  if (total == 0) return 0;
+  scatter_dense_backward_kernel<V><<<(unsigned)((total + kThreads - 1) /
+                                                kThreads),
+                                     kThreads, 0, (cudaStream_t)stream>>>(
+      grad_dense, anchor_idx3, anchor_scene, anchor_valid, grad_feats, A, C,
+      gx, gy, gz);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -53,12 +76,19 @@ extern "C" int tdv_scatter_dense_backward(
     const float* grad_dense, const long long* anchor_idx3,
     const long long* anchor_scene, const uint8_t* anchor_valid,
     float* grad_feats, int A, int C, int gx, int gy, int gz, void* stream) {
-  const long long total = (long long)A * (C / 4);
-  if (total == 0) return 0;
-  scatter_dense_backward_kernel<<<(unsigned)((total + kThreads - 1) /
-                                             kThreads),
-                                  kThreads, 0, (cudaStream_t)stream>>>(
-      grad_dense, anchor_idx3, anchor_scene, anchor_valid, grad_feats, A, C,
-      gx, gy, gz);
-  return (int)cudaGetLastError();
+  return scatter_dense_backward(
+      reinterpret_cast<const float4*>(grad_dense), anchor_idx3, anchor_scene,
+      anchor_valid, reinterpret_cast<float4*>(grad_feats), A, C, gx, gy, gz,
+      stream);
+}
+
+// the same on a bf16 grid gradient and bf16 anchor rows
+extern "C" int tdv_scatter_dense_backward_bf16(
+    const void* grad_dense, const long long* anchor_idx3,
+    const long long* anchor_scene, const uint8_t* anchor_valid,
+    void* grad_feats, int A, int C, int gx, int gy, int gz, void* stream) {
+  return scatter_dense_backward(
+      static_cast<const uint2*>(grad_dense), anchor_idx3, anchor_scene,
+      anchor_valid, static_cast<uint2*>(grad_feats), A, C, gx, gy, gz,
+      stream);
 }

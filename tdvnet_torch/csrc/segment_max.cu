@@ -57,7 +57,7 @@
 // materialised; it writes a row for every point, invalid ones and ids out
 // of range included (clamped to [0, n_seg - 1]).
 //
-// The bf16 forms (inference only; tdv_segment_max_bf16,
+// The bf16 forms (tdv_segment_max_bf16,
 // tdv_gather_concat_bf16) are the same kernels templated on the rows'
 // storage: four bf16 channels a lane (8 bytes), widened exactly to fp32
 // for the order-preserving image, and each maximum narrowed back, which is

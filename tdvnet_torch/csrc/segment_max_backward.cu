@@ -51,9 +51,20 @@
 //            and raises a flag; the kernel's second launch then adds those
 //            terms alone, as floats, onto the result (non-finite sums do not
 //            depend on the order).
+//
+// The bf16 forms (tdv_segment_max_backward_bf16,
+// tdv_gather_concat_backward_bf16; a bf16 model's PointNet in training)
+// are the same kernels templated on the rows' storage: four bf16 channels
+// (8 bytes) a thread, widened exactly. The pool compares the widened values
+// (a tie is a tie in any type), forms the share g / n in fp32 and rounds it
+// once to bf16; the concat-back's y half is a masked copy, its segment sum
+// the same fixed point (the amax over the bf16 gradient), converted to fp32
+// once and rounded to bf16 where it is stored; a non-finite term is added
+// onto the bf16 result by a bf16 atomic. Bound: half the fp32 forms' bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "fixed_sum.cuh"
 
 namespace {
@@ -61,10 +72,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
+// E: a row element's storage (float, or bf16::bits16); V: four of them
+template <typename E>
 __global__ void segment_max_backward_count_kernel(
-    const float* __restrict__ y, const long long* __restrict__ seg,
-    const uint8_t* __restrict__ valid, const float* __restrict__ pooled,
+    const E* __restrict__ y, const long long* __restrict__ seg,
+    const uint8_t* __restrict__ valid, const E* __restrict__ pooled,
     int* __restrict__ ties, long long P, int C, long long n_seg) {
+  using V = typename bf16::Quad<E>::V;
   const int cq = C >> 2;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= P * cq) return;
@@ -73,8 +87,8 @@ __global__ void segment_max_backward_count_kernel(
   if (!valid[p]) return;
   const long long s = seg[p];
   if (s < 0 || s >= n_seg) return;
-  const float4 v = reinterpret_cast<const float4*>(y + p * C)[q];
-  const float4 m = __ldg(reinterpret_cast<const float4*>(pooled + s * C) + q);
+  const float4 v = bf16::load4_plain(reinterpret_cast<const V*>(y + p * C) + q);
+  const float4 m = bf16::load4(reinterpret_cast<const V*>(pooled + s * C) + q);
   int* n = ties + s * C + 4 * q;
   if (v.x == m.x) atomicAdd(n + 0, 1);
   if (v.y == m.y) atomicAdd(n + 1, 1);
@@ -86,11 +100,13 @@ __device__ __forceinline__ float share(float y, float m, float g, int n) {
   return y == m ? g / (float)n : 0.f;
 }
 
+template <typename E>
 __global__ void segment_max_backward_kernel(
-    const float* __restrict__ grad, const float* __restrict__ y,
+    const E* __restrict__ grad, const E* __restrict__ y,
     const long long* __restrict__ seg, const uint8_t* __restrict__ valid,
-    const float* __restrict__ pooled, const int* __restrict__ ties,
-    float* __restrict__ grad_y, long long P, int C, long long n_seg) {
+    const E* __restrict__ pooled, const int* __restrict__ ties,
+    E* __restrict__ grad_y, long long P, int C, long long n_seg) {
+  using V = typename bf16::Quad<E>::V;
   const int cq = C >> 2;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= P * cq) return;
@@ -99,17 +115,18 @@ __global__ void segment_max_backward_kernel(
   float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
   const long long s = seg[p];
   if (valid[p] && s >= 0 && s < n_seg) {
-    const float4 v = reinterpret_cast<const float4*>(y + p * C)[q];
+    const float4 v =
+        bf16::load4_plain(reinterpret_cast<const V*>(y + p * C) + q);
     const float4 m =
-        __ldg(reinterpret_cast<const float4*>(pooled + s * C) + q);
-    const float4 g = __ldg(reinterpret_cast<const float4*>(grad + s * C) + q);
+        bf16::load4(reinterpret_cast<const V*>(pooled + s * C) + q);
+    const float4 g = bf16::load4(reinterpret_cast<const V*>(grad + s * C) + q);
     const int4 n = __ldg(reinterpret_cast<const int4*>(ties + s * C) + q);
     out.x = share(v.x, m.x, g.x, n.x);
     out.y = share(v.y, m.y, g.y, n.y);
     out.z = share(v.z, m.z, g.z, n.z);
     out.w = share(v.w, m.w, g.w, n.w);
   }
-  reinterpret_cast<float4*>(grad_y + p * C)[q] = out;
+  bf16::store4(reinterpret_cast<V*>(grad_y + p * C) + q, out);
 }
 
 __device__ __forceinline__ float pass(float g, float v, int relu) {
@@ -122,14 +139,16 @@ __device__ __forceinline__ float pass(float g, float v, int relu) {
 // grad_pooled (nothing unless the flag is up)
 // A warp is 8 consecutive rows at 16 channels: lane 4 r + i takes row
 // 8 (warp / n4) + r at channels 4 (4 (warp % n4) + i) + 0..3, n4 =
-// ceil(C / 16), so that a warp reads 64 contiguous bytes of each row.
-template <bool NF>
+// ceil(C / 16), so that a warp reads 64 contiguous bytes of each row (32
+// in bf16).
+template <typename E, bool NF>
 __global__ void segment_max_backward_concat_kernel(
-    const float* __restrict__ grad, const float* __restrict__ y,
-    const float* __restrict__ pooled, const long long* __restrict__ seg,
-    float* __restrict__ grad_y, float* __restrict__ grad_pooled,
+    const E* __restrict__ grad, const E* __restrict__ y,
+    const E* __restrict__ pooled, const long long* __restrict__ seg,
+    E* __restrict__ grad_y, E* __restrict__ grad_pooled,
     long long* __restrict__ acc, unsigned* __restrict__ fxw, long long P,
     int C, long long n_seg, int relu) {
+  using V = typename bf16::Quad<E>::V;
   if (NF && *reinterpret_cast<volatile unsigned*>(fxw + 1) == 0u) return;
   const int cq = C >> 2, n4 = (cq + 3) >> 2;
   const long long w =
@@ -142,19 +161,21 @@ __global__ void segment_max_backward_concat_kernel(
   long long s = -1;
   float d[4] = {0.f, 0.f, 0.f, 0.f};
   if (row) {
-    const float4* g = reinterpret_cast<const float4*>(grad + p * 2 * C);
-    const float4 gp = g[cq + q];
+    const V* g = reinterpret_cast<const V*>(grad + p * 2 * C);
+    const float4 gp = bf16::load4_plain(g + cq + q);
     if (!NF) {
-      const float4 gy = g[q];
-      const float4 v = reinterpret_cast<const float4*>(y + p * C)[q];
-      reinterpret_cast<float4*>(grad_y + p * C)[q] =
-          make_float4(pass(gy.x, v.x, relu), pass(gy.y, v.y, relu),
-                      pass(gy.z, v.z, relu), pass(gy.w, v.w, relu));
+      const float4 gy = bf16::load4_plain(g + q);
+      const float4 v =
+          bf16::load4_plain(reinterpret_cast<const V*>(y + p * C) + q);
+      bf16::store4(reinterpret_cast<V*>(grad_y + p * C) + q,
+                   make_float4(pass(gy.x, v.x, relu), pass(gy.y, v.y, relu),
+                               pass(gy.z, v.z, relu),
+                               pass(gy.w, v.w, relu)));
     }
     s = seg[p];                  // the forward's clamp
     s = s < 0 ? 0 : (s >= n_seg ? n_seg - 1 : s);
     const float4 m =
-        __ldg(reinterpret_cast<const float4*>(pooled + s * C) + q);
+        bf16::load4(reinterpret_cast<const V*>(pooled + s * C) + q);
     d[0] = pass(gp.x, m.x, relu);
     d[1] = pass(gp.y, m.y, relu);
     d[2] = pass(gp.z, m.z, relu);
@@ -164,7 +185,8 @@ __global__ void segment_max_backward_concat_kernel(
     if (row) {
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        if (!isfinite(d[c])) atomicAdd(grad_pooled + s * C + 4 * q + c, d[c]);
+        if (!isfinite(d[c]))
+          bf16::add_nonfinite(grad_pooled + s * C + 4 * q + c, d[c]);
     }
     return;
   }
@@ -196,53 +218,53 @@ __global__ void segment_max_backward_concat_kernel(
     if (v[c]) fx::red_add(a + c, v[c]);
 }
 
-// grad_pooled = acc * 2^-k, 4 elements a thread
+// grad_pooled = acc * 2^-k, 4 elements a thread (rounded to bf16 where the
+// storage is)
+template <typename E>
 __global__ void segment_max_backward_convert_kernel(
-    const long long* __restrict__ acc, float* __restrict__ out, long long n4,
+    const long long* __restrict__ acc, E* __restrict__ out, long long n4,
     const unsigned* __restrict__ fxw, long long P) {
+  using V = typename bf16::Quad<E>::V;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
   const float inv = fx::pow2(
       -fx::scale_exp(fx::exp_of(fxw[0]) + 1, fx::log2_ceil_dev(P)));
   const longlong2 a = reinterpret_cast<const longlong2*>(acc)[2 * i];
   const longlong2 b = reinterpret_cast<const longlong2*>(acc)[2 * i + 1];
-  reinterpret_cast<float4*>(out)[i] =
-      make_float4(fx::dequantize(a.x, inv), fx::dequantize(a.y, inv),
-                  fx::dequantize(b.x, inv), fx::dequantize(b.y, inv));
+  bf16::store4(reinterpret_cast<V*>(out) + i,
+               make_float4(fx::dequantize(a.x, inv), fx::dequantize(a.y, inv),
+                           fx::dequantize(b.x, inv),
+                           fx::dequantize(b.y, inv)));
 }
 
 inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-}  // namespace
-
-// grad, pooled [n_seg, C]; y, grad_y [P, C]; ties [n_seg, C] int32 scratch
-// (zeroed here); C % 4 == 0.
-extern "C" int tdv_segment_max_backward(
-    const float* grad, const float* y, const long long* seg,
-    const uint8_t* valid, const float* pooled, int* ties, float* grad_y,
-    long long P, int C, long long n_seg, void* stream) {
+template <typename E>
+int pool_backward(const E* grad, const E* y, const long long* seg,
+                  const uint8_t* valid, const E* pooled, int* ties,
+                  E* grad_y, long long P, int C, long long n_seg,
+                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long total = P * (C / 4);
   if (total == 0) return 0;
   cudaError_t err =
       cudaMemsetAsync(ties, 0, sizeof(int) * (size_t)n_seg * C, s);
   if (err != cudaSuccess) return (int)err;
-  segment_max_backward_count_kernel<<<blocks_for(total), kThreads, 0, s>>>(
-      y, seg, valid, pooled, ties, P, C, n_seg);
-  segment_max_backward_kernel<<<blocks_for(total), kThreads, 0, s>>>(
+  segment_max_backward_count_kernel<E>
+      <<<blocks_for(total), kThreads, 0, s>>>(y, seg, valid, pooled, ties, P,
+                                              C, n_seg);
+  segment_max_backward_kernel<E><<<blocks_for(total), kThreads, 0, s>>>(
       grad, y, seg, valid, pooled, ties, grad_y, P, C, n_seg);
   return (int)cudaGetLastError();
 }
 
-// grad [P, 2C]; y, grad_y [P, C]; pooled, grad_pooled [n_seg, C]; acc
-// [n_seg, C] int64 and fxw 2 uint32 scratch (set here); C % 4 == 0.
-extern "C" int tdv_gather_concat_backward(
-    const float* grad, const float* y, const float* pooled,
-    const long long* seg, float* grad_y, float* grad_pooled, long long* acc,
-    unsigned* fxw, long long P, int C, long long n_seg, int relu,
-    void* stream) {
+template <typename E>
+int concat_backward(const E* grad, const E* y, const E* pooled,
+                    const long long* seg, E* grad_y, E* grad_pooled,
+                    long long* acc, unsigned* fxw, long long P, int C,
+                    long long n_seg, int relu, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
       cudaMemsetAsync(acc, 0, sizeof(long long) * (size_t)n_seg * C, s);
@@ -253,19 +275,67 @@ extern "C" int tdv_gather_concat_backward(
   const long long total = (P + 7) / 8 * ((C / 4 + 3) / 4) * 32;
   if (total > 0) {
     fx::amax(grad + C, P, C, 2LL * C, fxw, s);
-    segment_max_backward_concat_kernel<false>
+    segment_max_backward_concat_kernel<E, false>
         <<<blocks_for(total), kThreads, 0, s>>>(grad, y, pooled, seg, grad_y,
                                                 grad_pooled, acc, fxw, P, C,
                                                 n_seg, relu);
   }
   const long long n4 = n_seg * (C / 4);
   if (n4 > 0)
-    segment_max_backward_convert_kernel<<<blocks_for(n4), kThreads, 0, s>>>(
-        acc, grad_pooled, n4, fxw, P);
+    segment_max_backward_convert_kernel<E>
+        <<<blocks_for(n4), kThreads, 0, s>>>(acc, grad_pooled, n4, fxw, P);
   if (total > 0)
-    segment_max_backward_concat_kernel<true>
+    segment_max_backward_concat_kernel<E, true>
         <<<blocks_for(total), kThreads, 0, s>>>(grad, y, pooled, seg, grad_y,
                                                 grad_pooled, acc, fxw, P, C,
                                                 n_seg, relu);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// grad, pooled [n_seg, C]; y, grad_y [P, C]; ties [n_seg, C] int32 scratch
+// (zeroed here); C % 4 == 0.
+extern "C" int tdv_segment_max_backward(
+    const float* grad, const float* y, const long long* seg,
+    const uint8_t* valid, const float* pooled, int* ties, float* grad_y,
+    long long P, int C, long long n_seg, void* stream) {
+  return pool_backward(grad, y, seg, valid, pooled, ties, grad_y, P, C,
+                       n_seg, stream);
+}
+
+// grad [P, 2C]; y, grad_y [P, C]; pooled, grad_pooled [n_seg, C]; acc
+// [n_seg, C] int64 and fxw 2 uint32 scratch (set here); C % 4 == 0.
+extern "C" int tdv_gather_concat_backward(
+    const float* grad, const float* y, const float* pooled,
+    const long long* seg, float* grad_y, float* grad_pooled, long long* acc,
+    unsigned* fxw, long long P, int C, long long n_seg, int relu,
+    void* stream) {
+  return concat_backward(grad, y, pooled, seg, grad_y, grad_pooled, acc, fxw,
+                         P, C, n_seg, relu, stream);
+}
+
+// the same two on bf16 rows, gradients and results
+extern "C" int tdv_segment_max_backward_bf16(
+    const void* grad, const void* y, const long long* seg,
+    const uint8_t* valid, const void* pooled, int* ties, void* grad_y,
+    long long P, int C, long long n_seg, void* stream) {
+  using E = bf16::bits16;
+  return pool_backward(static_cast<const E*>(grad), static_cast<const E*>(y),
+                       seg, valid, static_cast<const E*>(pooled), ties,
+                       static_cast<E*>(grad_y), P, C, n_seg, stream);
+}
+
+extern "C" int tdv_gather_concat_backward_bf16(
+    const void* grad, const void* y, const void* pooled,
+    const long long* seg, void* grad_y, void* grad_pooled, long long* acc,
+    unsigned* fxw, long long P, int C, long long n_seg, int relu,
+    void* stream) {
+  using E = bf16::bits16;
+  return concat_backward(static_cast<const E*>(grad),
+                         static_cast<const E*>(y),
+                         static_cast<const E*>(pooled), seg,
+                         static_cast<E*>(grad_y),
+                         static_cast<E*>(grad_pooled), acc, fxw, P, C, n_seg,
+                         relu, stream);
 }

@@ -41,7 +41,7 @@
 // same sv::project, sv::footprint and sv::sample4) reads instead of
 // reducing over the sources again.
 //
-// The bf16 form (inference only; tdv_source_variance_bf16) is the same
+// The bf16 form (tdv_source_variance_bf16) is the same
 // kernel templated on the features' and the output's storage: it reads
 // four bf16 channels a tap (8 bytes), samples in fp32 as above, rounds each
 // source's sample to bf16 once (the JAX package's bilinear sample is a bf16
@@ -49,8 +49,9 @@
 // table's dtype), sums in fp32, and writes the variance in fp32 (the point
 // variance) or rounded once to bf16 (the cost volume: the JAX package's
 // cast of the fp32 variance before CostRegNet, tdvnet/models/mvsnet.py:88,
-// which halves the [R, D*h*w, C] write that bounds the call). It writes
-// no mean (no backward in bf16).
+// which halves the [R, D*h*w, C] write that bounds the call). In training
+// it also writes the fp32 mean of the bf16 samples for its backward's bf16
+// form.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -215,16 +216,16 @@ extern "C" int tdv_source_variance(const float* feats, const float* pts,
 extern "C" int tdv_source_variance_bf16(const void* feats, const float* pts,
                                         const int64_t* src_idx,
                                         const float* src_w, const float* proj,
-                                        void* out, int half_out, int R,
-                                        long long P, int S, int Hf, int Wf,
-                                        int C, float sx, float sy,
-                                        void* stream) {
+                                        void* out, float* mean_out,
+                                        int half_out, int R, long long P,
+                                        int S, int Hf, int Wf, int C,
+                                        float sx, float sy, void* stream) {
   const auto* f = static_cast<const bf16::bits16*>(feats);
   if (half_out)
     return launch_variance(f, pts, src_idx, src_w, proj,
-                           static_cast<bf16::bits16*>(out), nullptr, R, P,
+                           static_cast<bf16::bits16*>(out), mean_out, R, P,
                            S, Hf, Wf, C, sx, sy, stream);
   return launch_variance(f, pts, src_idx, src_w, proj,
-                         static_cast<float*>(out), nullptr, R, P, S, Hf, Wf,
+                         static_cast<float*>(out), mean_out, R, P, S, Hf, Wf,
                          C, sx, sy, stream);
 }

@@ -63,10 +63,22 @@
 // projection is not finite has a NaN variance in the forward and scatters
 // nothing here. Every sum is an integer sum: the result is the same bits
 // from run to run, whatever order the blocks and threads take.
+//
+// The bf16 form (tdv_source_variance_backward_bf16; a bf16 model's features
+// in training) is the same kernels templated on the storage of the
+// features and their gradient (bf16) and of the incoming gradient (bf16 at
+// the cost volume, whose variance is stored in bf16; fp32 at the points):
+// the taps widened exactly, each source's sample rounded to bf16 as the
+// bf16 forward rounds it, the terms and sums the fp32 form's fixed point
+// (the amax over the bf16 inputs), each element converted to fp32 once and
+// rounded to bf16 where it is stored; a non-finite term is added onto the
+// bf16 result by a bf16 atomic. Bound: bytes, the grad and the features at
+// their own widths.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "fixed_sum.cuh"
 #include "source_variance.cuh"
 
@@ -168,19 +180,23 @@ struct Geo {
 };
 
 // NF false: the fixed-point scatter into `acc`; NF true: only the
-// non-finite terms, as float adds into `out` (nothing unless the flag is up)
-template <int CS, bool NF>
+// non-finite terms, as float adds into `out` (nothing unless the flag is
+// up). F: the storage of the features and of `out`, Gr: of the grad (float
+// or bf16::bits16)
+template <int CS, bool NF, typename F, typename Gr>
 __global__ void __launch_bounds__(kThreads) source_variance_backward_kernel(
-    const float* __restrict__ grad,       // [R, P, C] d loss / d var
+    const Gr* __restrict__ grad,          // [R, P, C] d loss / d var
     const float* __restrict__ mean,       // [R, P, C] from the forward
-    const float* __restrict__ feats,      // [N, Hf, Wf, C]
+    const F* __restrict__ feats,          // [N, Hf, Wf, C]
     const float* __restrict__ pts,        // [R, P, 3]
     const int64_t* __restrict__ src_idx,  // [R, S]
     const float* __restrict__ src_w,      // [R, S]
     const float* __restrict__ proj,       // [N, 3, 4]
     long long* __restrict__ acc,          // [N, Hf, Wf, C] int64, zeroed
-    float* __restrict__ out,              // [N, Hf, Wf, C]
+    F* __restrict__ out,                  // [N, Hf, Wf, C]
     Scratch* __restrict__ scratch, Geo g) {
+  using FV = typename bf16::Quad<F>::V;
+  using GV = typename bf16::Quad<Gr>::V;
   // the window: each element's int64 sum as its low and high 32-bit words
   // in two planes (`fx::shared_add`), a pixel's channels padded by one
   // word so that neighbouring pixels start on other banks
@@ -221,7 +237,7 @@ __global__ void __launch_bounds__(kThreads) source_variance_backward_kernel(
     gv[j] = mu[j] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (pix_ok && q_ok && p < g.P) {
       const long long o = ((long long)r * g.P + p) * cq + q;
-      gv[j] = __ldg(reinterpret_cast<const float4*>(grad) + o);
+      gv[j] = bf16::load4(reinterpret_cast<const GV*>(grad) + o);
       mu[j] = __ldg(reinterpret_cast<const float4*>(mean) + o);
     }
   }
@@ -288,7 +304,7 @@ __global__ void __launch_bounds__(kThreads) source_variance_backward_kernel(
     unsigned* nf = &scratch->nf;
     if (q_ok) {
       const size_t base = (size_t)n * g.Hf * g.Wf * cq + q;
-      const float4* fm = reinterpret_cast<const float4*>(feats) + base;
+      const FV* fm = reinterpret_cast<const FV*>(feats) + base;
 #pragma unroll
       for (int j = 0; j < kTD; ++j) {
         if (fp[j].xy < 0) continue;
@@ -301,7 +317,8 @@ __global__ void __launch_bounds__(kThreads) source_variance_backward_kernel(
         f.xin1 = f.x0 + 1 <= g.Wf - 1;
         f.yin0 = f.y0 >= 0;
         f.yin1 = f.y0 + 1 <= g.Hf - 1;
-        const float4 fs = sv::sample4(fm, f, g.Wf, cq);
+        float4 fs = sv::sample4(fm, f, g.Wf, cq);
+        if constexpr (sizeof(F) == 2) fs = bf16::round(fs);
         const float kk = 2.f * m / c;
         float4 d = make_float4(
             gv[j].x * kk * (fs.x - mu[j].x), gv[j].y * kk * (fs.y - mu[j].y),
@@ -326,11 +343,11 @@ __global__ void __launch_bounds__(kThreads) source_variance_backward_kernel(
                            (tap >> 1 ? f.wy : 1.f - f.wy);
           if (NF) {
             const float4 v = scale4(d, wt);
-            float* o = out + base * 4 + ((size_t)ty * g.Wf + tx) * g.C;
-            if (!isfinite(v.x)) atomicAdd(o + 0, v.x);
-            if (!isfinite(v.y)) atomicAdd(o + 1, v.y);
-            if (!isfinite(v.z)) atomicAdd(o + 2, v.z);
-            if (!isfinite(v.w)) atomicAdd(o + 3, v.w);
+            F* o = out + base * 4 + ((size_t)ty * g.Wf + tx) * g.C;
+            if (!isfinite(v.x)) bf16::add_nonfinite(o + 0, v.x);
+            if (!isfinite(v.y)) bf16::add_nonfinite(o + 1, v.y);
+            if (!isfinite(v.z)) bf16::add_nonfinite(o + 2, v.z);
+            if (!isfinite(v.w)) bf16::add_nonfinite(o + 3, v.w);
             continue;
           }
           // rint(fl(d w) 2^k): the power of two is exact
@@ -375,9 +392,11 @@ __global__ void __launch_bounds__(kThreads) source_variance_backward_kernel(
   }
 }
 
-// out = acc * 2^-k, 4 elements a thread
+// out = acc * 2^-k, 4 elements a thread (rounded to bf16 where the
+// storage is)
+template <typename F>
 __global__ void source_variance_backward_finalize_kernel(
-    const long long* __restrict__ acc, float* __restrict__ out, long long n4,
+    const long long* __restrict__ acc, F* __restrict__ out, long long n4,
     const Scratch* __restrict__ scratch, int log2_terms) {
   const float inv = fx::pow2(-scale_of(scratch, log2_terms));
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
@@ -385,19 +404,21 @@ __global__ void source_variance_backward_finalize_kernel(
     const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(acc) + 2 * i);
     const longlong2 b =
         __ldcs(reinterpret_cast<const longlong2*>(acc) + 2 * i + 1);
-    reinterpret_cast<float4*>(out)[i] =
+    bf16::store4(
+        reinterpret_cast<typename bf16::Quad<F>::V*>(out) + i,
         make_float4(fx::dequantize(a.x, inv), fx::dequantize(a.y, inv),
-                    fx::dequantize(b.x, inv), fx::dequantize(b.y, inv));
+                    fx::dequantize(b.x, inv), fx::dequantize(b.y, inv)));
   }
 }
 
-template <int CS>
-void scatter(bool nf, dim3 grid, cudaStream_t st, const float* grad,
-             const float* mean, const float* feats, const float* pts,
+template <int CS, typename F, typename Gr>
+void scatter(bool nf, dim3 grid, cudaStream_t st, const Gr* grad,
+             const float* mean, const F* feats, const float* pts,
              const int64_t* src_idx, const float* src_w, const float* proj,
-             long long* acc, float* out, Scratch* scratch, const Geo& g) {
+             long long* acc, F* out, Scratch* scratch, const Geo& g) {
   if (nf) {
-    source_variance_backward_kernel<CS, true><<<grid, kThreads, 0, st>>>(
+    source_variance_backward_kernel<CS, true, F, Gr>
+        <<<grid, kThreads, 0, st>>>(
         grad, mean, feats, pts, src_idx, src_w, proj, acc, out, scratch, g);
     return;
   }
@@ -408,29 +429,24 @@ void scatter(bool nf, dim3 grid, cudaStream_t st, const float* grad,
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= kDevices || !set[dev]) {
-    cudaFuncSetAttribute(source_variance_backward_kernel<CS, false>,
+    cudaFuncSetAttribute(source_variance_backward_kernel<CS, false, F, Gr>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kWindowBytes);
     if (dev < kDevices) set[dev] = true;
   }
-  source_variance_backward_kernel<CS, false>
+  source_variance_backward_kernel<CS, false, F, Gr>
       <<<grid, kThreads, kWindowBytes, st>>>(grad, mean, feats, pts, src_idx,
                                              src_w, proj, acc, out, scratch,
                                              g);
 }
 
-}  // namespace
-
-// grad, mean [R, P, C]; feats, grad_feats [N, Hf, Wf, C]; acc [N, Hf, Wf, C]
-// int64 scratch and `scratch` 4 uint32 (both set here); C % 4 == 0;
-// the points are planes of plane_stride pixels (the last one may be cut
-// short) in rows of row_w pixels (plane_stride a multiple of row_w).
-extern "C" int tdv_source_variance_backward(
-    const float* grad, const float* mean, const float* feats, const float* pts,
-    const int64_t* src_idx, const float* src_w, const float* proj,
-    float* grad_feats, long long* acc, unsigned* scratch, int R, long long P,
-    int S, int N, int Hf, int Wf, int C, long long plane_stride,
-    long long row_w, float sx, float sy, void* stream) {
+template <typename F, typename Gr>
+int backward(const Gr* grad, const float* mean, const F* feats,
+             const float* pts, const int64_t* src_idx, const float* src_w,
+             const float* proj, F* grad_feats, long long* acc,
+             unsigned* scratch, int R, long long P, int S, int N, int Hf,
+             int Wf, int C, long long plane_stride, long long row_w,
+             float sx, float sy, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long n_out = (long long)N * Hf * Wf * C;
   if (n_out == 0) return 0;
@@ -479,7 +495,7 @@ extern "C" int tdv_source_variance_backward(
       if (nf) {
         const long long n4 = n_out / 4;
         const long long blocks = (n4 + 255) / 256;
-        source_variance_backward_finalize_kernel<<<
+        source_variance_backward_finalize_kernel<F><<<
             (unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, st>>>(
             acc, grad_feats, n4, sc, g.log2_terms);
       }
@@ -497,7 +513,45 @@ extern "C" int tdv_source_variance_backward(
       }
     }
   } else {
-    cudaMemsetAsync(grad_feats, 0, sizeof(float) * n_out, st);
+    cudaMemsetAsync(grad_feats, 0, sizeof(F) * n_out, st);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// grad, mean [R, P, C]; feats, grad_feats [N, Hf, Wf, C]; acc [N, Hf, Wf, C]
+// int64 scratch and `scratch` 4 uint32 (both set here); C % 4 == 0;
+// the points are planes of plane_stride pixels (the last one may be cut
+// short) in rows of row_w pixels (plane_stride a multiple of row_w).
+extern "C" int tdv_source_variance_backward(
+    const float* grad, const float* mean, const float* feats, const float* pts,
+    const int64_t* src_idx, const float* src_w, const float* proj,
+    float* grad_feats, long long* acc, unsigned* scratch, int R, long long P,
+    int S, int N, int Hf, int Wf, int C, long long plane_stride,
+    long long row_w, float sx, float sy, void* stream) {
+  return backward(grad, mean, feats, pts, src_idx, src_w, proj, grad_feats,
+                  acc, scratch, R, P, S, N, Hf, Wf, C, plane_stride, row_w,
+                  sx, sy, stream);
+}
+
+// the same on bf16 features and their bf16 gradient; the grad bf16 where
+// `grad_bf16` (the cost volume), else fp32
+extern "C" int tdv_source_variance_backward_bf16(
+    int grad_bf16, const void* grad, const float* mean, const void* feats,
+    const float* pts, const int64_t* src_idx, const float* src_w,
+    const float* proj, void* grad_feats, long long* acc, unsigned* scratch,
+    int R, long long P, int S, int N, int Hf, int Wf, int C,
+    long long plane_stride, long long row_w, float sx, float sy,
+    void* stream) {
+  using E = bf16::bits16;
+  const E* f = static_cast<const E*>(feats);
+  E* out = static_cast<E*>(grad_feats);
+  if (grad_bf16)
+    return backward(static_cast<const E*>(grad), mean, f, pts, src_idx,
+                    src_w, proj, out, acc, scratch, R, P, S, N, Hf, Wf, C,
+                    plane_stride, row_w, sx, sy, stream);
+  return backward(static_cast<const float*>(grad), mean, f, pts, src_idx,
+                  src_w, proj, out, acc, scratch, R, P, S, N, Hf, Wf, C,
+                  plane_stride, row_w, sx, sy, stream);
 }

@@ -55,7 +55,7 @@
 // past 32 in slices of 32), with the same operations per channel: the
 // kernel is templated on a lane's channel group, float4 or float.
 //
-// The bf16 form (inference only; tdv_trilinear_sample_bf16) is the same
+// The bf16 form (tdv_trilinear_sample_bf16) is the same
 // kernel over a bf16 grid and a bf16 output: a lane's group is four bf16
 // channels (one 8-byte load a tap, widened exactly to fp32) or one, the
 // sum is the fp32 form's, and the result is rounded once to bf16 as it is

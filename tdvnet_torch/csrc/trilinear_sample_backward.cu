@@ -81,6 +81,14 @@
 //            brick and channel group) converts the copy and stores it.
 //   nonfinite a last launch exits at once unless a term was non-finite, and
 //            then adds only those terms, as floats, onto the result.
+// The bf16 form (tdv_trilinear_sample_backward_bf16; a bf16 model's scene
+// grids in training) is the same kernels templated on the storage of
+// d out and d grid: a lane reads its two bf16 channels (4 bytes) of a
+// point's row and widens them exactly, the terms and sums are the fp32
+// form's fixed point (the amax over the bf16 d out), and each node's sum
+// is converted to fp32 once and rounded to bf16 where it is stored; a
+// non-finite term is added onto the bf16 result by a bf16 atomic. Bound:
+// bytes, half the fp32 form's.
 // The chunk (entries per work item) is sized from B * Q so that about two
 // work items run per resident block: long lists (the coarse scales' few
 // bricks) split, short ones (the finest scale's) do not. A point with
@@ -92,6 +100,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "block_scan.cuh"
 #include "fixed_sum.cuh"
 
@@ -166,10 +175,10 @@ __device__ __forceinline__ Brick brick_at(int id, const Geo& g) {
   return k;
 }
 
-__device__ __forceinline__ float4* node_row(float* grid, const Geo& g,
-                                            const Brick& k, int lx, int ly,
-                                            int lz) {
-  return reinterpret_cast<float4*>(
+template <typename E>
+__device__ __forceinline__ typename bf16::Quad<E>::V* node_row(
+    E* grid, const Geo& g, const Brick& k, int lx, int ly, int lz) {
+  return reinterpret_cast<typename bf16::Quad<E>::V*>(
       grid + ((((size_t)k.scene * g.X + k.x0 + lx) * g.Y + k.y0 + ly) * g.Z +
               k.z0 + lz) * g.C);
 }
@@ -345,10 +354,12 @@ __device__ __forceinline__ void add_run(long long* tile,
   }
 }
 
+// E: the storage of d out and d grid (float, or bf16::bits16)
+template <typename E>
 __global__ void __launch_bounds__(kSumThreads, 1)
     trilinear_sample_backward_sum_kernel(
-        const float* __restrict__ grad, const float4* __restrict__ entries,
-        Bins bins, float* __restrict__ grad_grid,
+        const E* __restrict__ grad, const float4* __restrict__ entries,
+        Bins bins, E* __restrict__ grad_grid,
         long long* __restrict__ multi, Geo g, int n_bricks, int chunk,
         int n_groups, int w_max, int log2_terms) {
   constexpr int kThreads = kSumThreads;
@@ -440,7 +451,7 @@ __global__ void __launch_bounds__(kSumThreads, 1)
       const int per = (n + n_slots - 1) / n_slots;
       const int j0 = (warp * epw + sub) * per;
       const int stop = min(j0 + per, n);
-      const float* gp = grad + c0 + 2 * lane_j;
+      const E* gp = grad + c0 + 2 * lane_j;
       longlong2 acc[8];
       int cur = -1;
       for (int jb = j0; jb < stop; jb += kBatch) {
@@ -448,8 +459,8 @@ __global__ void __launch_bounds__(kSumThreads, 1)
 #pragma unroll
         for (int u = 0; u < kBatch; ++u)
           if (jb + u < stop)
-            gv[u] = __ldg(reinterpret_cast<const float2*>(
-                gp + (size_t)__float_as_int(srec[jb + u].x) * g.C));
+            gv[u] = bf16::load2(
+                gp + (size_t)__float_as_int(srec[jb + u].x) * g.C);
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           if (jb + u >= stop) break;
@@ -508,9 +519,10 @@ __global__ void __launch_bounds__(kSumThreads, 1)
         if (lo.y) fx::red_add(dst + 2, lo.y);
         if (hi.y) fx::red_add(dst + 3, hi.y);
       } else {
-        node_row(grad_grid, g, k, lx, ly, lz)[(c0 >> 2) + m] = make_float4(
-            fx::dequantize(lo.x, inv), fx::dequantize(hi.x, inv),
-            fx::dequantize(lo.y, inv), fx::dequantize(hi.y, inv));
+        bf16::store4(
+            node_row(grad_grid, g, k, lx, ly, lz) + (c0 >> 2) + m,
+            make_float4(fx::dequantize(lo.x, inv), fx::dequantize(hi.x, inv),
+                        fx::dequantize(lo.y, inv), fx::dequantize(hi.y, inv)));
       }
     }
     if (several) {
@@ -535,9 +547,11 @@ __global__ void __launch_bounds__(kSumThreads, 1)
           const longlong2* src = reinterpret_cast<const longlong2*>(
               copy + (size_t)node * g.C + c0 + 4 * m);
           const longlong2 a = __ldcg(src), b = __ldcg(src + 1);
-          node_row(grad_grid, g, k, lx, ly, lz)[(c0 >> 2) + m] = make_float4(
-              fx::dequantize(a.x, inv), fx::dequantize(a.y, inv),
-              fx::dequantize(b.x, inv), fx::dequantize(b.y, inv));
+          bf16::store4(
+              node_row(grad_grid, g, k, lx, ly, lz) + (c0 >> 2) + m,
+              make_float4(fx::dequantize(a.x, inv), fx::dequantize(a.y, inv),
+                          fx::dequantize(b.x, inv),
+                          fx::dequantize(b.y, inv)));
         }
       }
     }
@@ -547,10 +561,11 @@ __global__ void __launch_bounds__(kSumThreads, 1)
 
 // the non-finite terms alone, as float adds onto the finished result: one
 // thread per (point, 4 channels), grid-stride; nothing unless the flag is up
+template <typename E>
 __global__ void trilinear_sample_backward_nonfinite_kernel(
-    const float* __restrict__ grad, const float* __restrict__ pts,
+    const E* __restrict__ grad, const float* __restrict__ pts,
     const float* __restrict__ center0, const unsigned* __restrict__ nf,
-    float* __restrict__ grad_grid, Geo g) {
+    E* __restrict__ grad_grid, Geo g) {
   if (*reinterpret_cast<const volatile unsigned*>(nf) == 0u) return;
   const int cq = g.C >> 2;
   const long long n = (long long)g.B * g.Q * cq;
@@ -560,7 +575,8 @@ __global__ void trilinear_sample_backward_nonfinite_kernel(
     const int q = (int)(i - bq * cq), b = (int)(bq / g.Q);
     float qx, qy, qz;
     if (!node_coords(pts, center0, bq, b, g, qx, qy, qz)) continue;
-    const float4 gv = reinterpret_cast<const float4*>(grad)[i];
+    const float4 gv = bf16::load4_plain(
+        reinterpret_cast<const typename bf16::Quad<E>::V*>(grad) + i);
     const float fx0 = floorf(qx), fy0 = floorf(qy), fz0 = floorf(qz);
     const float wx = qx - fx0, wy = qy - fy0, wz = qz - fz0;
     const int ax = (int)fx0, ay = (int)fy0, az = (int)fz0;
@@ -571,18 +587,19 @@ __global__ void trilinear_sample_backward_nonfinite_kernel(
       const float wt = ((t >> 2) ? wx : 1.f - wx) *
                        (((t >> 1) & 1) ? wy : 1.f - wy) *
                        ((t & 1) ? wz : 1.f - wz);
-      float* dst = grad_grid +
+      E* dst = grad_grid +
                    ((((size_t)b * g.X + x) * g.Y + y) * g.Z + z) * g.C + 4 * q;
       const float v[4] = {gv.x * wt, gv.y * wt, gv.z * wt, gv.w * wt};
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        if (!isfinite(v[c])) atomicAdd(dst + c, v[c]);
+        if (!isfinite(v[c])) bf16::add_nonfinite(dst + c, v[c]);
     }
   }
 }
 
 // resident blocks of the sum kernel on the current device (the attribute
 // and the occupancy query once per device and tile size)
+template <typename E>
 int sum_blocks(int smem_bytes) {
   constexpr int kDevices = 64;
   static int cached_smem[kDevices], cached_blocks[kDevices];
@@ -592,11 +609,12 @@ int sum_blocks(int smem_bytes) {
     return cached_blocks[dev];
   int n_sm = 0, per_sm = 0;
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  cudaFuncSetAttribute(trilinear_sample_backward_sum_kernel,
+  cudaFuncSetAttribute(trilinear_sample_backward_sum_kernel<E>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem_bytes);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, trilinear_sample_backward_sum_kernel, kSumThreads, smem_bytes);
+      &per_sm, trilinear_sample_backward_sum_kernel<E>, kSumThreads,
+      smem_bytes);
   if (dev < kDevices) {
     cached_smem[dev] = smem_bytes;
     cached_blocks[dev] = per_sm * n_sm;
@@ -604,19 +622,12 @@ int sum_blocks(int smem_bytes) {
   return per_sm * n_sm;
 }
 
-}  // namespace
 
-// grad [B, Q, C]; grad_grid [B, X, Y, Z, C], uninitialised (every element is
-// written); C % 4 == 0; `scratch` scratch_ints(n_bricks, C) ints (the counts,
-// a done counter, the entry offsets, the chunk offsets and the ranks, n_bricks
-// + 1 each, the tickets, n_bricks * ceil(C / 32), and the fixed point's two
-// words) for the n_bricks bricks of 8^3 nodes; `entries` 8 * B * Q float4;
-// `multi` int64, 8^3 * C for each brick that can hold several chunks (at
-// most min(n_bricks, 8 B Q / 1025 + 1)); B * Q * 8 < 2^31.
-extern "C" int tdv_trilinear_sample_backward(
-    const float* grad, const float* pts, const float* center0,
-    float* grad_grid, int* scratch, float* entries, long long* multi, int B,
-    long long Q, int X, int Y, int Z, int C, float cell, void* stream) {
+template <typename E>
+int backward(const E* grad, const float* pts, const float* center0,
+             E* grad_grid, int* scratch, float* entries, long long* multi,
+             int B, long long Q, int X, int Y, int Z, int C, float cell,
+             void* stream) {
   if (B <= 0 || X <= 0 || Y <= 0 || Z <= 0 || C <= 0) return 0;
   const Geo g{B, Q, X, Y, Z, C, cell, (X + kB - 1) / kB, (Y + kB - 1) / kB,
               (Z + kB - 1) / kB};
@@ -625,7 +636,7 @@ extern "C" int tdv_trilinear_sample_backward(
   const long long n_pts = (long long)B * Q;
   const int n_groups = (C + kGroup - 1) / kGroup;
   const int smem = sum_smem_bytes(min(C, kGroup));
-  const int resident = sum_blocks(smem);
+  const int resident = sum_blocks<E>(smem);
   if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
   // about two work items per resident block
   const long long want = 3 * n_pts * n_groups / (4LL * resident) + 1;
@@ -658,10 +669,38 @@ extern "C" int tdv_trilinear_sample_backward(
   const long long max_items =
       (n_bricks + (8 * n_pts + chunk - 1) / chunk) * (long long)n_groups;
   const int blocks = (int)(max_items < resident ? max_items : resident);
-  trilinear_sample_backward_sum_kernel<<<blocks, kSumThreads, smem, s>>>(
+  trilinear_sample_backward_sum_kernel<E><<<blocks, kSumThreads, smem, s>>>(
       grad, ent, bins, grad_grid, multi, g, n_bricks, chunk, n_groups,
       min(C, kGroup), fx::log2_ceil(Q > 0 ? Q : 1));
-  trilinear_sample_backward_nonfinite_kernel<<<132 * 4, 256, 0, s>>>(
+  trilinear_sample_backward_nonfinite_kernel<E><<<132 * 4, 256, 0, s>>>(
       grad, pts, center0, fxw + 1, grad_grid, g);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// grad [B, Q, C]; grad_grid [B, X, Y, Z, C], uninitialised (every element is
+// written); C % 4 == 0; `scratch` scratch_ints(n_bricks, C) ints (the counts,
+// a done counter, the entry offsets, the chunk offsets and the ranks, n_bricks
+// + 1 each, the tickets, n_bricks * ceil(C / 32), and the fixed point's two
+// words) for the n_bricks bricks of 8^3 nodes; `entries` 8 * B * Q float4;
+// `multi` int64, 8^3 * C for each brick that can hold several chunks (at
+// most min(n_bricks, 8 B Q / 1025 + 1)); B * Q * 8 < 2^31.
+extern "C" int tdv_trilinear_sample_backward(
+    const float* grad, const float* pts, const float* center0,
+    float* grad_grid, int* scratch, float* entries, long long* multi, int B,
+    long long Q, int X, int Y, int Z, int C, float cell, void* stream) {
+  return backward(grad, pts, center0, grad_grid, scratch, entries, multi, B,
+                  Q, X, Y, Z, C, cell, stream);
+}
+
+// the same on a bf16 d out and a bf16 d grid
+extern "C" int tdv_trilinear_sample_backward_bf16(
+    const void* grad, const float* pts, const float* center0,
+    void* grad_grid, int* scratch, float* entries, long long* multi, int B,
+    long long Q, int X, int Y, int Z, int C, float cell, void* stream) {
+  using E = bf16::bits16;
+  return backward(static_cast<const E*>(grad), pts, center0,
+                  static_cast<E*>(grad_grid), scratch, entries, multi, B, Q,
+                  X, Y, Z, C, cell, stream);
 }

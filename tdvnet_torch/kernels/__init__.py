@@ -11,8 +11,9 @@ reached through a `torch.autograd.Function` when autograd records the
 call; on CUDA tensors every other wrapper (the fast path's, 3D
 evaluation's, voxelization, the probes) raises `NotImplementedError` when an
 input requires grad, since its launch returns a tensor without a
-`grad_fn`. Six forwards have a bf16 form for bf16 inference (`BF16_FORMS`),
-which their wrapper launches for bf16 inputs; any other dtype raises.
+`grad_fn`. Six forwards and their six backwards have a bf16 form, for a
+bf16 model's inference and training (`BF16_FORMS`), which their wrapper
+launches for bf16 inputs; any other dtype raises.
 """
 from tdvnet_torch.kernels.fusion import consistency_fuse
 from tdvnet_torch.kernels.groupnorm import (masked_group_norm,
@@ -65,8 +66,9 @@ WRAPPERS = {
 }
 
 
-# the bf16 forms (bf16 inference): each counts its launches in its
-# wrapper's `bf16_launches` (the fp32 form's stay in `launches`)
+# the bf16 forms (a bf16 model's inference and training): each counts its
+# launches in its wrapper's `bf16_launches` (the fp32 form's stay in
+# `launches`)
 BF16_FORMS = {
     "source_variance_bf16": source_variance,
     "trilinear_sample_bf16": trilinear_sample,
@@ -74,6 +76,13 @@ BF16_FORMS = {
     "segment_max_bf16": segment_max,
     "gather_concat_bf16": gather_concat,
     "masked_group_norm_bf16": masked_group_norm,
+    "source_variance_backward_bf16": source_variance_backward,
+    "trilinear_sample_backward_bf16": trilinear_sample_backward,
+    "scatter_anchors_to_dense_backward_bf16":
+        scatter_anchors_to_dense_backward,
+    "segment_max_backward_bf16": segment_max_backward,
+    "gather_concat_backward_bf16": gather_concat_backward,
+    "masked_group_norm_backward_bf16": masked_group_norm_backward,
 }
 
 

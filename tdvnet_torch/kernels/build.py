@@ -76,11 +76,19 @@ SIGNATURES = {
 # the bf16 forms take the fp32 entry points' arguments (the variance's
 # `half_out` flag where the fp32 form has its mean pointer)
 SIGNATURES.update({
-    "tdv_source_variance_bf16": [_P] * 6 + [_I, _I, _L, _I, _I, _I, _I, _F,
+    "tdv_source_variance_bf16": [_P] * 7 + [_I, _I, _L, _I, _I, _I, _I, _F,
                                             _F, _P],
+    "tdv_masked_group_norm_backward_shape_bf16":
+        SIGNATURES["tdv_masked_group_norm_backward_shape"],
+    # the first argument says whether the grad is bf16 (else fp32)
+    "tdv_source_variance_backward_bf16":
+        [_I] + SIGNATURES["tdv_source_variance_backward"],
     **{name + "_bf16": SIGNATURES[name] for name in (
         "tdv_trilinear_sample", "tdv_scatter_dense", "tdv_segment_max",
-        "tdv_gather_concat", "tdv_masked_group_norm")},
+        "tdv_gather_concat", "tdv_masked_group_norm",
+        "tdv_scatter_dense_backward", "tdv_segment_max_backward",
+        "tdv_gather_concat_backward", "tdv_masked_group_norm_backward",
+        "tdv_trilinear_sample_backward")},
 })
 
 

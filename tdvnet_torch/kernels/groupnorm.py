@@ -16,13 +16,19 @@ records a call (grad mode on and an input requiring grad), it goes through
 `MaskedGroupNormFn`, which keeps the forward's statistics, bias and output
 for `masked_group_norm_backward`.
 
-A bf16 x (with its bf16 mask and skip; inference only) goes to the
-forward's bf16 form: the same float64 statistics of the bf16 values, then
-the tail in fp32 arithmetic rounded to bf16 where the JAX package's
-separate bf16 ops store: the normalised x, its product with the bf16
-weight, the sum with the bf16 bias, and the residual add (the twin does
-the same in torch's bf16 ops, which round each result). Its launches count
-in `masked_group_norm.bf16_launches`.
+A bf16 x (with its bf16 mask and skip) goes to the forward's bf16 form:
+the same float64 statistics of the bf16 values, then the tail in fp32
+arithmetic rounded to bf16 where the JAX package's separate bf16 ops
+store: the normalised x, its product with the bf16 weight, the sum with
+the bf16 bias, and the residual add (the twin does the same in torch's
+bf16 ops, which round each result). Its launches count
+in `masked_group_norm.bf16_launches`. The backward's bf16 form (a bf16
+model in training) takes the bf16 grad, x, mask and output, the forward's
+statistics and the bf16-cast weight, computes in fp32 as the fp32 form
+(the ReLU seen in the output) and rounds d x and d skip once to bf16, and
+d weight and d bias, the gradients of the bf16-cast affine, once to bf16
+values held in fp32 (autograd's cast widens them to the fp32 parameters;
+`masked_group_norm_backward.bf16_launches`).
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu, wants_grad
+from tdvnet_torch.kernels._launch import (at_least_fp32, check, launch,
+                                          on_cpu, wants_grad)
 
 # the forward's statistics blocks: each sums STATS_VOXELS voxels of a
 # (batch, group) slice over a chunk of the group's channels, the chunks cut
@@ -47,7 +54,8 @@ _SCRATCH = {}
 # and coefficients; uint32 counters (zero between calls); uint32 ready
 # epochs; the last epoch], reused by every call on that stream
 _BACKWARD_SCRATCH = {}
-# (device index, B, C, G, V): the backward's block shape (CC, VB, n_vb)
+# (device index, B, C, G, V, bf16): the backward's block shape (CC, VB,
+# n_vb)
 _BACKWARD_SHAPE = {}
 
 
@@ -115,7 +123,18 @@ def masked_group_norm_backward_ref(grad: torch.Tensor, x: torch.Tensor,
     where out > 0 under a ReLU tail), per (batch, group) with xn the
     normalised input and n the count:
     d x = rstd (w g' - m (sum w g' + xn sum w g' xn [var >= 0]) / n),
-    d weight = sum g' xn, d bias = sum g', d skip = g'."""
+    d weight = sum g' xn, d bias = sum g', d skip = g'. A bf16 x (the bf16
+    form): the same in fp32 on the widened inputs with the bf16-cast
+    weight, the ReLU seen in the output, d x and d skip rounded once to
+    bf16, d weight and d bias once to bf16 values in the weight's dtype."""
+    if x.dtype == torch.bfloat16:
+        bf = torch.bfloat16
+        dx, dw, db, ds = masked_group_norm_backward_ref(
+            at_least_fp32(grad), at_least_fp32(x), at_least_fp32(mask),
+            num_groups, weight.to(bf).to(at_least_fp32(weight).dtype),
+            at_least_fp32(out), eps, relu or skip, skip)
+        return (dx.to(bf), dw.to(bf).to(weight.dtype),
+                db.to(bf).to(weight.dtype), None if ds is None else ds.to(bf))
     B, C = x.shape[:2]
     G = num_groups
     xg, mean, var, cnt = _group_stats(x, mask, G)
@@ -272,11 +291,12 @@ def masked_group_norm_backward(grad: torch.Tensor, x: torch.Tensor,
                                eps: float = 1e-5, relu: bool = False,
                                skip: bool = False, *, bias: torch.Tensor):
     """Same contract as `masked_group_norm_backward_ref`, with the forward's
-    `bias` besides; launches the CUDA kernel for CUDA tensors, which reads
-    the forward kernel's `stats` [B*G, 4] (the twin recomputes them and
-    ignores the argument). A ReLU tail without skip is seen by recomputing
-    the forward's output from x and the bias (the same bits), one after a
-    skip by reading `out`."""
+    `bias` besides; launches the CUDA kernel for CUDA tensors (its bf16
+    form for a bf16 x), which reads the forward kernel's `stats` [B*G, 4]
+    (the twin recomputes them and ignores the argument). In fp32 a ReLU
+    tail without skip is seen by recomputing the forward's output from x
+    and the bias (the same bits); one after a skip, and every bf16 tail, by
+    reading `out`."""
     if on_cpu(grad, x, mask, weight, out):
         return masked_group_norm_backward_ref(grad, x, mask, num_groups,
                                               weight, out, eps, relu, skip)
@@ -284,9 +304,11 @@ def masked_group_norm_backward(grad: torch.Tensor, x: torch.Tensor,
     G = num_groups
     shp = x.shape
     V = x.numel() // (B * C) if B * C else 0
+    half = x.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if half else torch.float32
     for name, tsr in (("grad", grad), ("x", x), ("out", out)):
-        check(tsr, name, torch.float32, shp)
-    check(mask, "mask", torch.float32, (B, 1, *shp[2:]))
+        check(tsr, name, dtype, shp)
+    check(mask, "mask", dtype, (B, 1, *shp[2:]))
     check(weight, "weight", torch.float32, (C,))
     check(stats, "stats", torch.float32, (B * G, 4))
     check(bias, "bias", torch.float32, (C,))
@@ -296,27 +318,32 @@ def masked_group_norm_backward(grad: torch.Tensor, x: torch.Tensor,
     dw = torch.empty((C,), dtype=torch.float32, device=dev)
     db = torch.empty_like(dw)
     mode = 2 if skip else int(relu)
-    cc, vb, n_vb = _backward_shape(dev, B, C, G, V)
+    cc, vb, n_vb = _backward_shape(dev, B, C, G, V, half)
     part, sync, ready, epoch = _backward_scratch(
         dev, B * G * n_vb * (C // G) * 2 + B * C * 2 + B * G * 2,
         B * G + G, B * G)
     n_part = B * G * n_vb * (C // G) * 2
-    launch("tdv_masked_group_norm_backward", dev, grad.data_ptr(),
+    launch("tdv_masked_group_norm_backward_bf16" if half
+           else "tdv_masked_group_norm_backward", dev, grad.data_ptr(),
            x.data_ptr(), mask.data_ptr(), out.data_ptr(), weight.data_ptr(),
            bias.data_ptr(),
            stats.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
            ds.data_ptr() if skip else None, part,
            part + 4 * n_part, part + 4 * (n_part + B * C * 2), sync, ready,
            B, C, G, V, mode, cc, vb, epoch)
-    masked_group_norm_backward.launches += 1
+    if half:
+        masked_group_norm_backward.bf16_launches += 1
+    else:
+        masked_group_norm_backward.launches += 1
     return dx, dw, db, ds
 
 
-def _backward_shape(dev, B, C, G, V):
-    """(CC, VB, n_vb) of the backward kernel for this shape on this card
-    (`tdv_masked_group_norm_backward_shape`), cached."""
+def _backward_shape(dev, B, C, G, V, half=False):
+    """(CC, VB, n_vb) of the backward kernel (its bf16 form with `half`)
+    for this shape on this card (`tdv_masked_group_norm_backward_shape`),
+    cached."""
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    key = (index, B, C, G, V)
+    key = (index, B, C, G, V, half)
     have = _BACKWARD_SHAPE.get(key)
     if have is None:
         if C % G or C // G > 32 and (C // G) % 2:
@@ -327,9 +354,10 @@ def _backward_shape(dev, B, C, G, V):
         from tdvnet_torch.kernels.build import library
 
         out = (ctypes.c_longlong * 3)()
+        fn = (library().tdv_masked_group_norm_backward_shape_bf16 if half
+              else library().tdv_masked_group_norm_backward_shape)
         with torch.cuda.device(index):
-            err = library().tdv_masked_group_norm_backward_shape(
-                B, C, G, V, out)
+            err = fn(B, C, G, V, out)
         if err:
             raise RuntimeError(f"masked_group_norm_backward: no block shape "
                                f"for {(B, C, G, V)} (CUDA error {err})")
@@ -361,3 +389,4 @@ def _backward_scratch(dev, n_float, n_sync, n_ready):
 
 
 masked_group_norm_backward.launches = 0
+masked_group_norm_backward.bf16_launches = 0

@@ -13,12 +13,15 @@ When autograd records a pool or a concat-back (grad mode on and an input
 requiring grad), it goes through `SegmentMaxFn` or `GatherConcatFn`, whose
 backwards are `segment_max_backward` and `gather_concat_backward`.
 
-bf16 rows (inference only) go to the pool's and the concat-back's bf16
+bf16 rows go to the pool's and the concat-back's bf16
 forms: a max and a copy are exact in any type, so these are bit-equal to
 the JAX package's bf16 ops and to an fp32 run of the same values followed
 by a cast (the empty-segment threshold NEG / 2 taken in bf16, as there).
 Their launches count in `segment_max.bf16_launches` and
-`gather_concat.bf16_launches`.
+`gather_concat.bf16_launches`. Their backwards' bf16 forms (a bf16 model in
+training): the pool's share g / n in fp32, rounded once to bf16; the
+concat-back's y half a masked copy and its segment sum in the fp32 form's
+fixed point, rounded once to bf16 (`*_backward.bf16_launches`).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from tdvnet_torch.kernels._launch import check, launch, on_cpu, wants_grad
+from tdvnet_torch.kernels._launch import (at_least_fp32, check, launch,
+                                          on_cpu, wants_grad)
 
 NEG = -1e30
 # a segment of more rows than this is pooled by the kernel's long path
@@ -134,7 +138,12 @@ def segment_max_backward_ref(grad: torch.Tensor, y: torch.Tensor,
     forward's result `pooled`: a valid row equal to its segment's maximum
     takes the segment's gradient divided by the number of rows tied there
     (JAX's scatter-max rule); every other row takes nothing, as do all rows
-    of a segment that reads 0 for want of a valid row."""
+    of a segment that reads 0 for want of a valid row. bf16 rows: the
+    share in fp32, rounded once to bf16."""
+    if y.dtype == torch.bfloat16:
+        return segment_max_backward_ref(
+            at_least_fp32(grad), at_least_fp32(y), seg, valid,
+            at_least_fp32(pooled)).to(torch.bfloat16)
     hit = valid[:, None] & (y == pooled[seg])
     ties = torch.zeros_like(pooled).index_add_(0, seg, hit.to(pooled.dtype))
     share = grad[seg] / ties[seg].clamp(min=1.0)
@@ -159,7 +168,14 @@ def gather_concat_backward_ref(grad: torch.Tensor, y: torch.Tensor,
     """(d loss / d y [P, C], d loss / d pooled [n_seg, C]) from grad =
     d loss / d out [P, 2C]: the first half passes to y, the second is summed
     into each row's segment; with `relu`, only where the output is
-    positive."""
+    positive. bf16 rows: the sums in fp32, each result rounded once to
+    bf16."""
+    if y.dtype == torch.bfloat16:
+        bf = torch.bfloat16
+        gy, gp = gather_concat_backward_ref(
+            at_least_fp32(grad), at_least_fp32(y), at_least_fp32(pooled), seg,
+            relu)
+        return gy.to(bf), gp.to(bf)
     C = y.shape[1]
     gy, gp = grad[:, :C], grad[:, C:]
     if relu:
@@ -328,25 +344,31 @@ def segment_max_backward(grad: torch.Tensor, y: torch.Tensor,
                          seg: torch.Tensor, valid: torch.Tensor,
                          pooled: torch.Tensor) -> torch.Tensor:
     """Same contract as `segment_max_backward_ref`; launches the CUDA kernel
-    for CUDA tensors."""
+    for CUDA tensors (its bf16 form for bf16 rows)."""
     if on_cpu(grad, y, seg, valid, pooled):
         return segment_max_backward_ref(grad, y, seg, valid, pooled)
     P, C = y.shape
     n_seg = pooled.shape[0]
-    _check_rows(y, seg, P, C, "segment_max_backward")
+    half = y.dtype == torch.bfloat16
+    _check_rows(y, seg, P, C, "segment_max_backward", half)
     check(valid, "valid", torch.bool, (P,))
-    check(pooled, "pooled", torch.float32, (n_seg, C))
-    check(grad, "grad", torch.float32, (n_seg, C))
+    check(pooled, "pooled", y.dtype, (n_seg, C))
+    check(grad, "grad", y.dtype, (n_seg, C))
     ties = torch.empty((n_seg, C), dtype=torch.int32, device=y.device)
     out = torch.empty_like(y)
-    launch("tdv_segment_max_backward", y.device, grad.data_ptr(),
+    launch("tdv_segment_max_backward_bf16" if half
+           else "tdv_segment_max_backward", y.device, grad.data_ptr(),
            y.data_ptr(), seg.data_ptr(), valid.data_ptr(), pooled.data_ptr(),
            ties.data_ptr(), out.data_ptr(), P, C, n_seg)
-    segment_max_backward.launches += 1
+    if half:
+        segment_max_backward.bf16_launches += 1
+    else:
+        segment_max_backward.launches += 1
     return out
 
 
 segment_max_backward.launches = 0
+segment_max_backward.bf16_launches = 0
 
 
 def _gather_concat(y, pooled, seg, relu):
@@ -403,24 +425,31 @@ def gather_concat_backward(grad: torch.Tensor, y: torch.Tensor,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same contract as `gather_concat_backward_ref`; launches the CUDA
     kernel for CUDA tensors (the segment sum in fixed point, so it is the
-    same bits on every launch)."""
+    same bits on every launch; its bf16 form for bf16 rows, the sum rounded
+    once to bf16)."""
     if on_cpu(grad, y, pooled, seg):
         return gather_concat_backward_ref(grad, y, pooled, seg, relu)
     P, C = y.shape
     n_seg = pooled.shape[0]
-    _check_rows(y, seg, P, C, "gather_concat_backward")
-    check(pooled, "pooled", torch.float32, (n_seg, C))
-    check(grad, "grad", torch.float32, (P, 2 * C))
+    half = y.dtype == torch.bfloat16
+    _check_rows(y, seg, P, C, "gather_concat_backward", half)
+    check(pooled, "pooled", y.dtype, (n_seg, C))
+    check(grad, "grad", y.dtype, (P, 2 * C))
     gy = torch.empty_like(y)
     gp = torch.empty_like(pooled)
     acc = torch.empty((n_seg, C), dtype=torch.int64, device=y.device)
     fxw = torch.empty((2,), dtype=torch.int32, device=y.device)
-    launch("tdv_gather_concat_backward", y.device, grad.data_ptr(),
+    launch("tdv_gather_concat_backward_bf16" if half
+           else "tdv_gather_concat_backward", y.device, grad.data_ptr(),
            y.data_ptr(), pooled.data_ptr(), seg.data_ptr(), gy.data_ptr(),
            gp.data_ptr(), acc.data_ptr(), fxw.data_ptr(), P, C, n_seg,
            int(relu))
-    gather_concat_backward.launches += 1
+    if half:
+        gather_concat_backward.bf16_launches += 1
+    else:
+        gather_concat_backward.launches += 1
     return gy, gp
 
 
 gather_concat_backward.launches = 0
+gather_concat_backward.bf16_launches = 0

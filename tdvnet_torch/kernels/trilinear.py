@@ -28,11 +28,14 @@ the int8 grid and its scales (sampled into a whole-group scratch copied
 into the slice), and slice the real channels out; every channel's sum is
 its own, so those are exact.
 
-A bf16 grid (inference only) goes to the forward's bf16 form: it reads the
-bf16 taps, sums in fp32 in the fp32 form's order and rounds once to bf16
-into a bf16 output's channel slice (the JAX package sums in bf16: each
-product and partial sum rounded, up to ~180 bf16 ulps off where taps
-cancel). Its launches count in `trilinear_sample.bf16_launches`.
+A bf16 grid goes to the forward's bf16 form: it reads the bf16 taps, sums
+in fp32 in the fp32 form's order and rounds once to bf16 into a bf16
+output's channel slice (the JAX package sums in bf16: each product and
+partial sum rounded, up to ~180 bf16 ulps off where taps cancel). Its
+launches count in `trilinear_sample.bf16_launches`. The grid backward's
+bf16 form (a bf16 model in training) reads a bf16 incoming gradient, sums
+in the fp32 form's fixed point and rounds each node's gradient once to
+bf16 (`trilinear_sample_backward.bf16_launches`).
 """
 from __future__ import annotations
 
@@ -78,7 +81,11 @@ def trilinear_sample_backward_ref(grad: torch.Tensor, pts: torch.Tensor,
     [B, Q, C] (`trilinear_sample_ref`'s): each point adds g * w into each of
     its 8 taps with the forward's weights; taps outside the grid take
     nothing, nor does a point whose coordinates are not finite. The points
-    take no gradient."""
+    take no gradient. A bf16 grad (a bf16 grid's) sums in fp32 and the
+    result is rounded once to bf16."""
+    if grad.dtype == torch.bfloat16:
+        return trilinear_sample_backward_ref(
+            grad.float(), pts, center0, cell, grid_shape).to(torch.bfloat16)
     B, X, Y, Z, C = grid_shape
     dims = (X, Y, Z)
     q = _node_coords(pts, center0, cell, 0.0)
@@ -179,13 +186,13 @@ trilinear_sample.bf16_launches = 0
 
 
 class TrilinearSampleFn(torch.autograd.Function):
-    """One scale's sampling into its own [B, Q, C], with the hand backward
-    for the grid."""
+    """One scale's sampling into its own [B, Q, C] (the grid's dtype), with
+    the hand backward for the grid."""
 
     @staticmethod
     def forward(ctx, grid, pts, center0, cell):
         B, Q = pts.shape[:2]
-        out = torch.empty((B, Q, grid.shape[-1]), dtype=torch.float32,
+        out = torch.empty((B, Q, grid.shape[-1]), dtype=grid.dtype,
                           device=grid.device)
         _trilinear_sample(grid, pts, center0, cell, out, 0)
         ctx.save_for_backward(pts, center0)
@@ -204,7 +211,8 @@ def trilinear_sample_scale(grid: torch.Tensor, pts: torch.Tensor,
                            center0: torch.Tensor,
                            cell: float) -> torch.Tensor:
     """`trilinear_sample_ref(grid, pts, center0, cell)` as a new [B, Q, C]
-    tensor, differentiable in the grid (the points take no gradient)."""
+    tensor of the grid's dtype, differentiable in the grid (the points take
+    no gradient)."""
     if on_cpu(grid, pts, center0):
         return trilinear_sample_ref(grid, pts, center0, cell)
     if wants_grad(pts, center0):
@@ -213,7 +221,7 @@ def trilinear_sample_scale(grid: torch.Tensor, pts: torch.Tensor,
             "JAX package stops it); detach them")
     if wants_grad(grid):
         return TrilinearSampleFn.apply(grid, pts, center0, cell)
-    out = torch.empty((*pts.shape[:2], grid.shape[-1]), dtype=torch.float32,
+    out = torch.empty((*pts.shape[:2], grid.shape[-1]), dtype=grid.dtype,
                       device=grid.device)
     return _trilinear_sample(grid, pts, center0, cell, out, 0)
 
@@ -223,7 +231,8 @@ def trilinear_sample_backward(grad: torch.Tensor, pts: torch.Tensor,
                               grid_shape) -> torch.Tensor:
     """Same contract as `trilinear_sample_backward_ref`; launches the CUDA
     kernel for CUDA tensors (fixed-point integer sums: the same bits on
-    every launch, whatever order the points come in)."""
+    every launch, whatever order the points come in; its bf16 form for a
+    bf16 grad)."""
     if on_cpu(grad, pts, center0):
         return trilinear_sample_backward_ref(grad, pts, center0, cell,
                                              grid_shape)
@@ -236,13 +245,15 @@ def trilinear_sample_backward(grad: torch.Tensor, pts: torch.Tensor,
     if 8 * B * Q >= 2 ** 31:
         raise ValueError(f"trilinear_sample_backward: {B} x {Q} points are "
                          f"outside the kernel's int32 entry space")
-    check(grad, "grad", torch.float32, (B, Q, C))
+    half = grad.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if half else torch.float32
+    check(grad, "grad", dtype, (B, Q, C))
     check(pts, "pts", torch.float32, (B, Q, 3))
     check(center0, "center0", torch.float32, (B, 3))
     dev = grad.device
     n_bricks = brick_count(grid_shape)
     # every element of the output is written by the kernel
-    out = torch.empty(tuple(grid_shape), dtype=torch.float32, device=dev)
+    out = torch.empty(tuple(grid_shape), dtype=dtype, device=dev)
     n_groups = -(-C // GROUP)
     scratch = torch.empty((4 * n_bricks + 4 + n_bricks * n_groups + 2,),
                           dtype=torch.int32, device=dev)
@@ -253,11 +264,15 @@ def trilinear_sample_backward(grad: torch.Tensor, pts: torch.Tensor,
     n_multi = min(n_bricks, 8 * B * Q // (MIN_CHUNK + 1) + 1)
     multi = torch.empty((n_multi, BRICK ** 3 * C), dtype=torch.int64,
                         device=dev)
-    launch("tdv_trilinear_sample_backward", dev, grad.data_ptr(),
+    launch("tdv_trilinear_sample_backward_bf16" if half
+           else "tdv_trilinear_sample_backward", dev, grad.data_ptr(),
            pts.data_ptr(), center0.data_ptr(), out.data_ptr(),
            scratch.data_ptr(), entries.data_ptr(), multi.data_ptr(), B, Q, X,
            Y, Z, C, float(cell))
-    trilinear_sample_backward.launches += 1
+    if half:
+        trilinear_sample_backward.bf16_launches += 1
+    else:
+        trilinear_sample_backward.launches += 1
     return out
 
 
@@ -269,6 +284,7 @@ def brick_count(grid_shape) -> int:
 
 
 trilinear_sample_backward.launches = 0
+trilinear_sample_backward.bf16_launches = 0
 
 
 def trilinear_sample_i8(grid: torch.Tensor, scale: torch.Tensor,

@@ -18,13 +18,18 @@ change. (A form with one channel a thread ran 2.8x slower than padding at
 the cost volume with 30 channels: its lanes no longer share a point's
 projections; PERF.md, section 6.)
 
-bf16 features (inference only): the kernel's bf16 form reads the bf16
-taps, interpolates and sums in fp32, and rounds each source's sample to
-bf16 once, where the JAX package stores a bf16 sample (its bilinear
-interpolation runs in the table's dtype); the variance is fp32, or rounded
-once to bf16 as it is written (`out_dtype`), which is the JAX package's
-cast of the fp32 variance before CostRegNet, bit for bit. Its launches
-count in `source_variance.bf16_launches`, the fp32 form's in `launches`.
+bf16 features: the kernel's bf16 form reads the bf16 taps, interpolates
+and sums in fp32, and rounds each source's sample to bf16 once, where the
+JAX package stores a bf16 sample (its bilinear interpolation runs in the
+table's dtype); the variance is fp32, or rounded once to bf16 as it is
+written (`out_dtype`), which is the JAX package's cast of the fp32
+variance before CostRegNet, bit for bit. Its launches count in
+`source_variance.bf16_launches`, the fp32 form's in `launches`. The
+backward's bf16 form (a bf16 model in training) takes the incoming
+gradient in bf16 (a bf16 variance) or fp32, the forward's fp32 mean and
+the bf16 features, resamples each source as the forward rounded it, sums
+its terms in the fp32 form's fixed point and rounds the feature gradient
+once to bf16 (`source_variance_backward.bf16_launches`).
 """
 from __future__ import annotations
 
@@ -90,12 +95,18 @@ def source_variance_backward_ref(grad: torch.Tensor, mean: torch.Tensor,
                                  pts_world: torch.Tensor, feats: torch.Tensor,
                                  src_idx: torch.Tensor, src_mask: torch.Tensor,
                                  P_all: torch.Tensor,
-                                 img_size: Tuple[int, int]) -> torch.Tensor:
+                                 img_size: Tuple[int, int],
+                                 sample_dtype=None) -> torch.Tensor:
     """d loss / d feats [N, Hf, Wf, C] from grad = d loss / d var and the
     forward's mean (both [R, P, C]): each source sample f_s takes
     g * 2 m_s (f_s - mean) / cnt, spread over its four bilinear taps with
     the forward's weights (taps off the map take nothing). A point whose
-    projection is not finite (NaN variance in the forward) gives nothing."""
+    projection is not finite (NaN variance in the forward) gives nothing.
+    bf16 features: each sample rounded to bf16 as the forward's, the sums
+    in fp32 (or float64 for a float64 grad), the result rounded once to
+    bf16. `sample_dtype` bf16 rounds the samples of wider features so
+    (the float64 referee of the bf16 form: bf16 values in float64, the
+    result unrounded)."""
     R, P, _ = pts_world.shape
     N, Hf, Wf, C = feats.shape
     S = src_idx.shape[1]
@@ -104,12 +115,18 @@ def source_variance_backward_ref(grad: torch.Tensor, mean: torch.Tensor,
     mask = src_mask.to(torch.float32)
     cnt = mask.sum(dim=1).clamp(min=1.0)
     # fp32, or float64 for a float64 reference run
-    dtype = torch.promote_types(grad.dtype, feats.dtype)
+    dtype = torch.promote_types(torch.promote_types(grad.dtype, feats.dtype),
+                                torch.float32)
+    half = feats.dtype == torch.bfloat16
+    sample_dtype = torch.bfloat16 if half else sample_dtype
+    grad = grad.to(dtype)
     out = torch.zeros((N * Hf * Wf, C), dtype=dtype, device=feats.device)
     for s in range(S):
         idx = src_idx[:, s]
         xy = _source_xy(pts_world, P_all, idx, scale)
         f = bilinear_sample_batched(feats[idx], xy)
+        if sample_dtype is not None:
+            f = f.to(sample_dtype).to(dtype)
         d = grad * (2.0 * mask[:, s] / cnt)[:, None, None] * (f - mean)
         x, y = xy[..., 0], xy[..., 1]
         x0f, okx, x0 = _floor_in(x, Wf - 1)
@@ -127,7 +144,8 @@ def source_variance_backward_ref(grad: torch.Tensor, mean: torch.Tensor,
             val = torch.where(inb[..., None], d * wgt[..., None],
                               torch.zeros_like(d))
             out.index_add_(0, rows.reshape(-1), val.reshape(-1, C))
-    return out.reshape(N, Hf, Wf, C)
+    out = out.reshape(N, Hf, Wf, C)
+    return out.to(torch.bfloat16) if half else out
 
 
 def _check_args(pts_world, feats, src_idx, src_mask, P_all, name,
@@ -162,23 +180,22 @@ def _source_variance(pts_world, feats, src_idx, src_mask, P_all, img_size,
                          else (torch.float32,)):
         raise TypeError(f"source_variance: no {out_dtype} variance from "
                         f"{feats.dtype} features")
-    if half and with_mean:
-        raise NotImplementedError("source_variance: the bf16 form has no "
-                                  "backward (inference only)")
     R, P, S, N, Hf, Wf, C = _check_args(
         pts_world, feats, src_idx, src_mask, P_all, "source_variance",
         torch.bfloat16 if half else torch.float32)
     src_w = src_mask.to(torch.float32).contiguous()
     sx, sy = _feature_scale(feats, img_size)
     out = torch.empty((R, P, C), dtype=out_dtype, device=feats.device)
+    mean = torch.empty((R, P, C), dtype=torch.float32,
+                       device=feats.device) if with_mean else None
     if half:
         launch("tdv_source_variance_bf16", feats.device, feats.data_ptr(),
                pts_world.data_ptr(), src_idx.data_ptr(), src_w.data_ptr(),
                P_all.data_ptr(), out.data_ptr(),
+               mean.data_ptr() if with_mean else None,
                int(out_dtype == torch.bfloat16), R, P, S, Hf, Wf, C, sx, sy)
         source_variance.bf16_launches += 1
-        return out
-    mean = torch.empty_like(out) if with_mean else None
+        return (out, mean) if with_mean else out
     launch("tdv_source_variance", feats.device, feats.data_ptr(),
            pts_world.data_ptr(), src_idx.data_ptr(), src_w.data_ptr(),
            P_all.data_ptr(), out.data_ptr(),
@@ -193,9 +210,9 @@ class SourceVarianceFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pts_world, feats, src_idx, src_mask, P_all, img_size,
-                plane):
+                plane, out_dtype):
         var, mean = _source_variance(pts_world, feats, src_idx, src_mask,
-                                     P_all, img_size, True)
+                                     P_all, img_size, True, out_dtype)
         ctx.save_for_backward(pts_world, feats, src_idx, src_mask, P_all,
                               mean)
         ctx.img_size, ctx.plane = img_size, plane
@@ -207,7 +224,7 @@ class SourceVarianceFn(torch.autograd.Function):
         g = source_variance_backward(grad.contiguous(), mean, pts_world,
                                      feats, src_idx, src_mask, P_all,
                                      ctx.img_size, ctx.plane)
-        return None, g, None, None, None, None, None
+        return None, g, None, None, None, None, None, None
 
 
 def source_variance(pts_world: torch.Tensor, feats: torch.Tensor,
@@ -230,7 +247,7 @@ def source_variance(pts_world: torch.Tensor, feats: torch.Tensor,
             "projections (the JAX package stops it); detach them")
     if wants_grad(feats):
         return SourceVarianceFn.apply(pts_world, feats, src_idx, src_mask,
-                                      P_all, img_size, plane)
+                                      P_all, img_size, plane, out_dtype)
     return _source_variance(pts_world, feats, src_idx, src_mask, P_all,
                             img_size, False, out_dtype)
 
@@ -245,10 +262,11 @@ def source_variance_backward(grad: torch.Tensor, mean: torch.Tensor,
                              P_all: torch.Tensor, img_size: Tuple[int, int],
                              plane: Tuple[int, int]) -> torch.Tensor:
     """Same contract as `source_variance_backward_ref`; launches the CUDA
-    kernel for CUDA tensors. Its sums are fixed-point integer sums, so the
-    result is the same bits on every launch, whatever order the points come
-    in; `plane` as for `source_variance` (it changes how the kernel tiles
-    the points, not the result)."""
+    kernel for CUDA tensors (its bf16 form for bf16 features, with an fp32
+    or bf16 grad). Its sums are fixed-point integer sums, so the result is
+    the same bits on every launch, whatever order the points come in;
+    `plane` as for `source_variance` (it changes how the kernel tiles the
+    points, not the result)."""
     if on_cpu(grad, mean, pts_world, feats, src_idx, src_mask, P_all):
         return source_variance_backward_ref(grad, mean, pts_world, feats,
                                             src_idx, src_mask, P_all,
@@ -260,9 +278,12 @@ def source_variance_backward(grad: torch.Tensor, mean: torch.Tensor,
             pad_channels(grad, c4), pad_channels(mean, c4), pts_world,
             pad_channels(feats, c4), src_idx, src_mask, P_all, img_size,
             plane)[..., :C].contiguous()
-    R, P, S, N, Hf, Wf, C = _check_args(pts_world, feats, src_idx, src_mask,
-                                        P_all, "source_variance_backward")
-    check(grad, "grad", torch.float32, (R, P, C))
+    half = feats.dtype == torch.bfloat16
+    R, P, S, N, Hf, Wf, C = _check_args(
+        pts_world, feats, src_idx, src_mask, P_all,
+        "source_variance_backward", torch.bfloat16 if half else torch.float32)
+    check(grad, "grad", grad.dtype if half and grad.dtype == torch.bfloat16
+          else torch.float32, (R, P, C))
     check(mean, "mean", torch.float32, (R, P, C))
     h, w = plane
     if h < 1 or w < 1:
@@ -272,13 +293,19 @@ def source_variance_backward(grad: torch.Tensor, mean: torch.Tensor,
     out = torch.empty_like(feats)
     acc = torch.empty(feats.shape, dtype=torch.int64, device=feats.device)
     scratch = torch.empty((4,), dtype=torch.int32, device=feats.device)
-    launch("tdv_source_variance_backward", feats.device, grad.data_ptr(),
-           mean.data_ptr(), feats.data_ptr(), pts_world.data_ptr(),
-           src_idx.data_ptr(), src_w.data_ptr(), P_all.data_ptr(),
-           out.data_ptr(), acc.data_ptr(), scratch.data_ptr(), R, P, S, N,
-           Hf, Wf, C, h * w, w, sx, sy)
-    source_variance_backward.launches += 1
+    args = (grad.data_ptr(), mean.data_ptr(), feats.data_ptr(),
+            pts_world.data_ptr(), src_idx.data_ptr(), src_w.data_ptr(),
+            P_all.data_ptr(), out.data_ptr(), acc.data_ptr(),
+            scratch.data_ptr(), R, P, S, N, Hf, Wf, C, h * w, w, sx, sy)
+    if half:
+        launch("tdv_source_variance_backward_bf16", feats.device,
+               int(grad.dtype == torch.bfloat16), *args)
+        source_variance_backward.bf16_launches += 1
+    else:
+        launch("tdv_source_variance_backward", feats.device, *args)
+        source_variance_backward.launches += 1
     return out
 
 
 source_variance_backward.launches = 0
+source_variance_backward.bf16_launches = 0

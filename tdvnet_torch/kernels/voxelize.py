@@ -24,10 +24,12 @@ kernel ranks the occupied cells of the grid with a prefix sum and sorts
 nothing: on the card those two fields are None and points keep their input
 order.
 
-bf16 anchor rows (inference only) go to the scatter's bf16 form, which
-writes a bf16 grid and a bf16 occupancy (the JAX package's `segment_sum` in
-the features' dtype): a copy, bit-equal to the JAX package's. Its launches
-count in `scatter_anchors_to_dense.bf16_launches`.
+bf16 anchor rows go to the scatter's bf16 form, which writes a bf16 grid
+and a bf16 occupancy (the JAX package's `segment_sum` in the features'
+dtype): a copy, bit-equal to the JAX package's. Its launches count in
+`scatter_anchors_to_dense.bf16_launches`; its backward's bf16 form (a bf16
+model in training), a gather of the bf16 grid's gradient, in
+`scatter_anchors_to_dense_backward.bf16_launches`.
 """
 from __future__ import annotations
 
@@ -337,7 +339,8 @@ def scatter_anchors_to_dense_backward(grad_dense: torch.Tensor,
                                       grid_size: Tuple[int, int, int],
                                       n_scenes: int) -> torch.Tensor:
     """Same contract as `scatter_anchors_to_dense_backward_ref`; launches
-    the CUDA kernel for CUDA tensors."""
+    the CUDA kernel for CUDA tensors (its bf16 form, a copy too, for a bf16
+    grad: a bf16 model's grid)."""
     if on_cpu(grad_dense, vg.anchor_idx3, vg.anchor_scene, vg.anchor_valid):
         return scatter_anchors_to_dense_backward_ref(grad_dense, vg,
                                                      grid_size, n_scenes)
@@ -348,15 +351,22 @@ def scatter_anchors_to_dense_backward(grad_dense: torch.Tensor,
         return scatter_anchors_to_dense_backward(
             pad_channels(grad_dense, quad(C)), vg, grid_size,
             n_scenes)[:, :C].contiguous()
-    check(grad_dense, "grad_dense", torch.float32, (n_scenes, gx, gy, gz, C))
+    half = grad_dense.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if half else torch.float32
+    check(grad_dense, "grad_dense", dtype, (n_scenes, gx, gy, gz, C))
     _check_anchor_table(vg, A)
-    out = torch.empty((A, C), dtype=torch.float32, device=grad_dense.device)
-    launch("tdv_scatter_dense_backward", grad_dense.device,
+    out = torch.empty((A, C), dtype=dtype, device=grad_dense.device)
+    launch("tdv_scatter_dense_backward_bf16" if half
+           else "tdv_scatter_dense_backward", grad_dense.device,
            grad_dense.data_ptr(), vg.anchor_idx3.data_ptr(),
            vg.anchor_scene.data_ptr(), vg.anchor_valid.data_ptr(),
            out.data_ptr(), A, C, gx, gy, gz)
-    scatter_anchors_to_dense_backward.launches += 1
+    if half:
+        scatter_anchors_to_dense_backward.bf16_launches += 1
+    else:
+        scatter_anchors_to_dense_backward.launches += 1
     return out
 
 
 scatter_anchors_to_dense_backward.launches = 0
+scatter_anchors_to_dense_backward.bf16_launches = 0

@@ -212,6 +212,7 @@ class HypothesisDecoder(nn.Module):
         self.Conv_2 = Conv1d(hidden, hidden, ksize, padding=p, bias=False)
         self.BatchNorm_2 = batch_norm(1, hidden)
         self.Conv_3 = Conv1d(hidden, 1, ksize, padding=p)
+        self.Conv_3.logits_fp32 = True     # the softmax's logits
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         """feats [M, n_hyp, C] -> softmax scores [M, n_hyp]."""

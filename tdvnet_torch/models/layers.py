@@ -11,10 +11,17 @@ input and their fp32 parameters cast at use, as flax's `dtype` with an fp32
 `param_dtype` does; None, the default, leaves each as torch's (fp32, or
 float64 in a float64 reference run). torch's BatchNorm in eval mode takes a
 bf16 input with its fp32 parameters and statistics, computes in fp32 and
-rounds once, as flax's BatchNorm(dtype=bf16) does.
+rounds once, as flax's BatchNorm(dtype=bf16) does; in train mode the batch
+statistics and the normalisation of a bf16 input are fp32 too, rounded
+once to bf16, as there.
+
+Inside `recompute_mode()` (the backward's rerun of a rematerialised
+forward, `train/loop.py`) a train-mode BatchNorm normalises as it did but
+leaves its running statistics alone: the first run moved them.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -25,9 +32,21 @@ from tdvnet_torch.kernels.groupnorm import masked_group_norm
 
 
 class _Cast:
-    """A layer with a compute dtype (None: torch's own behaviour)."""
+    """A layer with a compute dtype (None: torch's own behaviour).
+
+    A layer whose output is the logits of an fp32 softmax (`logits_fp32`:
+    the cost volume's last conv, the hypothesis decoder's) keeps that output
+    in fp32 in a bf16 model: its bf16 inputs and cast parameters are widened
+    exactly and the conv runs in fp32, so the output is the bf16 conv's sum
+    unrounded. A logit near 30 has a bf16 ulp of 0.125, which moves its
+    softmax weight by ~13%; the JAX package's bf16 model on the CPU keeps
+    these logits unrounded too (XLA's excess precision), and rounding them
+    put the port's gradient norms of the cost regulariser and the decoder
+    at 1.58x and 2.51x JAX's own bf16 error on an H100 (against 0.99x and
+    1.45x kept in fp32)."""
 
     compute_dtype: Optional[torch.dtype] = None
+    logits_fp32: bool = False
 
     def cast(self, x):
         """(x, weight, bias) in the compute dtype, or as they are."""
@@ -35,8 +54,10 @@ class _Cast:
         if dt is None:
             return x, self.weight, self.bias
         b = self.bias
-        return (x.to(dt), self.weight.to(dt),
-                None if b is None else b.to(dt))
+        out = (x.to(dt), self.weight.to(dt), None if b is None else b.to(dt))
+        if self.logits_fp32:
+            return tuple(None if t is None else t.float() for t in out)
+        return out
 
 
 class Conv1d(_Cast, nn.Conv1d):
@@ -70,6 +91,20 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
 
 _CONV = {1: Conv1d, 2: Conv2d, 3: Conv3d}
 
+# reruns of a rematerialised forward in progress (`recompute_mode`)
+_RECOMPUTING = [0]
+
+
+@contextlib.contextmanager
+def recompute_mode():
+    """Inside the block a train-mode BatchNorm does not move its running
+    statistics."""
+    _RECOMPUTING[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] -= 1
+
 
 class _FlaxBatchNorm:
     """BatchNorm with flax's train-mode rules. The output normalises with
@@ -80,17 +115,23 @@ class _FlaxBatchNorm:
     torch's BatchNorm. In train mode it is torch's native kernel (on the
     CPU the same as `F.batch_norm`), never cuDNN's: cuDNN's train-mode
     backward sums its terms in fp32 where they cancel, which put the
-    gradients behind the decoder ~1e-3 off a float64 rerun on an H100."""
+    gradients behind the decoder ~1e-3 off a float64 rerun on an H100.
+    A bf16 x is widened: the statistics and the normalisation run in fp32
+    and the output is rounded once to bf16, as flax's BatchNorm(dtype=bf16)
+    computes."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
-        y = torch.native_batch_norm(x, self.weight, self.bias, None, None,
-                                    True, 0.0, self.eps)[0]
+        xw = x.to(torch.promote_types(x.dtype, torch.float32))
+        y = torch.native_batch_norm(xw, self.weight, self.bias, None, None,
+                                    True, 0.0, self.eps)[0].to(x.dtype)
+        if _RECOMPUTING[0]:
+            return y
         with torch.no_grad():
             dims = [0, *range(2, x.dim())]
-            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+            var, mean = torch.var_mean(xw, dim=dims, unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return y

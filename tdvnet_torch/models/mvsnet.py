@@ -38,6 +38,7 @@ class CostRegNet(nn.Module):
         self.ConvTransposeUp3d_1 = ConvTransposeUp3d(4 * b, 2 * b)
         self.ConvTransposeUp3d_2 = ConvTransposeUp3d(2 * b, b)
         self.Conv_0 = Conv3d(b, 1, 3, padding=1)
+        self.Conv_0.logits_fp32 = True     # the soft-argmax's logits
 
     def forward(self, x):
         conv0 = self.ConvBnRelu_0(x)
@@ -81,8 +82,6 @@ class MVSNet(nn.Module):
             depth_start, depth_interval, n_planes, self.img_size, depth_size)
         # [R, D, h, w, C] -> [R, C, D, h, w] as a view (channels-last-3d)
         cost = self.cost_reg(var.permute(0, 4, 1, 2, 3))[:, 0]
-        if cost.dtype == torch.bfloat16:
-            cost = cost.float()
         depth_end = depth_start + depth_interval * (n_planes - 1)
         depth_vals = camera.linspace_f32(depth_start, depth_end, n_planes,
                                          cost.device)

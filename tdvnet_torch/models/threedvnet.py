@@ -14,13 +14,15 @@ refinement passes. Inference is `infer_stages` / `infer_depth`. Where the
 JAX package stops the gradient of a point set (the scene cloud's variance
 and voxelization, the hypothesis points), the port detaches it.
 
-`ModelConfig.dtype=torch.bfloat16` (inference only: `forward` refuses it)
-computes as the JAX package's bf16 model: the parameters stay fp32 and
+`ModelConfig.dtype=torch.bfloat16` (inference and training) computes as
+the JAX package's bf16 model: the parameters stay fp32 and
 every convolution and linear layer casts its input and parameters to bf16
 at use (`layers.set_compute_dtype`); the features, the cost volume, the
 PointNet rows, the dense grid, the scene U-Net and the decoder are bf16;
 the point variance, the cameras, the points, the soft-argmax (K8b) and the
-propagation blend (K8a) take fp32, as there.
+propagation blend (K8a) take fp32, as there; the two convs whose output
+is a softmax's logits (the cost volume's last, the decoder's) keep it in
+fp32 (`layers._Cast.logits_fp32`).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import torch
 import torch.nn as nn
 
 from tdvnet_torch.config import (DepthConfig, GridConfig, ModelConfig,
-                                 check_fp32_training, set_fp32_numerics)
+                                 set_fp32_numerics)
 from tdvnet_torch.data.batch import FrameBatch
 from tdvnet_torch.eval.metrics2d import calc_2d_depth_metrics, mae_loss
 from tdvnet_torch.models.hypothesis import HypothesisDecoder, sample_scales
@@ -243,9 +245,7 @@ class ThreeDVNet(nn.Module):
         depth hypotheses of `depth_train` or `depth_test`.
         `backbone_train=False` keeps the backbone's BatchNorm in eval mode
         for the call, the reference's non-finetune regime; None follows the
-        module's mode. The batch moves to the model's device. A bf16 model
-        raises (training is fp32 only so far)."""
-        check_fp32_training(self.cfg)
+        module's mode. The batch moves to the model's device."""
         set_fp32_numerics()
         c = self.cfg
         train = self.training

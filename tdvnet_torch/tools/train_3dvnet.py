@@ -13,9 +13,13 @@ fused on the training device, one scene after another.
     python -m tdvnet_torch.tools.train_3dvnet --synthetic 8 --epochs 2
     python -m tdvnet_torch.tools.train_3dvnet --finetune --init-from w.npz
 
-`--bf16`, `--remat` and `--grad-accum` > 1 raise (`TrainConfig`) before
-any data is made: the port trains in fp32, without rematerialisation or
-gradient accumulation, so far.
+`--bf16` trains a bf16 model (its parameters, gradients and Adam's state
+fp32), `--remat` recomputes the forward in the backward, and
+`--grad-accum K` updates once every K batches with the mean of their
+gradients (the schedule counting updates), as the JAX CLI's:
+
+    python -m tdvnet_torch.tools.train_3dvnet --synthetic 2 --epochs 1 \
+        --bf16 --remat --grad-accum 2
 """
 from __future__ import annotations
 

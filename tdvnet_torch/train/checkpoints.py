@@ -76,8 +76,10 @@ def _load(ckpt_dir: str, epoch: int, device) -> dict:
 
 def restore(ckpt_dir: str, state) -> Optional[Tuple[object, int]]:
     """Load the latest checkpoint into `state` (its model and optimizer, in
-    place). None when there is none; ValueError when the optimizer's
-    parameter groups do not fit (another regime)."""
+    place; an accumulating optimizer resumes at its mini-step with its
+    accumulated means). None when there is none; ValueError when the
+    optimizer's parameter groups or its accumulation (`grad_accum_steps`)
+    do not fit (another regime)."""
     ep = latest_epoch(ckpt_dir)
     if ep is None:
         return None
@@ -88,6 +90,11 @@ def restore(ckpt_dir: str, state) -> Optional[Tuple[object, int]]:
     if n_saved != len(state.optimizer.params):
         raise ValueError(f"checkpoint optimizer holds {n_saved} parameters, "
                          f"this regime trains {len(state.optimizer.params)}")
+    k = raw["optimizer"].get("accum_steps", 1)
+    if k != state.optimizer.accum_steps:
+        raise ValueError(f"checkpoint optimizer accumulates {k} "
+                         f"microbatches, this regime "
+                         f"{state.optimizer.accum_steps}")
     state.model.load_state_dict(raw["model"])
     state.optimizer.load_state_dict(raw["optimizer"])
     return state, ep

@@ -8,7 +8,12 @@
   the forward, and its scale and bias take no gradient and stay out of the
   optimizer (optax's `set_to_zero` on those leaves);
 - metrics logged as JSONL, and as tensorboard scalars where the package is
-  installed.
+  installed;
+- `TrainConfig.bf16_compute`: a bf16 model, its parameters, gradients and
+  Adam's state fp32 (`create_state`); `remat`: the forward rerun in the
+  backward (`remat_forward`); `grad_accum_steps` = k: `optax.MultiSteps`'
+  running mean of k microbatches' gradients and one Adam update a k-th
+  microstep (`Optimizer`), the schedule counting updates.
 
 A training state is the model and its optimizer (`TrainState`); a step
 updates both in place and returns the state, as the JAX step returns its
@@ -25,8 +30,10 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
-from tdvnet_torch.config import Config, check_fp32_training, resolve_device
+from tdvnet_torch.config import Config, resolve_device
+from tdvnet_torch.models.layers import recompute_mode
 from tdvnet_torch.models.threedvnet import ThreeDVNet
 from tdvnet_torch.weights import load_flax_into, to_flax_variables
 
@@ -59,54 +66,95 @@ class Optimizer:
     """Adam over the trainable parameters with a schedule of the update
     count. optax updates every leaf each step: a parameter the loss did not
     reach gets a zero gradient here, so that its Adam moments decay and its
-    step count stays the global one, as there."""
+    step count stays the global one, as there.
 
-    def __init__(self, params, sched: Callable[[int], float]):
+    With `accum_steps` = k > 1 it is `optax.MultiSteps(adam, k)`: microstep
+    n (from 0) folds each gradient into a running mean in fp32,
+    acc + (g - acc) / (n + 1) (optax's form, `use_grad_mean`), and only the
+    k-th calls Adam, on that mean; the other microsteps leave the
+    parameters, the moments and the update count as they were. `step`
+    returns whether it updated."""
+
+    def __init__(self, params, sched: Callable[[int], float],
+                 accum_steps: int = 1):
         self.params = list(params)
         self.sched = sched
         self.count = 0
+        self.accum_steps = int(accum_steps)
+        self.mini_step = 0
+        self.acc: Optional[List[torch.Tensor]] = None
         self.adam = torch.optim.Adam(self.params, lr=sched(0),
                                      betas=(0.9, 0.999), eps=1e-8)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
+    def step(self) -> bool:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.accum_steps > 1:
+            n = self.mini_step
+            if self.acc is None:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+            for a, p in zip(self.acc, self.params):
+                # a true division, as optax's: PyTorch's CUDA division by a
+                # Python scalar multiplies by the reciprocal
+                a.add_((p.grad - a) / torch.full((), n + 1.0, dtype=a.dtype,
+                                                 device=a.device))
+            self.mini_step = n + 1
+            if self.mini_step < self.accum_steps:
+                return False
+            for a, p in zip(self.acc, self.params):
+                p.grad = a
+            self.mini_step, self.acc = 0, None
         for group in self.adam.param_groups:
             group["lr"] = self.sched(self.count)
         self.adam.step()
         self.count += 1
+        return True
 
     def state_dict(self) -> dict:
-        return {"adam": self.adam.state_dict(), "count": self.count}
+        return {"adam": self.adam.state_dict(), "count": self.count,
+                "accum_steps": self.accum_steps,
+                "mini_step": self.mini_step, "acc": self.acc}
 
     def load_state_dict(self, sd: dict) -> None:
+        if sd.get("accum_steps", 1) != self.accum_steps:
+            raise ValueError(f"optimizer state of grad_accum_steps="
+                             f"{sd.get('accum_steps', 1)}, this regime "
+                             f"accumulates {self.accum_steps}")
         self.adam.load_state_dict(sd["adam"])
         self.count = int(sd["count"])
+        self.mini_step = int(sd.get("mini_step", 0))
+        acc = sd.get("acc")
+        self.acc = None if acc is None else [
+            a.to(p.device) for a, p in zip(acc, self.params)]
 
 
 def make_optimizer(cfg: Config, model: ThreeDVNet, steps_per_epoch: int,
                    start_epoch: int = 0) -> Optimizer:
     """The training optimizer (the JAX package's `make_tx`): the regime's
     lr, step and gamma, the schedule offset by `start_epoch` for a warm
-    start. Sets `requires_grad` of the backbone BatchNorm's scale and bias
-    (False unless finetuning) and leaves them out of the optimizer."""
+    start, gradient accumulation over `grad_accum_steps` microbatches. The
+    schedule counts updates, ceil(steps_per_epoch / k) an epoch, as
+    optax's inside `MultiSteps`. Sets `requires_grad` of the backbone
+    BatchNorm's scale and bias (False unless finetuning) and leaves them
+    out of the optimizer."""
     t = cfg.train
     lr = t.finetune_lr if t.finetune else t.lr
     step_e = t.finetune_lr_step if t.finetune else t.lr_step
     gamma = t.finetune_lr_gamma if t.finetune else t.lr_gamma
-    sched = make_lr_schedule(lr, step_e, gamma, steps_per_epoch,
-                             step_offset=start_epoch * steps_per_epoch)
+    updates_per_epoch = -(-steps_per_epoch // t.grad_accum_steps)
+    sched = make_lr_schedule(lr, step_e, gamma, updates_per_epoch,
+                             step_offset=start_epoch * updates_per_epoch)
     frozen = set() if t.finetune else set(backbone_bn_params(model))
     params = []
     for name, p in model.named_parameters():
         p.requires_grad_(name not in frozen)
         if name not in frozen:
             params.append(p)
-    return Optimizer(params, sched)
+    return Optimizer(params, sched, t.grad_accum_steps)
 
 
 @dataclasses.dataclass
@@ -118,11 +166,14 @@ class TrainState:
 def create_state(cfg: Config, steps_per_epoch: int = 100, device=None,
                  start_epoch: int = 0) -> TrainState:
     """A fresh model (weights drawn from `cfg.train.seed`) on `device` (the
-    card unless named) and its optimizer."""
-    check_fp32_training(cfg.model)
+    card unless named) and its optimizer. With `bf16_compute` the model
+    computes in bf16 (`ModelConfig.dtype`); its parameters stay fp32."""
     dev = resolve_device(device)
     torch.manual_seed(cfg.train.seed)
-    model = ThreeDVNet(cfg.model).to(dev)
+    mcfg = cfg.model
+    if cfg.train.bf16_compute:
+        mcfg = dataclasses.replace(mcfg, dtype=torch.bfloat16)
+    model = ThreeDVNet(mcfg).to(dev)
     return TrainState(model, make_optimizer(cfg, model, steps_per_epoch,
                                             start_epoch))
 
@@ -156,27 +207,67 @@ def deterministic_cudnn():
         cd.deterministic, cd.benchmark = saved
 
 
+@contextlib.contextmanager
+def _recompute(cudnn_flags):
+    """The rerun of a rematerialised forward: the first run's cuDNN flags
+    (the backward's are the deterministic ones), so that it takes the same
+    algorithms and gives the same bits, and the BatchNorms' running
+    statistics left where the first run moved them."""
+    cd = torch.backends.cudnn
+    saved = cd.deterministic, cd.benchmark
+    cd.deterministic, cd.benchmark = cudnn_flags
+    try:
+        with recompute_mode():
+            yield
+    finally:
+        cd.deterministic, cd.benchmark = saved
+
+
+def remat_forward(fn: Callable[[], Any]):
+    """fn() under one non-reentrant checkpoint, as `jax.checkpoint` wraps
+    the JAX step's whole forward: only its inputs are kept, and the
+    backward reruns it whole (early stopping off) before it needs an
+    activation. The rerun launches the forward's kernels a second time,
+    and counts them."""
+    cd = torch.backends.cudnn
+    flags = (cd.deterministic, cd.benchmark)
+
+    def contexts():
+        return contextlib.nullcontext(), _recompute(flags)
+
+    with torch_checkpoint.set_checkpoint_early_stop(False):
+        return torch_checkpoint.checkpoint(
+            fn, use_reentrant=False, context_fn=contexts,
+            preserve_rng_state=False)
+
+
 def make_train_step(model: ThreeDVNet, cfg: Config, n_iters: int):
     """A train step for a fixed n_iters: step(state, batch, lam) runs the
     forward in train mode (the backbone's BatchNorm in eval mode unless
-    finetuning), the backward and one optimizer update, and returns
-    (state, {"loss", "loss_2d"}) with the losses as device scalars. The
-    three phases are profiler spans: train_forward, train_backward,
-    train_optimizer. The backward runs under `deterministic_cudnn` and the
-    port's backward kernels sum in fixed point, so a step repeats bit for
-    bit on the card; the forward (as inference) keeps cuDNN's default
-    picks, and already repeats."""
-    check_fp32_training(model.cfg)
+    finetuning), the backward and one optimizer update (or, accumulating,
+    one microstep), and returns (state, {"loss", "loss_2d"}) with the
+    losses as device scalars. The three phases are profiler spans:
+    train_forward, train_backward, train_optimizer. The backward runs under
+    `deterministic_cudnn` and the port's backward kernels sum in fixed
+    point, so a step repeats bit for bit on the card; the forward (as
+    inference) keeps cuDNN's default picks, and already repeats. With
+    `cfg.train.remat` the forward goes through `remat_forward`: the same
+    bits, its activations recomputed in the backward."""
     offsets = list(cfg.train.offsets)
     bb_train = bool(cfg.train.finetune)
+    remat = bool(cfg.train.remat)
     span = torch.profiler.record_function
 
     def step(state: TrainState, batch, lam):
         model.train()
         state.optimizer.zero_grad()
+
+        def forward():
+            return model(batch, offsets, n_iters, lam, with_metrics=False,
+                         backbone_train=bb_train)
+
         with span("train_forward"):
-            out = model(batch, offsets, n_iters, lam, with_metrics=False,
-                        backbone_train=bb_train)
+            out = remat_forward(forward) if remat else forward()
         with span("train_backward"), deterministic_cudnn():
             out["loss"].backward()
         with span("train_optimizer"):

@@ -366,6 +366,8 @@ def test_config_names_the_dtype():
 
 
 def test_bf16_fast_path_and_training_refused(models, tmp_path):
+    """The bf16 fast path is refused (ROADMAP.md queue 1 item 2c) before any
+    work; training a bf16 model, refused until item 2b, runs."""
     from tdvnet_torch.config import (Config, TrainConfig, load_config,
                                      tiny_test_config)
     from tdvnet_torch.eval.fused_scene import FusedSceneInference
@@ -382,18 +384,20 @@ def test_bf16_fast_path_and_training_refused(models, tmp_path):
         run_synthetic_eval.main(["--workdir", str(tmp_path / "w"), "--bf16",
                                  "--fast-path", "--device", "cpu"])
     assert not (tmp_path / "w").exists()
+    # training a bf16 model runs (ROADMAP.md queue 1 item 2b): its
+    # forward's loss, a train step, a fresh state, and the knobs construct
     tcfg = dataclasses.replace(tiny_test_config(), model=tm.cfg)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        make_train_step(tm, tcfg, 0)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        create_state(tcfg, device="cpu")
     _, tb = both_batches(cfg, [SEEDS[0]])
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        tm(tb, OFFSETS[0], 0)
+    with torch.no_grad():
+        assert np.isfinite(float(tm(tb, OFFSETS[0], 0)["loss"]))
+    st = create_state(tcfg, device="cpu")
+    assert st.model.cfg.dtype == BF
+    st, mets = make_train_step(st.model, tcfg, 0)(st, tb, 0.5)
+    assert np.isfinite(float(mets["loss"])) and st.optimizer.count == 1
+    assert all(p.dtype == torch.float32 for p in st.model.parameters())
     for kw in ({"bf16_compute": True}, {"remat": True},
                {"grad_accum_steps": 2}):
-        with pytest.raises(NotImplementedError):
-            TrainConfig(**kw)
+        assert dataclasses.asdict(TrainConfig(**kw)).items() >= kw.items()
     assert load_config().train.bf16_compute is False
 
 

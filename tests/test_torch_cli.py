@@ -309,16 +309,43 @@ def test_train_cli_runs_one_tiny_step(tmp_path, monkeypatch):
                               .astype(np.float32)) for k in got)
 
 
+@pytest.fixture(scope="module")
+def synthetic_cache(tmp_path_factory):
+    """One temporary directory for the knob cases' `--synthetic 1` cache
+    (the dataset is written once, by the first case)."""
+    return str(tmp_path_factory.mktemp("synth_cache"))
+
+
 @pytest.mark.parametrize("flags", [["--bf16"], ["--remat"],
                                    ["--grad-accum", "2"]])
-def test_train_cli_refuses_before_any_data(flags, tmp_path, monkeypatch):
+def test_train_cli_refuses_before_any_data(flags, tmp_path, monkeypatch,
+                                           synthetic_cache):
+    """Each training knob of the CLI at the tiny config on the CPU (the
+    port refused them before it had them): one epoch of one step, a finite
+    loss, the checkpoint. `--bf16` trains a bf16 model whose parameters
+    stay fp32, `--remat` updates, and `--grad-accum 2` takes its first
+    microstep without an update."""
     from tdvnet_torch.tools import train_3dvnet as T
+    from tdvnet_torch.train import checkpoints as C
 
-    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="fp32"):
-        T.main(["--synthetic", "1", "--device", "cpu",
-                "--ckpt-dir", str(tmp_path / "ck")] + flags)
-    assert os.listdir(tmp_path) == []
+    monkeypatch.setattr(T, "load_config", _tiny_load_config())
+    monkeypatch.setattr(tempfile, "tempdir", synthetic_cache)
+    ck, log = str(tmp_path / "ck"), str(tmp_path / "log")
+    model, state = T.main(["--synthetic", "1", "--epochs", "1",
+                           "--steps-per-epoch", "1", "--ckpt-dir", ck,
+                           "--log-dir", log, "--device", "cpu"] + flags)
+    with open(os.path.join(log, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train = [r["train/loss"] for r in recs if "train/loss" in r]
+    assert len(train) >= 1 and np.isfinite(train).all()
+    assert C.latest_epoch(ck) == 1
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert model.cfg.dtype == (torch.bfloat16 if "--bf16" in flags
+                               else torch.float32)
+    k = 2 if "--grad-accum" in flags else 1
+    assert state.optimizer.accum_steps == k
+    assert (state.optimizer.count, state.optimizer.mini_step) == \
+        ((1, 0) if k == 1 else (0, 1))
 
 
 # --------------------------------------------------------------- evaluation

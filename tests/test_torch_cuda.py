@@ -2232,9 +2232,235 @@ def test_bf16_forms_count_apart_and_take_odd_shapes():
     assert K.bf16_launch_counts() == {
         "source_variance_bf16": 2, "trilinear_sample_bf16": 1,
         "scatter_anchors_to_dense_bf16": 0, "segment_max_bf16": 0,
-        "gather_concat_bf16": 0, "masked_group_norm_bf16": 2}
+        "gather_concat_bf16": 0, "masked_group_norm_bf16": 2,
+        **{k: 0 for k in K.BF16_FORMS if k.endswith("_backward_bf16")}}
     assert all(n == 0 for n in K.launch_counts().values())
     with pytest.raises(TypeError):
         K.trilinear_sample(grid.half(), pts, c0, 1.0,
                            torch.empty(2, 300, 5, dtype=torch.half,
                                        device=dev), 0)
+
+
+# ------------------------------------------------- the bf16 backward forms
+# Each bf16 backward form (a bf16 model in training) against its plain twin
+# (the fp32 backward on the widened inputs, rounded once to bf16) and its
+# float64 referee, by `chip_smoke.bf16_grad_check`'s rules: K3 and K4's
+# pool bit-equal, the sums within one bf16 ulp plus their fixed-point
+# floor (K1/K2 also the allowance for samples that round to the
+# neighbouring bf16 value); then the same
+# bits on a second launch and with the points (rows) shuffled. C = 32 is
+# the cost volume's width, 30 and 62 take the padded 4-channel groups.
+BF16_BACKWARD_WIDTHS = (32, 30, 62)
+
+
+def _bf16_check(got, twin, ref, terms=None, exact=False, extra=None):
+    import chip_smoke
+
+    twin, ref = twin.to(got.device), ref.to(got.device)
+    if terms is not None:
+        terms = terms.to(got.device)
+    if extra is not None:
+        extra = extra.to(got.device)
+    m_twin, m_ref, ok = chip_smoke.bf16_grad_check(got, twin, ref, terms,
+                                                   exact, extra)
+    print(f"  vs twin {m_twin:.3f}, vs float64 referee {m_ref:.3f} "
+          f"(limit 1)")
+    assert ok, (m_twin, m_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", BF16_BACKWARD_WIDTHS)
+@pytest.mark.parametrize("grad_bf16", [True, False])
+def test_source_variance_backward_bf16_form(C, grad_bf16):
+    """K1/K2's bf16 backward (bf16 features, a bf16 or fp32 grad) against
+    its twin and its float64 referee, the same bits on a second launch, as
+    planes and with the points shuffled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import variance as K
+
+    bf = torch.bfloat16
+    pts, feats, sidx, smask, P_all, grad = _variance_args(
+        "cuda", R=3, P=4096, N=5, Hf=28, Wf=36, C=C, seed=C)
+    feats = feats.to(bf)
+    img = (112, 144)
+    od = bf if grad_bf16 else torch.float32
+    _, mean = K._source_variance(pts, feats, sidx, smask, P_all, img, True,
+                                 od)
+    grad = grad.to(od)
+    rest = (sidx, smask, P_all, img)
+    K.source_variance_backward.bf16_launches = 0
+    got = K.source_variance_backward(grad, mean, pts, feats, *rest, (1, 4096))
+    assert got.dtype == bf and K.source_variance_backward.bf16_launches == 1
+    cpu = [x.cpu() for x in (grad, mean, pts, feats, sidx, smask, P_all)]
+    twin = K.source_variance_backward_ref(*cpu, img)
+    ref, extra = chip_smoke.variance_backward_bf16_referee(*cpu, img)
+    _bf16_check(got, twin, ref, extra=extra)
+    assert _same_bits(got, K.source_variance_backward(
+        grad, mean, pts, feats, *rest, (1, 4096)))
+    assert _same_bits(got, K.source_variance_backward(
+        grad, mean, pts, feats, *rest, (16, 64)))
+    i = _perm(4096, "cuda")
+    assert _same_bits(got, K.source_variance_backward(
+        grad[:, i].contiguous(), mean[:, i].contiguous(),
+        pts[:, i].contiguous(), feats, *rest, (1, 4096)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", BF16_BACKWARD_WIDTHS)
+def test_trilinear_backward_bf16_form(C):
+    """K6's bf16 grid backward against its twin and its float64 referee,
+    crowded into bricks of several chunks, the same bits on a second launch
+    and with the points shuffled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import trilinear as T
+
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    B, Q, dims, cell = 2, 30000, (16, 12, 20), 1.0
+    g = torch.Generator().manual_seed(C)
+    pts = (torch.rand(B, Q, 3, generator=g)
+           * (torch.tensor(dims) + 1.0) - 1.0).to(dev)
+    c0 = torch.zeros(B, 3, device=dev)
+    grad = torch.randn(B, Q, C, generator=g).to(bf).to(dev)
+    shape = (B, *dims, C)
+    T.trilinear_sample_backward.bf16_launches = 0
+    got = T.trilinear_sample_backward(grad, pts, c0, cell, shape)
+    assert got.dtype == bf and T.trilinear_sample_backward.bf16_launches == 1
+    twin = T.trilinear_sample_backward_ref(grad.cpu(), pts.cpu(), c0.cpu(),
+                                           cell, shape)
+    ref = T.trilinear_sample_backward_ref(grad.double(), pts, c0, cell,
+                                          shape)
+    terms = T.trilinear_sample_backward_ref(grad.double().abs(), pts, c0,
+                                            cell, shape)
+    _bf16_check(got, twin, ref, terms,
+                extra=chip_smoke.trilinear_backward_fixed_allowance(
+                    grad, pts, c0, cell, shape))
+    assert _same_bits(got, T.trilinear_sample_backward(grad, pts, c0, cell,
+                                                       shape))
+    i = _perm(Q, dev)
+    assert _same_bits(got, T.trilinear_sample_backward(
+        grad[:, i].contiguous(), pts[:, i].contiguous(), c0, cell, shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", BF16_BACKWARD_WIDTHS)
+def test_masked_group_norm_backward_bf16_form(C):
+    """K5's bf16 backward in its three tails against its twin and its
+    float64 referee (d x, d skip; d weight and d bias as bf16 values in
+    fp32), the same bits on a second launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import groupnorm as K
+
+    bf = torch.bfloat16
+    G = 2
+    g = torch.Generator().manual_seed(C)
+    dims = (12, 10, 16)
+    mask = (torch.rand(2, 1, *dims, generator=g) > 0.4).float()
+    x = ((torch.randn(2, C, *dims, generator=g) + 0.3) * mask).to(bf).cuda()
+    skip = (torch.randn(2, C, *dims, generator=g) * mask).to(bf).cuda()
+    grad = torch.randn(2, C, *dims, generator=g).to(bf).cuda()
+    w = (torch.rand(C, generator=g) + 0.5).cuda()
+    b = (torch.randn(C, generator=g) * 0.1).cuda()
+    mask = mask.to(bf).cuda()
+    for relu, sk in ((False, None), (True, None), (False, skip)):
+        out, stats = K._masked_group_norm(x, mask, G, w, b, 1e-5, relu, sk)
+        args = (x, mask, G, w, out, stats, 1e-5, relu, sk is not None)
+        got = K.masked_group_norm_backward(grad, *args, bias=b)
+        cpu = [t.cpu() for t in (grad, x, mask)]
+        twin = K.masked_group_norm_backward_ref(
+            *cpu, G, w.cpu(), out.cpu(), 1e-5, relu, sk is not None)
+        ref, terms = chip_smoke.gn_backward_bf16_referee(
+            *cpu, G, w.cpu(), out.cpu(), relu, sk is not None)
+        for a, t_, r, tm in zip(got, twin, ref, terms):
+            if a is None:
+                assert t_ is None
+                continue
+            _bf16_check(a, t_, r, tm, exact=tm is None)
+        again = K.masked_group_norm_backward(grad, *args, bias=b)
+        for a, c in zip(got, again):
+            if a is not None:
+                assert _same_bits(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", BF16_BACKWARD_WIDTHS)
+def test_pool_and_concat_backward_bf16_forms(C):
+    """K4's pool backward (bit-equal to its twin and referee) and
+    concat-back (within one bf16 ulp) in bf16, and the same bits on a
+    second launch and with the rows shuffled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from tdvnet_torch.kernels import segmax as K
+
+    if C % 4:
+        pytest.skip("the PointNet's widths are multiples of 4 (4 f, 8 f)")
+    bf = torch.bfloat16
+    P, n_seg = 20000, 3000
+    grad2, y, _, seg = _concat_case(P, C, n_seg, C, "cuda")
+    # coarse values, so that rows tie for a segment's maximum
+    y = (y * 4).round().div(4).to(bf)
+    valid = torch.rand(P, generator=torch.Generator().manual_seed(1)) > 0.1
+    valid = valid.cuda()
+    pooled = K.segment_max(y, seg, valid, n_seg)
+    gpool = torch.randn(n_seg, C, generator=torch.Generator().manual_seed(
+        2)).to(bf).cuda()
+    got = K.segment_max_backward(gpool, y, seg, valid, pooled)
+    cpu = [t.cpu() for t in (gpool, y, seg, valid, pooled)]
+    twin = K.segment_max_backward_ref(*cpu)
+    ref = K.segment_max_backward_ref(cpu[0].double(), cpu[1].double(),
+                                     cpu[2], cpu[3], cpu[4].double())
+    _bf16_check(got, twin, ref, exact=True)
+    i = _perm(P, "cuda")
+    assert _same_bits(got[i], K.segment_max_backward(
+        gpool, y[i], seg[i], valid[i], pooled))
+    grad2 = grad2.to(bf)
+    for relu in (False, True):
+        gy, gp = K.gather_concat_backward(grad2, y, pooled, seg, relu)
+        cpu = [t.cpu() for t in (grad2, y, pooled, seg)]
+        ty, tp = K.gather_concat_backward_ref(*cpu, relu)
+        d = [t.double() if t.is_floating_point() else t for t in cpu]
+        ry, rp = K.gather_concat_backward_ref(*d, relu)
+        terms = K.gather_concat_backward_ref(d[0].abs(), *d[1:], relu)[1]
+        _bf16_check(gy, ty, ry, exact=True)
+        _bf16_check(gp, tp, rp, terms,
+                    extra=chip_smoke.concat_backward_fixed_allowance(
+                        grad2, seg, n_seg))
+        gy2, gp2 = K.gather_concat_backward(grad2, y, pooled, seg, relu)
+        assert _same_bits(gy, gy2) and _same_bits(gp, gp2)
+        gy3, gp3 = K.gather_concat_backward(grad2[i], y[i], pooled, seg[i],
+                                            relu)
+        assert _same_bits(gp, gp3) and _same_bits(gy[i], gy3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", BF16_BACKWARD_WIDTHS)
+def test_scatter_backward_bf16_form(C):
+    """K3's bf16 backward (a gather of the grid's gradient) bit-equal to
+    its twin and its float64 referee, as they are and shuffled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import _kernel_edge_cases as E
+    from tdvnet_torch.kernels import voxelize as vox
+
+    bf = torch.bfloat16
+    _, idx3, scene, valid, grid, B = E.scatter_case("all_valid")
+    for shuffled in (False, True):
+        if shuffled:
+            perm = np.random.default_rng(1).permutation(len(valid))
+            idx3, scene, valid = (x[perm] for x in (idx3, scene, valid))
+        vg = vox._anchor_table(*(torch.from_numpy(np.ascontiguousarray(x))
+                                 .cuda() for x in (idx3, scene, valid)))
+        g = torch.randn(B, *grid, C, generator=torch.Generator().manual_seed(
+            C)).to(bf).cuda()
+        got = vox.scatter_anchors_to_dense_backward(g, vg, grid, B)
+        twin = vox.scatter_anchors_to_dense_backward_ref(g, vg, grid, B)
+        ref = vox.scatter_anchors_to_dense_backward_ref(g.double(), vg, grid,
+                                                        B)
+        _bf16_check(got, twin, ref, exact=True)

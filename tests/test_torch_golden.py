@@ -63,6 +63,20 @@ training goldens):
 
     python tests/test_torch_golden.py --write-train-refine
 
+An eighth holds bf16 training (`TrainConfig(bf16_compute=True)`: the
+model computes in bf16, the parameters, gradients and Adam's state stay
+fp32): one step of the JAX package's bf16 and fp32 `make_train_step` at the
+n_iters=0 and n_iters=1 settings of the two training goldens (the same
+weights, lambdas, leaves and BatchNorms), from the same weights on each of
+ten batches (`chip_smoke.BF16_TRAIN_SEEDS`: the golden batch and nine
+more), each (dtype, n_iters) in a process of its own, and JAX's own
+|bf16 - fp32| per batch and quantity: the loss, loss_2d and the gradient
+norm per module as scalars, the median and p99 over each gradient leaf's
+elements and over each BatchNorm's running statistics after the step (JAX
+on the CPU, ~60 minutes, ~23 GB at n_iters=1):
+
+    python tests/test_torch_golden.py --write-bf16-train
+
 `--train-bn-error` prints how far JAX's fp32 batch statistics of
 CostRegNet's first BatchNorm lie from float64 ones in that step (the
 golden's own error, which `chip_smoke.py` phase 9b measures against a
@@ -89,6 +103,8 @@ TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
                             "torch_golden_train_synth48.npz")
 BF16_GOLDEN = os.path.join(ROOT, "tests", "data",
                            "torch_golden_bf16_synth48.npz")
+BF16_TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                                 "torch_golden_bf16_train_synth48.npz")
 WEIGHTS = os.path.join(ROOT, "weights", "3dvnet_synth48.npz")
 SCENE_VIEWS, SCENE_SEED = 24, 11
 
@@ -282,6 +298,151 @@ def write_bf16_golden():
                         depth_final=final.astype(np.float16),
                         scene_depth_mm=np.round(depth * 1000.0)
                         .astype(np.uint16),
+                        record=np.array(json.dumps(record)))
+    print(json.dumps(record))
+
+
+def bf16_train_run(dtype, n_iters, out_path):
+    """One JAX train step (`dtype` "bf16": `bf16_compute=True`) at the
+    settings of the n_iters=0 or n_iters=1 training golden, from the synth48
+    weights on each batch of `chip_smoke.BF16_TRAIN_SEEDS` (one compile);
+    writes per batch its losses, its gradient norms per module and gradient
+    leaves and the BatchNorms' running statistics after it to
+    `out_path`."""
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    sys.path.insert(0, ROOT)
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import optax
+
+    from chip_smoke import (BF16_TRAIN_SEEDS, TRAIN_MODULES,
+                            TRAIN_REFINE_BNS, TRAIN_REFINE_EPOCH,
+                            TRAIN_REFINE_LEAVES)
+    from tdvnet.config import BatchConfig, Config, ModelConfig, TrainConfig
+    from tdvnet.data import batch as B, synthetic
+    from tdvnet.models.threedvnet import ThreeDVNet
+    from tdvnet.train import loop as L
+    from tdvnet.train.checkpoints import load_npz
+    from tdvnet_torch.weights import from_flax_variables
+
+    bc = BatchConfig()
+    cfg = Config(model=ModelConfig(warp_mode="gather"), batch=bc,
+                 train=TrainConfig(bf16_compute=dtype == "bf16"))
+    mc = cfg.model
+    if cfg.train.bf16_compute:
+        # what `create_state` builds for bf16_compute; the parameters stay
+        # fp32
+        mc = dataclasses.replace(mc, dtype=jnp.bfloat16)
+    variables, _ = load_npz(WEIGHTS)
+    model = ThreeDVNet(mc)
+    state = L.TrainState.create(
+        apply_fn=model.apply, params=variables["params"],
+        tx=L.make_tx(cfg, variables["params"], 1),
+        batch_stats=variables["batch_stats"])
+    step = L.make_train_step(model, cfg, n_iters, donate=False)
+    lam = L.lambda_for_epoch(cfg, TRAIN_REFINE_EPOCH if n_iters else 0)
+    arrays = {"lam": np.float64(lam)}
+    for b, seeds in enumerate(BF16_TRAIN_SEEDS):
+        scenes = [synthetic.make_batch_scene(
+            bc.n_views, bc.img_size, bc.depth_img_size, seed=s,
+            n_src_on_either_side=bc.n_src_on_either_side) for s in seeds]
+        fb = B.collate_scenes(scenes, bc.n_views, bc.n_ref,
+                              bc.n_src_on_either_side)
+        new, mets = step(state, fb, jnp.float32(lam))
+        inner = new.opt_state.inner_states["train"].inner_state
+        adam = next(x for x in jax.tree.leaves(
+            inner, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+            if isinstance(x, optax.ScaleByAdamState))
+        for leaf in jax.tree.leaves(new.params):
+            assert leaf.dtype == jnp.float32, leaf.dtype
+        grads = jax.tree.map(
+            lambda m: np.zeros(1, np.float32)
+            if isinstance(m, optax.MaskedNode) else
+            np.asarray(m) / np.float32(1 - 0.9), adam.mu,
+            is_leaf=lambda x: isinstance(x, optax.MaskedNode))
+        sd = from_flax_variables({"params": grads})
+        stats = from_flax_variables({"batch_stats": jax.tree.map(
+            np.asarray, new.batch_stats)})
+        pre = f"b{b}:"
+        arrays[pre + "loss"] = np.float64(mets["loss"])
+        arrays[pre + "loss_2d"] = np.float64(mets["loss_2d"])
+        for m in TRAIN_MODULES:
+            arrays[pre + "norm:" + m] = np.float64(np.sqrt(sum(
+                float((v.double() ** 2).sum()) for k, v in sd.items()
+                if k.startswith(m + "."))))
+        for k in TRAIN_REFINE_LEAVES:
+            arrays[pre + "grad:" + k] = sd[k].numpy()
+        for name in TRAIN_REFINE_BNS:
+            for k in ("running_mean", "running_var"):
+                arrays[f"{pre}bn:{name}.{k}"] = stats[f"{name}.{k}"].numpy()
+        print(f"{dtype} n_iters={n_iters} seeds {seeds}: loss "
+              f"{float(mets['loss'])}", flush=True)
+    np.savez(out_path, **arrays)
+
+
+def write_bf16_train_golden():
+    """The bf16 training golden: `bf16_train_run` for bf16 and fp32 at
+    n_iters 0 and 1, each in a process of its own (the n_iters=1 steps
+    take ~23 GB apiece), and JAX's own |bf16 - fp32| of each quantity on
+    each batch."""
+    import subprocess
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import (BF16_TRAIN_SEEDS, TRAIN_MODULES,
+                            TRAIN_REFINE_BNS, TRAIN_REFINE_LEAVES)
+    from tdvnet_torch.config import BatchConfig, ModelConfig, TrainConfig
+
+    err = {}
+    lams = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n_iters in (0, 1):
+            runs = {}
+            for dtype in ("bf16", "fp32"):
+                out = os.path.join(tmp, f"{dtype}_{n_iters}.npz")
+                subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--bf16-train-run", dtype, str(n_iters),
+                                out], check=True)
+                with np.load(out) as z:
+                    runs[dtype] = {k: z[k] for k in z.files}
+            lams[n_iters] = float(runs["bf16"]["lam"])
+            per_batch = []
+            for b in range(len(BF16_TRAIN_SEEDS)):
+                bf = {k[len(f"b{b}:"):]: v for k, v in runs["bf16"].items()
+                      if k.startswith(f"b{b}:")}
+                f = {k[len(f"b{b}:"):]: v for k, v in runs["fp32"].items()
+                     if k.startswith(f"b{b}:")}
+                e = {k: abs(float(bf[k]) - float(f[k]))
+                     for k in ("loss", "loss_2d")}
+                e["norms"] = {m: abs(float(bf["norm:" + m])
+                                     - float(f["norm:" + m]))
+                              for m in TRAIN_MODULES}
+                e["grads"] = {k: _err_stats(bf["grad:" + k], f["grad:" + k])
+                              for k in TRAIN_REFINE_LEAVES}
+                e["bn"] = {f"{n}.{k}": _err_stats(bf[f"bn:{n}.{k}"],
+                                                  f[f"bn:{n}.{k}"])
+                           for n in TRAIN_REFINE_BNS
+                           for k in ("running_mean", "running_var")}
+                e["bf16_loss"] = float(bf["loss"])
+                e["fp32_loss"] = float(f["loss"])
+                per_batch.append(e)
+            err[str(n_iters)] = per_batch
+    record = {
+        "config": _config_record(ModelConfig(), BatchConfig()),
+        "train": _train_record(TrainConfig()),
+        "bf16_compute": True,
+        "seeds": [list(x) for x in BF16_TRAIN_SEEDS],
+        "weights": os.path.relpath(WEIGHTS, ROOT),
+        "weights_sha256": file_sha256(WEIGHTS),
+        "warp_mode": "gather",
+        "steps": 1,
+        "lam": {str(k): v for k, v in lams.items()},
+        "leaves": list(TRAIN_REFINE_LEAVES),
+        "bns": list(TRAIN_REFINE_BNS),
+        "jax_bf16_error": err,
+    }
+    np.savez_compressed(BF16_TRAIN_GOLDEN,
                         record=np.array(json.dumps(record)))
     print(json.dumps(record))
 
@@ -718,6 +879,44 @@ def test_bf16_golden_matches_chip_smoke_settings():
     assert os.path.getsize(BF16_GOLDEN) < 1.5 * (1 << 20)
 
 
+def test_bf16_train_golden_matches_chip_smoke_settings():
+    """The bf16 training golden (`--write-bf16-train`) records the settings
+    phase 9h drives: its batches, the weights, one step at the two
+    training goldens' lambdas, their leaves and BatchNorms, and JAX's own
+    error per batch and quantity."""
+    import chip_smoke
+    from tdvnet_torch.config import (BatchConfig, Config, ModelConfig,
+                                     TrainConfig)
+    from tdvnet_torch.train.loop import lambda_for_epoch
+
+    assert chip_smoke.BF16_TRAIN_GOLDEN == BF16_TRAIN_GOLDEN
+    rec = read_record(BF16_TRAIN_GOLDEN)
+    assert rec == chip_smoke.bf16_train_golden_record()
+    assert rec["config"] == _config_record(ModelConfig(), BatchConfig())
+    assert rec["train"] == _train_record(TrainConfig())
+    assert rec["bf16_compute"] is True and rec["steps"] == 1
+    seeds = [tuple(x) for x in rec["seeds"]]
+    assert seeds == list(chip_smoke.BF16_TRAIN_SEEDS)
+    assert seeds[0] == tuple(chip_smoke.GOLDEN_SEEDS)
+    assert rec["weights_sha256"] == file_sha256(WEIGHTS)
+    assert rec["leaves"] == list(chip_smoke.TRAIN_REFINE_LEAVES)
+    assert rec["bns"] == list(chip_smoke.TRAIN_REFINE_BNS)
+    assert rec["lam"] == {
+        "0": lambda_for_epoch(Config(), 0),
+        "1": lambda_for_epoch(Config(), chip_smoke.TRAIN_REFINE_EPOCH)}
+    for k in ("0", "1"):
+        assert len(rec["jax_bf16_error"][k]) == len(seeds)
+        for e in rec["jax_bf16_error"][k]:
+            assert sorted(e["norms"]) == sorted(chip_smoke.TRAIN_MODULES)
+            assert sorted(e["grads"]) == \
+                sorted(chip_smoke.TRAIN_REFINE_LEAVES)
+            assert 0.0 < e["loss"] < 0.1 * e["fp32_loss"]
+            # n_iters=0 trains no scene stage, n_iters=1 all of them
+            for m in ("pointnet", "scene_unet", "decoder"):
+                assert (e["norms"][m] > 0.0) == (k == "1")
+    assert os.path.getsize(BF16_TRAIN_GOLDEN) < 1 << 16
+
+
 def test_train_golden_matches_chip_smoke_settings():
     import chip_smoke
     from tdvnet_torch.config import BatchConfig, ModelConfig, TrainConfig
@@ -810,6 +1009,11 @@ if __name__ == "__main__":
         elif "--write-train" in sys.argv:
             write_train_golden()
             write_train_golden(refine=True)
+        elif "--bf16-train-run" in sys.argv:
+            rest = sys.argv[sys.argv.index("--bf16-train-run") + 1:]
+            bf16_train_run(rest[0], int(rest[1]), rest[2])
+        elif "--write-bf16-train" in sys.argv:
+            write_bf16_train_golden()
         elif "--write-bf16" in sys.argv:
             write_bf16_golden()
         elif "--train-bn-error" in sys.argv:
@@ -819,5 +1023,6 @@ if __name__ == "__main__":
         else:
             sys.exit("usage: python tests/test_torch_golden.py --write | "
                      "--write-scene [n_views] | --write-fast-scene [n_views]"
-                     " | --write-eval3d | --write-bf16 | --write-train | "
+                     " | --write-eval3d | --write-bf16 | --write-bf16-train | "
+                     "--write-train | "
                      "--write-train-refine | --train-bn-error")

@@ -360,12 +360,17 @@ def test_schedules_match_jax():
 
 
 def test_train_config_refuses_what_the_port_lacks():
+    """The three knobs of the JAX package's TrainConfig construct (the port
+    has them); a microbatch count below 1, or not whole, is refused."""
     from tdvnet_torch.config import TrainConfig
 
     for kw in ({"bf16_compute": True}, {"remat": True},
                {"grad_accum_steps": 2}):
-        with pytest.raises(NotImplementedError):
-            TrainConfig(**kw)
+        cfg = TrainConfig(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
+    for k in (0, -1, 1.5):
+        with pytest.raises(ValueError):
+            TrainConfig(grad_accum_steps=k)
 
 
 def test_model_config_refuses_a_dtype_the_port_lacks():
